@@ -1,0 +1,375 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``clip_ppo_tpu_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each printing its findings on its own lines; any failure exits
+non-zero at once:
+
+1. card — the GPU's name and power limit (nvidia-smi), and the build of
+   every hand-written kernel from ``clip_ppo_tpu_torch/csrc/``;
+2. kernels — each kernel against its plain PyTorch version on the card, at
+   the shapes the main path gives it (K2 and K3 with random LayerNorm
+   affines and biases), with its median time per call (CUDA events; K1 over
+   back-to-back calls, beside its profiled device time), the plain
+   version's time and the least time the card could take;
+3. slice — the CLIP-PPO MiniGrid CLI (text modality, HARD disturbances) for
+   two iterations, with every launch count read from the run;
+4. profile — one steady iteration of the same configuration timed by part,
+   and the device's busy share from a torch.profiler trace.
+
+The last lines are the kernels' JSON summary, the card's name and power
+limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device the
+script exits non-zero and prints no result. Comparisons run with TF32 off
+for both matmuls and cuDNN, so every plain version computes in full fp32.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+# Published dense peaks of the H100 SXM at its full 700 W (NVIDIA data
+# sheet): fp32 outside the tensor cores, and device-memory bandwidth.
+FP32_FLOPS = 67e12
+HBM_BYTES_PER_S = 3.35e12
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def time_ms(fn, reps: int, warmup: int = 2, calls: int = 1) -> float:
+    """Median milliseconds per call of ``fn`` over ``reps`` runs, CUDA events.
+    Each run times ``calls`` back-to-back calls between one pair of events,
+    so a short kernel's time is its device time and not its host overhead."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    times.sort()
+    return times[len(times) // 2]
+
+
+def profiled_ms(fn, kernel: str, calls: int) -> float:
+    """Device milliseconds per launch of the kernel whose name holds
+    ``kernel``, from a torch.profiler trace of ``calls`` calls of ``fn``
+    (0.0 when the trace holds no such kernel)."""
+    import torch
+
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if kernel in e.key
+              and e.device_type == torch.autograd.DeviceType.CUDA]
+    n = sum(e.count for e in events)
+    return sum(e.self_device_time_total for e in events) / 1e3 / n if n else 0.0
+
+
+def phase_card() -> dict:
+    import torch
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    name = torch.cuda.get_device_name(0)
+    flops, bw = FP32_FLOPS, HBM_BYTES_PER_S
+    print(f"[card] {smi} | torch {torch.__version__} cuda {torch.version.cuda} | "
+          f"bounds against the H100 SXM data sheet: fp32 {flops / 1e12:.0f} TFLOP/s, "
+          f"{bw / 1e12:.2f} TB/s")
+    from clip_ppo_tpu_torch import cuda_build
+
+    t0 = time.time()
+    cuda_build.build_all()
+    print(f"[card] built {len(cuda_build.SOURCES)} kernel libraries in {time.time() - t0:.1f} s")
+    for lib in cuda_build.SOURCES:
+        for line in cuda_build.build_log(lib).splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[card] ptxas {lib}: {line.strip()}")
+    return {"smi": smi, "name": name, "flops": flops, "bw": bw}
+
+
+def _bound(nbytes: float, nflops: float, card: dict) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / card["bw"] * 1e3, nflops / card["flops"] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _errors(got, ref) -> tuple[float, float]:
+    """Max absolute error, and the same relative to max |ref|."""
+    err = (got - ref).abs().max().item()
+    return err, err / max(ref.abs().max().item(), 1e-30)
+
+
+def phase_kernels(card: dict) -> list[dict]:
+    import torch
+
+    from clip_ppo_tpu_torch.models.clip import block_kernels as bk
+    from clip_ppo_tpu_torch.models.clip.model import init_block
+    from clip_ppo_tpu_torch.ops import disturb_kernel as dk
+    from clip_ppo_tpu_torch.ops.disturbances import DisturbanceDraws, draw
+    from clip_ppo_tpu_torch.ops.severity import DisturbanceSeverity, SEVERITY_CONFIGS
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    results = []
+
+    # -- K1 at the rollout's [8, 84, 84, 3], every severity, noise as input --
+    x = torch.rand((8, 84, 84, 3), generator=gen, device=dev)
+    worst, worst_rel = 0.0, 0.0
+    for sev in ("MILD", "MODERATE", "HARD", "SEVERE"):
+        params = SEVERITY_CONFIGS[DisturbanceSeverity[sev]]
+        d = draw(x, params, gen)
+        d = DisturbanceDraws(torch.randn(x.shape, generator=gen, device=dev), d.factor, d.origin)
+        err, rel = _errors(dk.disturb_batched(x, params, d), dk.disturb_batched_plain(x, params, d))
+        print(f"[kernels] K1 {sev}: ksize {params.blur_kernel_size} max_abs_err {err:.3e} "
+              f"max_rel_err {rel:.3e} (tolerance 1e-5 absolute on [0, 1] values)")
+        if not err <= 1e-5:
+            fail(f"K1 {sev} disagrees with its plain version: {err} > 1e-5")
+        worst, worst_rel = max(worst, err), max(worst_rel, rel)
+    z = dk.kernel_normals(1 << 22, 12345, 0, dev)
+    z1 = dk.kernel_normals(1 << 16, 12345, 1, dev)
+    mean, std = z.mean().item(), z.std().item()
+    print(f"[kernels] K1 in-kernel Philox normals over {z.numel()} draws: mean {mean:.5f} std {std:.5f}")
+    if abs(mean) > 0.003 or abs(std - 1.0) > 0.003 or torch.equal(z[: z1.numel()], z1):
+        fail("K1's in-kernel noise is not standard normal (|mean|, |std-1| <= 0.003) or "
+             "its streams do not differ per image")
+    params = SEVERITY_CONFIGS[DisturbanceSeverity.HARD]
+    d_seed = draw(x, params, gen)  # the main path's mode: noise drawn in the kernel
+    d_in = DisturbanceDraws(torch.randn(x.shape, generator=gen, device=dev), d_seed.factor, d_seed.origin)
+    k1 = lambda: dk.disturb_batched(x, params, d_seed)  # noqa: E731
+    ms = time_ms(k1, reps=20, calls=50)
+    plain_ms = time_ms(lambda: dk.disturb_batched_plain(x, params, d_in), reps=20, calls=50)
+    device_ms = profiled_ms(k1, "disturb_kernel", calls=50)
+    elems = x.numel()
+    bound_ms, bound_by = _bound(2 * elems * 4, elems * (4 * params.blur_kernel_size + 7), card)
+    print(f"[kernels] K1 HARD [8,84,84,3]: {ms:.4f} ms per call over 50 back-to-back calls "
+          f"(torch.profiler device time {device_ms:.4f} ms per launch; grid of {x.shape[0]} "
+          f"blocks on {torch.cuda.get_device_properties(dev).multi_processor_count} SMs), "
+          f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+    results.append({
+        "name": "disturb", "route": "cuda", "source": "clip_ppo_tpu_torch/csrc/disturb.cu",
+        "replaces": "clip_ppo_tpu/ops/pallas_disturb.py:76", "max_abs_err": worst,
+        "max_rel_err": worst_rel, "tolerance": 1e-5, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None,
+    })
+
+    # -- K2 and K3 at the text table's [1024, 77, 512] --------------------------
+    b, t, dm, heads = 1024, 77, 512, 8
+    p = init_block(gen, dm, dev)
+    # init_block leaves every LayerNorm at scale 1 and bias 0 and every bias
+    # at 0. Draw them, so a kernel that drops or misreads one disagrees.
+    for ln in (p["ln_1"], p["ln_2"]):
+        ln["scale"] = 1.0 + 0.1 * torch.randn(dm, generator=gen, device=dev)
+        ln["bias"] = 0.1 * torch.randn(dm, generator=gen, device=dev)
+    for part, key in (("attn", "in_proj_b"), ("attn", "out_proj_b"), ("mlp", "fc_b"),
+                      ("mlp", "proj_b")):
+        p[part][key] = 0.1 * torch.randn(p[part][key].shape, generator=gen, device=dev)
+    xb = torch.randn((b, t, dm), generator=gen, device=dev)
+    with torch.no_grad():
+        for name, fn, plain, nflops, wbytes, src, line in (
+            ("attn_block",
+             lambda: bk.attn_block(xb, p["ln_1"], p["attn"], heads, causal=True),
+             lambda: bk.attn_block_plain(xb, p["ln_1"], p["attn"], heads, causal=True),
+             2 * b * t * dm * 4 * dm + 2 * 2 * b * t * (t + 1) // 2 * dm,
+             (4 * dm * dm + 6 * dm) * 4, "clip_ppo_tpu_torch/csrc/attn_block.cu",
+             "clip_ppo_tpu/models/clip/pallas_block.py:110"),
+            ("mlp_block",
+             lambda: bk.mlp_block(xb, p["ln_2"], p["mlp"]),
+             lambda: bk.mlp_block_plain(xb, p["ln_2"], p["mlp"]),
+             2 * 2 * b * t * dm * 4 * dm,
+             (8 * dm * dm + 7 * dm) * 4, "clip_ppo_tpu_torch/csrc/mlp_block.cu",
+             "clip_ppo_tpu/models/clip/pallas_block.py:170"),
+        ):
+            got, ref = fn(), plain()
+            torch.cuda.synchronize()
+            err, rel = _errors(got, ref)
+            scale = ref.abs().max().item()
+            tol = 1e-4 * max(1.0, scale)
+            del got, ref
+            print(f"[kernels] {name} [{b},{t},{dm}]: max_abs_err {err:.3e} max_rel_err {rel:.3e} "
+                  f"(max |ref| {scale:.3f}; tolerance 1e-4 x max(1, max |ref|) = {tol:.1e})")
+            if not err <= tol:
+                fail(f"{name} disagrees with its plain version: {err} > {tol}")
+            ms = time_ms(fn, reps=10)
+            plain_ms = time_ms(plain, reps=10)
+            bound_ms, bound_by = _bound(2 * xb.numel() * 4 + wbytes, nflops, card)
+            print(f"[kernels] {name}: {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
+                  f"({bound_by}, {nflops / 1e9:.1f} GFLOP), {nflops / ms / 1e9:.2f} TFLOP/s")
+            results.append({
+                "name": name, "route": "cuda", "source": src, "replaces": line,
+                "max_abs_err": err, "max_rel_err": rel, "tolerance": tol, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": None,
+            })
+    del xb, p
+    torch.cuda.empty_cache()
+    print("[kernels] " + json.dumps({"checked": [
+        {k: r[k] for k in ("name", "max_abs_err", "max_rel_err", "tolerance")} | {"ok": True}
+        for r in results]}))
+    return results
+
+
+def phase_slice(results: list[dict], card: dict) -> None:
+    import math
+
+    import torch
+
+    from clip_ppo_tpu_torch import cuda_build
+    from clip_ppo_tpu_torch.cli import clip_ppo_minigrid as cli
+    from clip_ppo_tpu_torch.utils import flags
+
+    argv = [
+        "--clip-config.clip-lambda", "1e-5", "--clip-config.clip-modality", "text",
+        "--clip-config.apply-disturbances", "--clip-config.disturbance-severity", "HARD",
+        "--total-timesteps", "2048", "--no-capture-video", "--seed", "1",
+    ]
+    args = flags.parse(cli.Args, argv)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            args.model_path = os.path.join(tmp, "checkpoints")
+            cuda_build.reset_launches()
+            t0 = time.time()
+            summary = cli.train(args, run_name="chip_smoke")
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            launches = dict(cuda_build.LAUNCHES)
+            events = [f for _, _, fs in os.walk(os.path.join(tmp, "runs")) for f in fs
+                      if "tfevents" in f]
+            ckpts = os.listdir(args.model_path)
+        finally:
+            os.chdir(cwd)
+    iters = args.num_iterations
+    print(f"[slice] {iters} iterations of {args.num_envs}x{args.num_steps} on {args.env_id} "
+          f"in {wall:.2f} s wall; launches {launches}")
+    print(f"[slice] text table build {summary['table_seconds']:.3f} s; steady SPS "
+          f"{summary['sps']:.1f} on {card['smi']}")
+    expect = {"attn_block": 12, "mlp_block": 12, "disturb": 128 * iters}
+    for name, n in expect.items():
+        if launches[name] != n:
+            fail(f"{name} launched {launches[name]} times on the main path, expected {n}")
+    for key, v in summary["last_scalars"].items():
+        if not math.isfinite(float(v)) and key != "explained_variance":
+            fail(f"non-finite {key} = {v}")
+    if not events:
+        fail("no TensorBoard event file written")
+    if not any(c.endswith("_final.ckpt") for c in ckpts):
+        fail(f"no final checkpoint among {ckpts}")
+    for r in results:
+        r["launches"] = launches[r["name"]]
+
+
+def phase_profile(card: dict) -> None:
+    """Where one steady iteration of the slice's configuration spends its
+    time: host wall clock per part (synchronized), and the device's busy
+    share from a torch.profiler trace of a whole iteration."""
+    import torch
+
+    from clip_ppo_tpu_torch.envs.vector import TorchVectorEnv
+    from clip_ppo_tpu_torch.models import clip_utils
+    from clip_ppo_tpu_torch.models.agent import init_agent_params
+    from clip_ppo_tpu_torch.ops.severity import DisturbanceSeverity, SEVERITY_CONFIGS
+    from clip_ppo_tpu_torch.train.ppo import PPOConfig
+    from clip_ppo_tpu_torch.train.runner import Draws, Trainer
+
+    dev = torch.device("cuda", 0)
+    env = TorchVectorEnv("MiniGrid-Empty-16x16-v0", 8, dev)
+    clip_params, clip_cfg = clip_utils.load_clip_model("ViT-B/32", dev)
+    suffix = ", objects: wall at (0,0), wall at (0,1), wall at (0,2)"
+    table = clip_utils.build_minigrid_text_table(clip_params, clip_cfg, 16, 16, suffix)
+    del clip_params
+    cfg = PPOConfig(clip_mode="precomputed")
+    trainer = Trainer(cfg, env, 2, disturbance=SEVERITY_CONFIGS[DisturbanceSeverity.HARD],
+                      embed_desc_fn=clip_utils.make_text_table_embed_fn(16), clip_lambda=1e-5,
+                      frozen_params={"text_table": table})
+    gen = torch.Generator()
+    gen.manual_seed(1)
+    state = trainer.init_state(init_agent_params(gen, env.num_actions, dev), 1)
+    state = trainer.iteration(state, 1)[0]  # warm-up
+    torch.cuda.synchronize()
+    parts = {}
+    t0 = time.perf_counter()
+    state, batch = trainer._rollout(state, Draws())
+    torch.cuda.synchronize()
+    parts["rollout"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    data = trainer._data2d(state, batch)
+    emb = trainer.embed_desc_fn(batch.desc, trainer.frozen_params)
+    torch.cuda.synchronize()
+    parts["gae+embed"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    state, _ = trainer._update(state, data, 2, emb, Draws())
+    torch.cuda.synchronize()
+    parts["update"] = time.perf_counter() - t0
+    total = sum(parts.values())
+    print("[profile] one iteration (8x128, Empty-16x16, HARD, text table), host wall: "
+          + ", ".join(f"{k} {v * 1e3:.1f} ms ({100 * v / total:.1f}%)" for k, v in parts.items())
+          + f"; total {total * 1e3:.1f} ms = {1024 / total:.0f} env-steps/s on {card['smi']}")
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        trainer.iteration(state, 2)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events) / 1e6
+    if busy <= 0:
+        print("[profile] device busy share: not measured (the trace holds no device time)")
+        return
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+    # The tracer itself slows the host many times over, so the busy share is
+    # taken against the untraced iteration's wall time above.
+    print(f"[profile] device busy {busy * 1e3:.1f} ms per iteration = {100 * busy / total:.1f}% of "
+          f"the untraced {total * 1e3:.1f} ms (idle {100 * (1 - busy / total):.1f}%; traced wall "
+          f"{wall * 1e3:.0f} ms); top kernels: "
+          + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.1f} ms x{e.count}" for e in top))
+
+
+def main() -> None:
+    try:
+        import torch
+    except ImportError:
+        fail("torch is not importable")
+    if not torch.cuda.is_available():
+        fail("no CUDA device: this script measures the port on a GPU")
+    try:
+        import clip_ppo_tpu_torch  # noqa: F401
+    except ImportError as e:
+        fail(f"the port is not importable from here ({e}); run from the repository root")
+    card = phase_card()
+    results = phase_kernels(card)
+    phase_slice(results, card)
+    phase_profile(card)
+    order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+             "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{k: r[k] for k in order} for r in results]}))
+    print(card["smi"])
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,113 @@
+"""CLIP's causal text transformer in PyTorch, and random initialization of
+both towers.
+
+Parameters are nested dicts of tensors with the JAX package's key layout
+(OpenAI's module names; see loader.py), so weights carry across whole
+between the packages (``clip_ppo_tpu_torch.convert``). Linear weights keep
+the ``[out, in]`` orientation, applied as ``x @ W.T``.
+
+Routing: every resblock runs :func:`block_kernels.attn_block` then
+:func:`block_kernels.mlp_block`. On a CUDA tensor those launch the K2 and
+K3 kernels whatever the batch; on a CPU tensor they run their plain
+versions. (The JAX package routes by batch size and backend to save TPU
+compile time, which has no counterpart here.) ``encode_image`` comes with
+the image-modality slice.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from clip_ppo_tpu_torch.models.clip.block_kernels import (  # noqa: F401  (re-exported)
+    attention,
+    attn_block,
+    causal_mask,
+    layer_norm,
+    mlp_block,
+    quick_gelu,
+)
+from clip_ppo_tpu_torch.models.clip.config import CLIPConfig
+
+
+def resblock(p: dict, x: torch.Tensor, heads: int, causal: bool = False) -> torch.Tensor:
+    """Pre-LN transformer block with QuickGELU MLP (width → 4·width)."""
+    x = attn_block(x, p["ln_1"], p["attn"], heads, causal)
+    return mlp_block(x, p["ln_2"], p["mlp"])
+
+
+def transformer(p: dict, x: torch.Tensor, heads: int, causal: bool = False) -> torch.Tensor:
+    for block in p["resblocks"]:
+        x = resblock(block, x, heads, causal)
+    return x
+
+
+def encode_text(params: dict, cfg: CLIPConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """[B, 77] integer token ids → [B, embed_dim] float32 features, pooled at
+    each sequence's argmax token id (the EOT token) as OpenAI CLIP does."""
+    t = params["text"]
+    tokens = tokens.long()
+    x = t["token_embedding"][tokens]
+    x = (x + t["positional_embedding"][: tokens.shape[1]]).contiguous()
+    x = transformer(t["transformer"], x, cfg.text_heads, causal=True)
+    x = layer_norm(t["ln_final"], x)
+    eot = tokens.argmax(dim=-1)
+    pooled = x[torch.arange(x.shape[0], device=x.device), eot]
+    return pooled @ t["text_projection"]
+
+
+# ---------------------------------------------------------------------------
+# Random initialization (OpenAI's init scheme; real weights come from
+# loader.py)
+# ---------------------------------------------------------------------------
+
+
+def _normal(gen: torch.Generator, shape, std: float, device) -> torch.Tensor:
+    return std * torch.randn(shape, generator=gen, device=device)
+
+
+def init_block(gen: torch.Generator, width: int, device) -> dict:
+    attn_std = width ** -0.5
+    fc_std = (2 * width) ** -0.5
+    proj_std = attn_std
+    ones = lambda n: torch.ones(n, device=device)  # noqa: E731
+    zeros = lambda n: torch.zeros(n, device=device)  # noqa: E731
+    return {
+        "ln_1": {"scale": ones(width), "bias": zeros(width)},
+        "ln_2": {"scale": ones(width), "bias": zeros(width)},
+        "attn": {
+            "in_proj_w": _normal(gen, (3 * width, width), attn_std, device),
+            "in_proj_b": zeros(3 * width),
+            "out_proj_w": _normal(gen, (width, width), proj_std, device),
+            "out_proj_b": zeros(width),
+        },
+        "mlp": {
+            "fc_w": _normal(gen, (4 * width, width), fc_std, device),
+            "fc_b": zeros(4 * width),
+            "proj_w": _normal(gen, (width, 4 * width), proj_std, device),
+            "proj_b": zeros(width),
+        },
+    }
+
+
+def init_clip_params(gen: torch.Generator, cfg: CLIPConfig, device) -> dict:
+    """Both towers, with the JAX package's shapes and init scales."""
+    vw, tw = cfg.vision_width, cfg.text_width
+    ones = lambda n: torch.ones(n, device=device)  # noqa: E731
+    zeros = lambda n: torch.zeros(n, device=device)  # noqa: E731
+    visual = {
+        "patch_embed_w": _normal(gen, (cfg.patch_size * cfg.patch_size * 3, vw), vw ** -0.5, device),
+        "class_embedding": _normal(gen, (vw,), vw ** -0.5, device),
+        "positional_embedding": _normal(gen, (cfg.num_patches + 1, vw), vw ** -0.5, device),
+        "ln_pre": {"scale": ones(vw), "bias": zeros(vw)},
+        "transformer": {"resblocks": [init_block(gen, vw, device) for _ in range(cfg.vision_layers)]},
+        "ln_post": {"scale": ones(vw), "bias": zeros(vw)},
+        "proj": _normal(gen, (vw, cfg.embed_dim), vw ** -0.5, device),
+    }
+    text = {
+        "token_embedding": _normal(gen, (cfg.vocab_size, tw), 0.02, device),
+        "positional_embedding": _normal(gen, (cfg.context_length, tw), 0.01, device),
+        "transformer": {"resblocks": [init_block(gen, tw, device) for _ in range(cfg.text_layers)]},
+        "ln_final": {"scale": ones(tw), "bias": zeros(tw)},
+        "text_projection": _normal(gen, (tw, cfg.embed_dim), tw ** -0.5, device),
+    }
+    return {"visual": visual, "text": text}
