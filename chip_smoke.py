@@ -9,14 +9,23 @@ non-zero at once:
 1. card — the GPU's name and power limit (nvidia-smi), and the build of
    every hand-written kernel from ``clip_ppo_tpu_torch/csrc/``;
 2. kernels — each kernel against its plain PyTorch version on the card, at
-   the shapes the main path gives it (K2 and K3 with random LayerNorm
-   affines and biases), with its median time per call (CUDA events; K1 over
-   back-to-back calls, beside its profiled device time), the plain
-   version's time and the least time the card could take;
-3. slice — the CLIP-PPO MiniGrid CLI (text modality, HARD disturbances) for
-   two iterations, with every launch count read from the run;
-4. profile — one steady iteration of the same configuration timed by part,
-   and the device's busy share from a torch.profiler trace.
+   the shapes the main paths give it (K2, K3 and K5 with random LayerNorm
+   affines and biases; K2 at the text and the vision tower's shapes; K5
+   also at ViT-L/14's width and at a ragged row count), with its median
+   time per call (CUDA events; K1 over back-to-back calls, beside its
+   profiled device time), the plain version's time and the least time the
+   card could take;
+3. text slice — the CLIP-PPO MiniGrid CLI (text modality, HARD
+   disturbances) for two iterations, with every launch count read from the
+   run;
+4. text profile — one steady iteration of the same configuration timed by
+   part, and the device's busy share from a torch.profiler trace;
+5. image slice — the same CLI with the image modality (the ViT-B/32 vision
+   tower encodes each iteration's 1,024 frames) for two iterations, with
+   its launch counts, and the tower's embeddings of a few frames on the
+   card against the plain versions on the CPU;
+6. image profile — one steady image-modality iteration by part, and the
+   device's busy share.
 
 The last lines are the kernels' JSON summary, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device the
@@ -28,6 +37,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -101,9 +111,14 @@ def phase_card() -> dict:
     cuda_build.build_all()
     print(f"[card] built {len(cuda_build.SOURCES)} kernel libraries in {time.time() - t0:.1f} s")
     for lib in cuda_build.SOURCES:
+        kernel = ""
         for line in cuda_build.build_log(lib).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[card] ptxas {lib}: {line.strip()}")
+            if "Function properties for" in line:
+                # a mangled name such as ..._17mlp_stream_kernelILi768EEvPKf...
+                m = re.search(r"([a-z_]+_kernel)(?:ILi(\d+)E)?", line)
+                kernel = f"{m[1]}<{m[2]}>" if m and m[2] else m[1] if m else ""
+            elif "registers" in line or "spill" in line:
+                print(f"[card] ptxas {lib} {kernel}: {line.strip()}")
     return {"smi": smi, "name": name, "flops": flops, "bw": bw}
 
 
@@ -169,68 +184,105 @@ def phase_kernels(card: dict) -> list[dict]:
           f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
     results.append({
         "name": "disturb", "route": "cuda", "source": "clip_ppo_tpu_torch/csrc/disturb.cu",
-        "replaces": "clip_ppo_tpu/ops/pallas_disturb.py:76", "max_abs_err": worst,
+        "replaces": "clip_ppo_tpu/ops/pallas_disturb.py:76", "shape": "[8,84,84,3]",
+        "path": "text", "max_abs_err": worst,
         "max_rel_err": worst_rel, "tolerance": 1e-5, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None,
     })
 
-    # -- K2 and K3 at the text table's [1024, 77, 512] --------------------------
-    b, t, dm, heads = 1024, 77, 512, 8
-    p = init_block(gen, dm, dev)
-    # init_block leaves every LayerNorm at scale 1 and bias 0 and every bias
-    # at 0. Draw them, so a kernel that drops or misreads one disagrees.
-    for ln in (p["ln_1"], p["ln_2"]):
-        ln["scale"] = 1.0 + 0.1 * torch.randn(dm, generator=gen, device=dev)
-        ln["bias"] = 0.1 * torch.randn(dm, generator=gen, device=dev)
-    for part, key in (("attn", "in_proj_b"), ("attn", "out_proj_b"), ("mlp", "fc_b"),
-                      ("mlp", "proj_b")):
-        p[part][key] = 0.1 * torch.randn(p[part][key].shape, generator=gen, device=dev)
-    xb = torch.randn((b, t, dm), generator=gen, device=dev)
+    # -- K2 and K3 at the text table's [1024, 77, 512]; K2 and K5 at the vision
+    # tower's [1024, 50, 768]; K5 at ViT-L/14's [256, 257, 1024] and at a
+    # ragged row count (checked, not timed) ---------------------------------
+    def block(dm):
+        p = init_block(gen, dm, dev)
+        # init_block leaves every LayerNorm at scale 1 and bias 0 and every bias
+        # at 0. Draw them, so a kernel that drops or misreads one disagrees.
+        for ln in (p["ln_1"], p["ln_2"]):
+            ln["scale"] = 1.0 + 0.1 * torch.randn(dm, generator=gen, device=dev)
+            ln["bias"] = 0.1 * torch.randn(dm, generator=gen, device=dev)
+        for part, key in (("attn", "in_proj_b"), ("attn", "out_proj_b"), ("mlp", "fc_b"),
+                          ("mlp", "proj_b")):
+            p[part][key] = 0.1 * torch.randn(p[part][key].shape, generator=gen, device=dev)
+        return p
+
+    def attn_case(b, t, dm, causal, path):
+        heads = dm // 64
+        # qkv and out-projections, then scores and weighted values over the
+        # causal triangle or the full T x T.
+        pairs = t * (t + 1) // 2 if causal else t * t
+        return ("attn_block", path, (b, t, dm),
+                lambda x, p: bk.attn_block(x, p["ln_1"], p["attn"], heads, causal=causal),
+                lambda x, p: bk.attn_block_plain(x, p["ln_1"], p["attn"], heads, causal=causal),
+                2 * b * t * dm * 4 * dm + 2 * 2 * b * pairs * dm, (4 * dm * dm + 6 * dm) * 4,
+                "clip_ppo_tpu_torch/csrc/attn_block.cu",
+                "clip_ppo_tpu/models/clip/pallas_block.py:110")
+
+    def mlp_case(name, b, t, dm, path):
+        fn = bk.mlp_block_resident if name == "mlp_block" else bk.mlp_stream
+        src, line = {"mlp_block": ("mlp_block.cu", 170), "mlp_stream": ("mlp_stream.cu", 393)}[name]
+        return (name, path, (b, t, dm), lambda x, p: fn(x, p["ln_2"], p["mlp"]),
+                lambda x, p: bk.mlp_block_plain(x, p["ln_2"], p["mlp"]),
+                2 * 2 * b * t * dm * 4 * dm, (8 * dm * dm + 7 * dm) * 4,
+                f"clip_ppo_tpu_torch/csrc/{src}", f"clip_ppo_tpu/models/clip/pallas_block.py:{line}")
+
+    cases = [  # (case, timed); rows of no main path stay out of the kernels line
+        (attn_case(1024, 77, 512, True, "text"), True),
+        (mlp_case("mlp_block", 1024, 77, 512, "text"), True),
+        (attn_case(1024, 50, 768, False, "image"), True),
+        (mlp_case("mlp_stream", 1024, 50, 768, "image"), True),
+        (mlp_case("mlp_stream", 256, 257, 1024, None), True),
+        (mlp_case("mlp_stream", 7, 50, 768, None), False),
+    ]
+    params = {}
     with torch.no_grad():
-        for name, fn, plain, nflops, wbytes, src, line in (
-            ("attn_block",
-             lambda: bk.attn_block(xb, p["ln_1"], p["attn"], heads, causal=True),
-             lambda: bk.attn_block_plain(xb, p["ln_1"], p["attn"], heads, causal=True),
-             2 * b * t * dm * 4 * dm + 2 * 2 * b * t * (t + 1) // 2 * dm,
-             (4 * dm * dm + 6 * dm) * 4, "clip_ppo_tpu_torch/csrc/attn_block.cu",
-             "clip_ppo_tpu/models/clip/pallas_block.py:110"),
-            ("mlp_block",
-             lambda: bk.mlp_block(xb, p["ln_2"], p["mlp"]),
-             lambda: bk.mlp_block_plain(xb, p["ln_2"], p["mlp"]),
-             2 * 2 * b * t * dm * 4 * dm,
-             (8 * dm * dm + 7 * dm) * 4, "clip_ppo_tpu_torch/csrc/mlp_block.cu",
-             "clip_ppo_tpu/models/clip/pallas_block.py:170"),
-        ):
-            got, ref = fn(), plain()
+        for (name, path, (b, t, dm), fn, plain, nflops, wbytes, src, line), timed in cases:
+            if dm not in params:
+                params[dm] = block(dm)
+            p = params[dm]
+            xb = torch.randn((b, t, dm), generator=gen, device=dev)
+            got, ref = fn(xb, p), plain(xb, p)
             torch.cuda.synchronize()
             err, rel = _errors(got, ref)
             scale = ref.abs().max().item()
             tol = 1e-4 * max(1.0, scale)
             del got, ref
-            print(f"[kernels] {name} [{b},{t},{dm}]: max_abs_err {err:.3e} max_rel_err {rel:.3e} "
+            shape = f"[{b},{t},{dm}]"
+            print(f"[kernels] {name} {shape}: max_abs_err {err:.3e} max_rel_err {rel:.3e} "
                   f"(max |ref| {scale:.3f}; tolerance 1e-4 x max(1, max |ref|) = {tol:.1e})")
             if not err <= tol:
-                fail(f"{name} disagrees with its plain version: {err} > {tol}")
-            ms = time_ms(fn, reps=10)
-            plain_ms = time_ms(plain, reps=10)
+                fail(f"{name} {shape} disagrees with its plain version: {err} > {tol}")
+            if not timed:
+                continue
+            ms = time_ms(lambda: fn(xb, p), reps=10)
+            plain_ms = time_ms(lambda: plain(xb, p), reps=10)
             bound_ms, bound_by = _bound(2 * xb.numel() * 4 + wbytes, nflops, card)
-            print(f"[kernels] {name}: {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
-                  f"({bound_by}, {nflops / 1e9:.1f} GFLOP), {nflops / ms / 1e9:.2f} TFLOP/s")
+            print(f"[kernels] {name} {shape}: {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+                  f"{bound_ms:.3f} ms ({bound_by}, {nflops / 1e9:.1f} GFLOP), "
+                  f"{nflops / ms / 1e9:.2f} TFLOP/s")
             results.append({
-                "name": name, "route": "cuda", "source": src, "replaces": line,
-                "max_abs_err": err, "max_rel_err": rel, "tolerance": tol, "ms": ms,
+                "name": name, "route": "cuda", "source": src, "replaces": line, "shape": shape,
+                "path": path, "max_abs_err": err, "max_rel_err": rel, "tolerance": tol, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": None,
             })
-    del xb, p
+            del xb
+    del params
     torch.cuda.empty_cache()
     print("[kernels] " + json.dumps({"checked": [
-        {k: r[k] for k in ("name", "max_abs_err", "max_rel_err", "tolerance")} | {"ok": True}
-        for r in results]}))
+        {k: r.get(k) for k in ("name", "shape", "max_abs_err", "max_rel_err", "tolerance")}
+        | {"ok": True} for r in results]}))
     return results
 
 
-def phase_slice(results: list[dict], card: dict) -> None:
+SLICES = {
+    # modality: launches expected on the CLI's main path, per iteration
+    "text": {"attn_block": 0, "mlp_block": 0, "mlp_stream": 0, "disturb": 128},
+    "image": {"attn_block": 12, "mlp_block": 0, "mlp_stream": 12, "disturb": 128},
+}
+STARTUP = {"text": {"attn_block": 12, "mlp_block": 12}, "image": {}}  # the text table
+
+
+def phase_slice(results: list[dict], card: dict, modality: str) -> None:
     import math
 
     import torch
@@ -240,7 +292,7 @@ def phase_slice(results: list[dict], card: dict) -> None:
     from clip_ppo_tpu_torch.utils import flags
 
     argv = [
-        "--clip-config.clip-lambda", "1e-5", "--clip-config.clip-modality", "text",
+        "--clip-config.clip-lambda", "1e-5", "--clip-config.clip-modality", modality,
         "--clip-config.apply-disturbances", "--clip-config.disturbance-severity", "HARD",
         "--total-timesteps", "2048", "--no-capture-video", "--seed", "1",
     ]
@@ -262,27 +314,55 @@ def phase_slice(results: list[dict], card: dict) -> None:
         finally:
             os.chdir(cwd)
     iters = args.num_iterations
-    print(f"[slice] {iters} iterations of {args.num_envs}x{args.num_steps} on {args.env_id} "
+    tag = f"[{modality} slice]"
+    print(f"{tag} {iters} iterations of {args.num_envs}x{args.num_steps} on {args.env_id} "
           f"in {wall:.2f} s wall; launches {launches}")
-    print(f"[slice] text table build {summary['table_seconds']:.3f} s; steady SPS "
-          f"{summary['sps']:.1f} on {card['smi']}")
-    expect = {"attn_block": 12, "mlp_block": 12, "disturb": 128 * iters}
-    for name, n in expect.items():
+    print(f"{tag} text table build {summary['table_seconds']:.3f} s; steady SPS "
+          f"{summary['sps']:.1f}; first_clip_loss {float(summary['last_scalars']['first_clip_loss']):.6f} "
+          f"on {card['smi']}")
+    for name, per_iter in SLICES[modality].items():
+        n = per_iter * iters + STARTUP[modality].get(name, 0)
         if launches[name] != n:
-            fail(f"{name} launched {launches[name]} times on the main path, expected {n}")
+            fail(f"{name} launched {launches[name]} times on the {modality} path, expected {n}")
     for key, v in summary["last_scalars"].items():
         if not math.isfinite(float(v)) and key != "explained_variance":
             fail(f"non-finite {key} = {v}")
+    if not float(summary["last_scalars"]["first_clip_loss"]) > 0.0:
+        fail("the CLIP loss did not run (first_clip_loss is not > 0)")
     if not events:
         fail("no TensorBoard event file written")
     if not any(c.endswith("_final.ckpt") for c in ckpts):
         fail(f"no final checkpoint among {ckpts}")
     for r in results:
-        r["launches"] = launches[r["name"]]
+        if r["path"] == modality:
+            r["launches"] = launches[r["name"]]
 
 
-def phase_profile(card: dict) -> None:
-    """Where one steady iteration of the slice's configuration spends its
+def phase_image_encode(card: dict) -> None:
+    """The vision tower's embeddings of a few frames through the kernels on
+    the card, against the plain versions on the CPU with the same weights."""
+    import torch
+
+    from clip_ppo_tpu_torch.models import clip_utils
+    from clip_ppo_tpu_torch.utils.tree import tree_map
+
+    dev = torch.device("cuda", 0)
+    params, cfg = clip_utils.load_clip_model("ViT-B/32", dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    frames = torch.randint(0, 256, (8, 84, 84, 3), generator=gen, device=dev, dtype=torch.uint8)
+    got = clip_utils.encode_images(params, cfg, frames).cpu()
+    ref = clip_utils.encode_images(tree_map(lambda t: t.cpu(), params), cfg, frames.cpu())
+    err = (got - ref).abs().max().item()
+    print(f"[image encode] 8 frames through the ViT-B/32 tower (K2 + K5 on the card) vs the "
+          f"plain versions on the CPU: shape {tuple(got.shape)}, max_abs_err {err:.3e} on "
+          f"unit vectors (tolerance 1e-4)")
+    if got.shape != (8, cfg.embed_dim) or not torch.isfinite(got).all() or not err <= 1e-4:
+        fail(f"image embeddings on the card disagree with the CPU: {err}")
+
+
+def phase_profile(card: dict, modality: str) -> None:
+    """Where one steady iteration of a slice's configuration spends its
     time: host wall clock per part (synchronized), and the device's busy
     share from a torch.profiler trace of a whole iteration."""
     import torch
@@ -297,13 +377,18 @@ def phase_profile(card: dict) -> None:
     dev = torch.device("cuda", 0)
     env = TorchVectorEnv("MiniGrid-Empty-16x16-v0", 8, dev)
     clip_params, clip_cfg = clip_utils.load_clip_model("ViT-B/32", dev)
-    suffix = ", objects: wall at (0,0), wall at (0,1), wall at (0,2)"
-    table = clip_utils.build_minigrid_text_table(clip_params, clip_cfg, 16, 16, suffix)
-    del clip_params
+    if modality == "image":
+        embed = {"embed_images_fn": clip_utils.make_encode_images_fn(clip_cfg)}
+        frozen = {"clip": clip_params}
+    else:
+        suffix = ", objects: wall at (0,0), wall at (0,1), wall at (0,2)"
+        table = clip_utils.build_minigrid_text_table(clip_params, clip_cfg, 16, 16, suffix)
+        del clip_params
+        embed = {"embed_desc_fn": clip_utils.make_text_table_embed_fn(16)}
+        frozen = {"text_table": table}
     cfg = PPOConfig(clip_mode="precomputed")
     trainer = Trainer(cfg, env, 2, disturbance=SEVERITY_CONFIGS[DisturbanceSeverity.HARD],
-                      embed_desc_fn=clip_utils.make_text_table_embed_fn(16), clip_lambda=1e-5,
-                      frozen_params={"text_table": table})
+                      clip_lambda=1e-5, frozen_params=frozen, **embed)
     gen = torch.Generator()
     gen.manual_seed(1)
     state = trainer.init_state(init_agent_params(gen, env.num_actions, dev), 1)
@@ -316,15 +401,19 @@ def phase_profile(card: dict) -> None:
     parts["rollout"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     data = trainer._data2d(state, batch)
-    emb = trainer.embed_desc_fn(batch.desc, trainer.frozen_params)
     torch.cuda.synchronize()
-    parts["gae+embed"] = time.perf_counter() - t0
+    parts["GAE"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    emb = trainer.embed(batch, data)
+    torch.cuda.synchronize()
+    parts["CLIP encode" if modality == "image" else "table gather"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     state, _ = trainer._update(state, data, 2, emb, Draws())
     torch.cuda.synchronize()
     parts["update"] = time.perf_counter() - t0
     total = sum(parts.values())
-    print("[profile] one iteration (8x128, Empty-16x16, HARD, text table), host wall: "
+    tag = f"[{modality} profile]"
+    print(f"{tag} one iteration (8x128, Empty-16x16, HARD, {modality} modality), host wall: "
           + ", ".join(f"{k} {v * 1e3:.1f} ms ({100 * v / total:.1f}%)" for k, v in parts.items())
           + f"; total {total * 1e3:.1f} ms = {1024 / total:.0f} env-steps/s on {card['smi']}")
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -336,12 +425,12 @@ def phase_profile(card: dict) -> None:
     events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in events) / 1e6
     if busy <= 0:
-        print("[profile] device busy share: not measured (the trace holds no device time)")
+        print(f"{tag} device busy share: not measured (the trace holds no device time)")
         return
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
     # The tracer itself slows the host many times over, so the busy share is
     # taken against the untraced iteration's wall time above.
-    print(f"[profile] device busy {busy * 1e3:.1f} ms per iteration = {100 * busy / total:.1f}% of "
+    print(f"{tag} device busy {busy * 1e3:.1f} ms per iteration = {100 * busy / total:.1f}% of "
           f"the untraced {total * 1e3:.1f} ms (idle {100 * (1 - busy / total):.1f}%; traced wall "
           f"{wall * 1e3:.0f} ms); top kernels: "
           + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.1f} ms x{e.count}" for e in top))
@@ -360,11 +449,14 @@ def main() -> None:
         fail(f"the port is not importable from here ({e}); run from the repository root")
     card = phase_card()
     results = phase_kernels(card)
-    phase_slice(results, card)
-    phase_profile(card)
-    order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+    for modality in ("text", "image"):
+        phase_slice(results, card, modality)
+        if modality == "image":
+            phase_image_encode(card)
+        phase_profile(card, modality)
+    order = ("name", "route", "source", "replaces", "shape", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in order} for r in results]}))
+    print(json.dumps({"kernels": [{k: r[k] for k in order} for r in results if r["path"]]}))
     print(card["smi"])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,10 +9,13 @@ reference `minigrid_experiments/clip_ppo/clip_ppo_minigrid.py`.
 Runs on the GPU (``--cuda``, the default, raises without one) or on the CPU
 with ``--no-cuda``. The text modality encodes the W·H·4 possible MiniGrid
 descriptions once at startup with the CLIP text tower (K2/K3 kernels on the
-GPU) and gathers rows per step; batched disturbances (K1 on the GPU) apply
-to each observation before it is stored or acted on
-(`clip_ppo_minigrid.py:381-388`). Latents are detached, so the CLIP loss is
-a monitor that never perturbs the policy gradient.
+GPU) and gathers rows per step. The image modality
+(``--clip-config.clip-modality image``) encodes each iteration's stored
+observations with the CLIP vision tower (K2/K5 kernels on the GPU).
+Batched disturbances (K1 on the GPU) apply to each observation before it is
+stored or acted on (`clip_ppo_minigrid.py:381-388`). Embeddings enter the
+update as data and latents are detached, so the CLIP loss is a monitor that
+never perturbs the policy gradient.
 
 TensorBoard tags (including ``config/disturbance_severity``), checkpoint
 payload and naming, derived batch sizes and the CLI surface match the
@@ -41,7 +44,8 @@ from clip_ppo_tpu_torch.io.tb_writer import SummaryWriter, hyperparameters_table
 from clip_ppo_tpu_torch.io.tracking import ProfilerWindow, maybe_init_wandb
 from clip_ppo_tpu_torch.io.video import VideoRecorder
 from clip_ppo_tpu_torch.models import clip_utils
-from clip_ppo_tpu_torch.models.agent import AblationMode, init_agent_params
+from clip_ppo_tpu_torch.models.agent import LATENT_DIM, AblationMode, init_agent_params
+from clip_ppo_tpu_torch.models.clip.config import CLIP_CONFIGS
 from clip_ppo_tpu_torch.ops.severity import DisturbanceSeverity, resolve_params
 from clip_ppo_tpu_torch.train.ppo import PPOConfig
 from clip_ppo_tpu_torch.train.runner import LogPipeline, Trainer, chunk_length
@@ -172,29 +176,34 @@ class Args:
     """the number of iterations (computed in runtime)"""
 
 
-def _reject_later_slices(args: Args, compute_clip: bool) -> None:
+def _reject_later_slices(args: Args, compute_clip: bool, device: torch.device) -> None:
     cc = args.clip_config
+    image = compute_clip and cc.clip_modality == "image"
     later = [
         (args.num_devices > 1 or args.tp > 1 or args.distributed,
          "--num-devices/--tp > 1 and --distributed", "the multi-GPU slice"),
         (cc.ablation_mode == AblationMode.FROZEN_CLIP, "FROZEN_CLIP",
-         "the image-modality/FROZEN_CLIP slice"),
+         "the FROZEN_CLIP slice"),
         (cc.ablation_mode == AblationMode.RANDOM_ENCODER, "RANDOM_ENCODER",
-         "the image-modality/FROZEN_CLIP slice"),
-        (compute_clip and cc.clip_modality == "image", "the image modality",
-         "the image-modality/FROZEN_CLIP slice"),
+         "the FROZEN_CLIP slice"),
         (cc.structured_frozen_init, "--clip-config.structured-frozen-init",
-         "the image-modality/FROZEN_CLIP slice"),
+         "the distillation slice (gradients through the CLIP towers)"),
+        (image and cc.clip_model == "ViT-B/16" and device.type == "cuda",
+         "The image modality at ViT-B/16 on the GPU (K2 at its 197 tokens)",
+         "the ViT-B/16 slice"),
         (args.mission_conditioning, "--mission-conditioning", "the extensions slice"),
-        (compute_clip and not args.text_embed_table, "--no-text-embed-table",
-         "a later slice (the per-step host tokenization path)"),
+        (compute_clip and not args.text_embed_table and cc.clip_modality == "text",
+         "--no-text-embed-table", "a later slice (the per-step host tokenization path)"),
     ]
     for requested, what, slice_name in later:
         if requested:
             raise SystemExit(f"{what} is not ported yet: it comes with {slice_name} of "
                              "the PyTorch/CUDA port")
-    if compute_clip and cc.clip_modality != "text":
+    if compute_clip and cc.clip_modality not in ("image", "text"):
         raise SystemExit(f"Invalid modality: {cc.clip_modality}. Must be 'image' or 'text'")
+    if compute_clip:
+        # The JAX package raises this at the loss; here before any tower runs.
+        clip_utils.check_embedding_width(LATENT_DIM, CLIP_CONFIGS[cc.clip_model].embed_dim)
 
 
 def train(args: Args, run_name: Optional[str] = None) -> dict:
@@ -204,8 +213,8 @@ def train(args: Args, run_name: Optional[str] = None) -> dict:
     args.num_iterations = args.total_timesteps // args.batch_size
     cc = args.clip_config
     compute_clip = clip_utils.should_compute_clip_loss(cc.ablation_mode, cc.clip_lambda)
-    _reject_later_slices(args, compute_clip)
     device = resolve_device(args.cuda)
+    _reject_later_slices(args, compute_clip, device)
     run_name = run_name or args.run_name or f"{args.env_id}__{args.exp_name}__{args.seed}__{int(time.time())}"
 
     maybe_init_wandb(args, run_name)
@@ -231,12 +240,18 @@ def train(args: Args, run_name: Optional[str] = None) -> dict:
     else:
         print("Disturbances disabled")
 
-    # Text modality: descriptions are f(agent_x, agent_y, dir) + a suffix
-    # that is the static border wall on these layouts (checked over 16
-    # resets), so the W·H·4 description table is encoded once.
-    frozen_params, embed_desc_fn, table_seconds = None, None, 0.0
+    # Image modality: the CLIP weights stay in frozen["clip"] and the vision
+    # tower encodes each iteration's observations. Text modality:
+    # descriptions are f(agent_x, agent_y, dir) + a suffix that is the static
+    # border wall on these layouts (checked over 16 resets), so the W·H·4
+    # description table is encoded once.
+    frozen_params, embed_images_fn, embed_desc_fn, table_seconds = None, None, None, 0.0
     if compute_clip:
         clip_params, clip_cfg = clip_utils.load_clip_model(cc.clip_model, device)
+    if compute_clip and cc.clip_modality == "image":
+        frozen_params = {"clip": clip_params}
+        embed_images_fn = clip_utils.make_encode_images_fn(clip_cfg)
+    elif compute_clip:
         gen = torch.Generator()
         gen.manual_seed(0)
         grids = minigrid_core.reset(env.params, 16, gen, "cpu").grid.numpy()
@@ -265,7 +280,7 @@ def train(args: Args, run_name: Optional[str] = None) -> dict:
     )
     trainer = Trainer(
         cfg, env, num_iterations=args.num_iterations, disturbance=disturbance,
-        embed_desc_fn=embed_desc_fn, clip_lambda=cc.clip_lambda,
+        embed_images_fn=embed_images_fn, embed_desc_fn=embed_desc_fn, clip_lambda=cc.clip_lambda,
         capture_env0=args.capture_video, frozen_params=frozen_params,
     )
     param_gen = torch.Generator()

@@ -8,7 +8,8 @@
 // Bound on Hopper: operations. At the text-table shape [1024, 77, 512] one
 // layer is ~178 GFLOP (qkv 124, out-proj 41, attention 12) against ~0.3 GB of
 // activations and weights, far above the fp32 ridge point, so the least time
-// is the flops over the fp32 CUDA-core peak.
+// is the flops over the fp32 CUDA-core peak. The same holds at the vision
+// tower's [1024, 50, 768], non-causal: 249.5 GFLOP.
 //
 // Design: two launches.
 //   1. attn_heads_kernel, one block per (batch element, head): LN1 of the
@@ -48,9 +49,9 @@ struct HeadSmem {
 };
 
 // Rows per thread in the qkv tile; the tile covers TP = 16 * RI >= T rows.
-// RI = 5 covers the text context of 77 tokens, the one length on this path.
-// Other lengths come with the models that use them (the image towers' 50 and
-// 197 tokens), where they can be checked on the card.
+// RI = 5 covers T <= 80: the text context of 77 tokens and ViT-B/32's 50
+// (the tile's rows past T are zero). ViT-B/16's 197 tokens need a longer
+// tile, checked on the card with the model that uses it.
 constexpr int RI = 5;
 constexpr int TP = 16 * RI;
 

@@ -27,6 +27,7 @@ SOURCES = {
     "disturb": "disturb.cu",
     "attn_block": "attn_block.cu",
     "mlp_block": "mlp_block.cu",
+    "mlp_stream": "mlp_stream.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -102,6 +103,7 @@ def _declare(libs: dict[str, ctypes.CDLL]) -> None:
         ("disturb", "philox_normal_launch"): [p, u32, u32, i, p],
         ("attn_block", "attn_block_launch"): [p, p, p, p, p, p, p, p, p, i, i, i, i, i, f, p],
         ("mlp_block", "mlp_block_launch"): [p, p, p, p, p, p, p, p, i, i, i, f, p],
+        ("mlp_stream", "mlp_stream_launch"): [p, p, p, p, p, p, p, p, i, i, i, f, p],
     }
     for (lib, fn), argtypes in sig.items():
         func = getattr(libs[lib], fn)

@@ -28,8 +28,11 @@ class AblationMode(Enum):
     RANDOM_ENCODER = "RANDOM_ENCODER"
 
 
+LATENT_DIM = 512  # the trunk's output, the latent the CLIP loss aligns
+
+
 def init_agent_params(gen: torch.Generator, num_actions: int, device,
-                      in_channels: int = 3, hidden: int = 512) -> dict:
+                      in_channels: int = 3, hidden: int = LATENT_DIM) -> dict:
     """Orthogonally initialized trunk and heads; ``gen`` is a CPU generator
     (the weights are drawn on the CPU, then moved to ``device``)."""
     return {

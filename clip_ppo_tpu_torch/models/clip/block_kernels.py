@@ -1,22 +1,29 @@
-"""K2 and K3: the two halves of a pre-LN CLIP resblock as hand-written CUDA
-kernels, and their plain PyTorch versions.
+"""K2, K3 and K5: the two halves of a pre-LN CLIP resblock as hand-written
+CUDA kernels, and their plain PyTorch versions.
 
 * :func:`attn_block` — ``x + out_proj(MHA(qkv_proj(LN1(x))))`` with fp32 LN
   statistics and an optional causal mask. Replaces
   ``clip_ppo_tpu/models/clip/pallas_block.py::_attn_block_kernel`` (entry
-  ``fused_attn_block``); kernel in ``csrc/attn_block.cu``. The [B, T, 3D]
-  qkv never reaches device memory; the [B, T, D] attention output does,
-  between the kernel's two launches.
-* :func:`mlp_block` — ``x + proj(QuickGELU(fc(LN2(x))))``. Replaces
-  ``pallas_block.py::_mlp_block_kernel`` (entry ``fused_mlp_block``);
-  kernel in ``csrc/mlp_block.cu``. The [B, T, 4D] hidden never reaches
-  device memory.
+  ``fused_attn_block``); kernel in ``csrc/attn_block.cu``, for any batch,
+  D = heads × 64 and T ≤ 80 (the text tower's 77 tokens, ViT-B/32's 50).
+  The [B, T, 3D] qkv never reaches device memory; the [B, T, D] attention
+  output does, between the kernel's two launches.
+* :func:`mlp_block` — ``x + proj(QuickGELU(fc(LN2(x))))``, routed as
+  ``fused_mlp_block`` routes (``pallas_block.py:774``): where both weight
+  matrices fit the TPU kernel's 12 MiB budget (:func:`uses_mlp_stream`
+  false: the text tower's D = 512 in fp32) it runs
+  :func:`mlp_block_resident`, K3, replacing ``_mlp_block_kernel``
+  (``csrc/mlp_block.cu``, D = 512); otherwise (the vision tower's D = 768
+  in fp32, ViT-L/14's D = 1024) :func:`mlp_stream`, K5, replacing
+  ``_mlp_stream_kernel`` (``csrc/mlp_stream.cu``, D a multiple of 128 up to
+  1024), which streams the weights through shared memory in tiles. Either
+  way the [B, T, 4D] hidden never reaches device memory.
 
-Each wrapper launches its kernel for a CUDA tensor and runs its plain
-version (which mirrors ``_attn_block_ref`` / ``_mlp_block_ref``) for a CPU
-tensor. Forward only: the text table is built under ``torch.no_grad()``.
-The primitives the plain versions are built from (``layer_norm``,
-``quick_gelu``, ``attention``) are the model's own.
+Each wrapper launches its kernel for a CUDA tensor, runs its plain version
+(which mirrors ``_attn_block_ref`` / ``_mlp_block_ref``) for a CPU tensor,
+and raises for any other device. Forward only: the towers run under
+``torch.no_grad()``. The primitives the plain versions are built from
+(``layer_norm``, ``quick_gelu``, ``attention``) are the model's own.
 """
 
 from __future__ import annotations
@@ -26,6 +33,21 @@ import torch
 from clip_ppo_tpu_torch import cuda_build
 
 HEAD_DIM = 64
+# The TPU kernels' weight budget (``pallas_block.py:774``, ``model.py:204``).
+WEIGHT_BUDGET_BYTES = 12 << 20
+
+
+def uses_mlp_stream(width: int, hidden: int, itemsize: int) -> bool:
+    """Whether the MLP half takes K5: both weight matrices, in the
+    activations' dtype, exceed the budget (``fused_mlp_block``'s rule)."""
+    return 2 * width * hidden * itemsize > WEIGHT_BUDGET_BYTES
+
+
+def uses_attn_block(width: int) -> bool:
+    """Whether a resblock takes K2 for its attention half: the MLP weights
+    in bf16 fit the budget whatever the dtype (``_use_fused_block``'s
+    rule). Wider towers take K4 (``_fused_qkv_kernel``) in the JAX package."""
+    return 2 * width * 4 * width * 2 <= WEIGHT_BUDGET_BYTES
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -77,12 +99,29 @@ def mlp_block_plain(x: torch.Tensor, ln2: dict, mlp: dict,
     return x + (h @ mlp["proj_w"].T + mlp["proj_b"])
 
 
+# The kernels compute K5's function exactly as K3's: one plain version.
+mlp_stream_plain = mlp_block_plain
+
+
 def _check(x: torch.Tensor, weights: dict, name: str) -> None:
     if x.dtype != torch.float32 or x.dim() != 3 or not x.is_contiguous():
         raise ValueError(f"{name}: x must be a contiguous float32 [B, T, D] tensor")
     for key, w in weights.items():
         if w.device != x.device or w.dtype != torch.float32 or not w.is_contiguous():
             raise ValueError(f"{name}: {key} must be a contiguous float32 tensor on {x.device}")
+
+
+def _check_mlp_shapes(x: torch.Tensor, ln2: dict, mlp: dict, name: str) -> tuple[int, int]:
+    d = x.shape[-1]
+    d4 = mlp["fc_w"].shape[0]
+    want = {"ln_2.scale": (d,), "ln_2.bias": (d,), "fc_w": (d4, d), "fc_b": (d4,),
+            "proj_w": (d, d4), "proj_b": (d,)}
+    got = {"ln_2.scale": ln2["scale"], "ln_2.bias": ln2["bias"], **mlp}
+    for key, shape in want.items():
+        if tuple(got[key].shape) != shape:
+            raise ValueError(f"{name}: {key} has shape {tuple(got[key].shape)}, expected {shape}")
+    _check(x, got, name)
+    return d, d4
 
 
 def attn_block(x: torch.Tensor, ln1: dict, attn: dict, heads: int,
@@ -96,9 +135,9 @@ def attn_block(x: torch.Tensor, ln1: dict, attn: dict, heads: int,
     b, t, d = x.shape
     weights = {"ln_1.scale": ln1["scale"], "ln_1.bias": ln1["bias"], **attn}
     _check(x, weights, "attn_block")
-    if d != heads * HEAD_DIM or t > 80:
-        raise ValueError(f"attn_block: needs head width {HEAD_DIM} and T <= 80, got D={d}, "
-                         f"heads={heads}, T={t}")
+    if d != heads * HEAD_DIM or not 1 <= t <= 80:
+        raise ValueError(f"attn_block: the kernel takes D = heads x {HEAD_DIM} and 1 <= T <= 80 "
+                         f"(any batch, causal or not), got D={d}, heads={heads}, T={t}")
     scratch = torch.empty_like(x)  # attention output, before out_proj
     out = torch.empty_like(x)
     cuda_build.launch(
@@ -115,17 +154,24 @@ def attn_block(x: torch.Tensor, ln1: dict, attn: dict, heads: int,
 
 def mlp_block(x: torch.Tensor, ln2: dict, mlp: dict, eps: float = 1e-5) -> torch.Tensor:
     """``x + proj(quick_gelu(fc(LN2(x))))``; ``ln2``/``mlp`` are the
-    resblock's ``ln_2``/``mlp`` dicts (fc_w [4D, D], proj_w [D, 4D])."""
+    resblock's ``ln_2``/``mlp`` dicts (fc_w [4D, D], proj_w [D, 4D]). Takes
+    K5 where :func:`uses_mlp_stream`, else K3."""
+    if uses_mlp_stream(x.shape[-1], mlp["fc_w"].shape[0], x.element_size()):
+        return mlp_stream(x, ln2, mlp, eps)
+    return mlp_block_resident(x, ln2, mlp, eps)
+
+
+def mlp_block_resident(x: torch.Tensor, ln2: dict, mlp: dict, eps: float = 1e-5) -> torch.Tensor:
+    """K3: :func:`mlp_block` with the weights read whole by every block
+    (D = 512)."""
     if x.device.type == "cpu":
         return mlp_block_plain(x, ln2, mlp, eps)
     if x.device.type != "cuda":
         raise ValueError(f"mlp_block: unsupported device {x.device}")
-    b, t, d = x.shape
-    weights = {"ln_2.scale": ln2["scale"], "ln_2.bias": ln2["bias"], **mlp}
-    _check(x, weights, "mlp_block")
-    d4 = mlp["fc_w"].shape[0]
+    b, t, _ = x.shape
+    d, d4 = _check_mlp_shapes(x, ln2, mlp, "mlp_block")
     if d != 512 or d4 % 64 != 0:
-        raise ValueError(f"mlp_block: needs D = 512 and 4D % 64 == 0, got {d}, {d4}")
+        raise ValueError(f"mlp_block: the kernel takes D = 512 and 4D % 64 == 0, got {d}, {d4}")
     out = torch.empty_like(x)
     cuda_build.launch(
         "mlp_block", "mlp_block_launch",
@@ -138,3 +184,30 @@ def mlp_block(x: torch.Tensor, ln2: dict, mlp: dict, eps: float = 1e-5) -> torch
     cuda_build.LAUNCHES["mlp_block"] += 1
     return out
 
+
+def mlp_stream(x: torch.Tensor, ln2: dict, mlp: dict, eps: float = 1e-5) -> torch.Tensor:
+    """K5: :func:`mlp_block` with the weights streamed through shared memory
+    in tiles (D a multiple of 128 up to 1024, 4D a multiple of 64)."""
+    if x.device.type == "cpu":
+        return mlp_stream_plain(x, ln2, mlp, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"mlp_stream: unsupported device {x.device}")
+    b, t, _ = x.shape
+    d, d4 = _check_mlp_shapes(x, ln2, mlp, "mlp_stream")
+    if d % 128 != 0 or not 128 <= d <= 1024 or d4 % 64 != 0:
+        raise ValueError(f"mlp_stream: the kernel takes D a multiple of 128 up to 1024 and "
+                         f"4D % 64 == 0, got {d}, {d4}")
+    if mlp["fc_w"].data_ptr() % 16 or mlp["proj_w"].data_ptr() % 16:
+        raise ValueError("mlp_stream: fc_w and proj_w must start on a 16-byte boundary "
+                         "(the kernel copies them in 16-byte pieces)")
+    out = torch.empty_like(x)
+    cuda_build.launch(
+        "mlp_stream", "mlp_stream_launch",
+        x.data_ptr(), ln2["scale"].data_ptr(), ln2["bias"].data_ptr(),
+        mlp["fc_w"].data_ptr(), mlp["fc_b"].data_ptr(),
+        mlp["proj_w"].data_ptr(), mlp["proj_b"].data_ptr(),
+        out.data_ptr(), b * t, d, d4, float(eps),
+        cuda_build.stream_handle(x.device),
+    )
+    cuda_build.LAUNCHES["mlp_stream"] += 1
+    return out

@@ -1,17 +1,23 @@
-"""CLIP's causal text transformer in PyTorch, and random initialization of
-both towers.
+"""CLIP's two towers in PyTorch — the causal text transformer and the
+vision transformer — and random initialization of both.
 
 Parameters are nested dicts of tensors with the JAX package's key layout
 (OpenAI's module names; see loader.py), so weights carry across whole
 between the packages (``clip_ppo_tpu_torch.convert``). Linear weights keep
 the ``[out, in]`` orientation, applied as ``x @ W.T``.
 
-Routing: every resblock runs :func:`block_kernels.attn_block` then
-:func:`block_kernels.mlp_block`. On a CUDA tensor those launch the K2 and
-K3 kernels whatever the batch; on a CPU tensor they run their plain
-versions. (The JAX package routes by batch size and backend to save TPU
-compile time, which has no counterpart here.) ``encode_image`` comes with
-the image-modality slice.
+Routing, as ``clip_ppo_tpu/models/clip/model.py:204`` routes: a resblock
+whose MLP weights fit the TPU kernels' budget in bf16
+(:func:`block_kernels.uses_attn_block`: widths up to 768, both ViT-B towers
+and every text tower) runs its attention half through K2
+(:func:`block_kernels.attn_block`); its MLP half goes through
+:func:`block_kernels.mlp_block`, which picks K3 or K5 by the weights' size
+in the activations' dtype. Wider towers (ViT-L/14's D = 1024) take K4
+(``_fused_qkv_kernel``) for attention in the JAX package; K4 is not ported
+yet, so such a block raises on a CUDA tensor and runs its plain version on
+the CPU. On a CPU tensor every kernel wrapper runs its plain version. The
+JAX package also routes by batch size and backend to save TPU compile
+time, which has no counterpart here.
 """
 
 from __future__ import annotations
@@ -25,13 +31,18 @@ from clip_ppo_tpu_torch.models.clip.block_kernels import (  # noqa: F401  (re-ex
     layer_norm,
     mlp_block,
     quick_gelu,
+    uses_attn_block,
 )
 from clip_ppo_tpu_torch.models.clip.config import CLIPConfig
 
 
 def resblock(p: dict, x: torch.Tensor, heads: int, causal: bool = False) -> torch.Tensor:
     """Pre-LN transformer block with QuickGELU MLP (width → 4·width)."""
-    x = attn_block(x, p["ln_1"], p["attn"], heads, causal)
+    if not uses_attn_block(x.shape[-1]) and x.device.type != "cpu":
+        raise NotImplementedError(
+            f"resblock: width {x.shape[-1]} takes K4 (pallas_attention.py::_fused_qkv_kernel) "
+            "for its attention half, which comes with the ViT-L/14 slice of the port")
+    x = attn_block(x, p["ln_1"], p["attn"], heads, causal)  # plain version on the CPU
     return mlp_block(x, p["ln_2"], p["mlp"])
 
 
@@ -53,6 +64,24 @@ def encode_text(params: dict, cfg: CLIPConfig, tokens: torch.Tensor) -> torch.Te
     eot = tokens.argmax(dim=-1)
     pooled = x[torch.arange(x.shape[0], device=x.device), eot]
     return pooled @ t["text_projection"]
+
+
+def encode_image(params: dict, cfg: CLIPConfig, images: torch.Tensor) -> torch.Tensor:
+    """[B, image_size, image_size, 3] normalized float32 images (NHWC) →
+    [B, embed_dim] float32 features; feed with
+    ``ops.resize.preprocess_for_clip``."""
+    v = params["visual"]
+    b = images.shape[0]
+    ps, g = cfg.patch_size, cfg.grid_size
+    # Patch embed as one product: [B, g, ps, g, ps, 3] → [B, g·g, ps·ps·3].
+    x = images.float().reshape(b, g, ps, g, ps, 3).permute(0, 1, 3, 2, 4, 5)
+    x = x.reshape(b, g * g, ps * ps * 3) @ v["patch_embed_w"]  # [B, P, width], no bias
+    cls = v["class_embedding"].expand(b, 1, cfg.vision_width)
+    x = torch.cat([cls, x], dim=1) + v["positional_embedding"]
+    x = layer_norm(v["ln_pre"], x).contiguous()
+    x = transformer(v["transformer"], x, cfg.vision_heads)
+    x = layer_norm(v["ln_post"], x[:, 0, :])
+    return x @ v["proj"]
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,8 @@
-"""CLIP-PPO shared utilities: λ warmup, the alignment loss, and the MiniGrid
-description-embedding table.
+"""CLIP-PPO shared utilities: λ warmup, the alignment loss, the MiniGrid
+description-embedding table and the per-iteration image embeddings.
 
-Port of the parts of ``clip_ppo_tpu/models/clip_utils.py`` this slice runs
-(reference `shared/clip_ppo_utils.py:13-240`). Image embeddings,
+Port of the parts of ``clip_ppo_tpu/models/clip_utils.py`` the text and
+image modalities run (reference `shared/clip_ppo_utils.py:13-240`).
 FROZEN_CLIP trunks and the RANDOM_ENCODER embeddings come with later
 slices.
 """
@@ -19,6 +19,7 @@ from clip_ppo_tpu_torch.models.clip import model as clip_model_mod
 from clip_ppo_tpu_torch.models.clip.config import CLIPConfig
 from clip_ppo_tpu_torch.models.clip.loader import load_clip_model  # noqa: F401  (re-export)
 from clip_ppo_tpu_torch.models.clip.tokenizer import tokenize
+from clip_ppo_tpu_torch.ops.resize import preprocess_for_clip
 
 CLIP_LOSS_FREQUENCY = 4  # every 4th minibatch (`clip_ppo_utils.py:24`)
 
@@ -39,14 +40,20 @@ def l2_normalize(x: torch.Tensor) -> torch.Tensor:
     return x / (torch.linalg.norm(x, dim=-1, keepdim=True) + 1e-12)
 
 
-def compute_cosine_embedding_loss(z: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """L_CLIP = mean(1 - cos(z/||z||, c/||c||)) (`clip_ppo_utils.py:48-76`)."""
-    if z.shape[-1] != c.shape[-1]:
+def check_embedding_width(latent_dim: int, embed_dim: int) -> None:
+    """The reference's ValueError where the PPO latent and the CLIP
+    embedding differ in width (ViT-L/14's 768 against the agent's 512)."""
+    if latent_dim != embed_dim:
         raise ValueError(
-            f"Dimension mismatch: PPO latents ({z.shape[-1]}) vs CLIP "
-            f"embeddings ({c.shape[-1]}). Both should be 512-dim for "
+            f"Dimension mismatch: PPO latents ({latent_dim}) vs CLIP "
+            f"embeddings ({embed_dim}). Both should be 512-dim for "
             "ViT-B/32. Check agent architecture."
         )
+
+
+def compute_cosine_embedding_loss(z: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """L_CLIP = mean(1 - cos(z/||z||, c/||c||)) (`clip_ppo_utils.py:48-76`)."""
+    check_embedding_width(z.shape[-1], c.shape[-1])
     return (1.0 - (l2_normalize(z) * l2_normalize(c)).sum(-1)).mean()
 
 
@@ -91,6 +98,27 @@ def make_text_table_embed_fn(height: int):
         dirs = desc["agent_dir"].reshape(-1).long()
         idx = (pos[:, 0] * height + pos[:, 1]) * 4 + dirs
         return frozen["text_table"][idx]
+
+    return embed
+
+
+def encode_images(clip_params: dict, cfg: CLIPConfig, images_uint8: torch.Tensor) -> torch.Tensor:
+    """uint8 [B, H, W, 3] → L2-normalized [B, embed_dim] float32 CLIP
+    features: /255, antialiased bilinear resize to ``cfg.image_size``, CLIP
+    normalization, the vision tower (K2 and K5 on the GPU), L2 norm
+    (`clip_ppo_utils.py:141-164`). Forward only."""
+    with torch.no_grad():
+        x = preprocess_for_clip(images_uint8.float() / 255.0, cfg.image_size)
+        return l2_normalize(clip_model_mod.encode_image(clip_params, cfg, x))
+
+
+def make_encode_images_fn(cfg: CLIPConfig):
+    """Per-iteration image-embedding fn of the MiniGrid image modality:
+    ``(obs_uint8, frozen) -> [B, embed_dim]`` L2-normalized, with the CLIP
+    weights in ``frozen["clip"]``."""
+
+    def embed(obs: torch.Tensor, frozen: dict) -> torch.Tensor:
+        return encode_images(frozen["clip"], cfg, obs)
 
     return embed
 

@@ -1,12 +1,14 @@
 """Training runner: rollout → GAE → PPO update per iteration, on one device.
 
-Port of ``clip_ppo_tpu/train/runner.py``'s ``Trainer`` for the paths this
-slice runs: the feed-forward agent with the Nature-CNN trunk, optional
-batched disturbances, and the text modality through a precomputed
-description-embedding table (``embed_desc_fn``). Nothing in an iteration
-waits for the host; logs are packed on the device and fetched one chunk
-behind (:class:`LogPipeline`), so the fetch of chunk *k* overlaps the
-queued work of chunk *k+1*.
+Port of ``clip_ppo_tpu/train/runner.py``'s ``Trainer`` for the paths the
+port runs: the feed-forward agent with the Nature-CNN trunk, optional
+batched disturbances, the text modality through a precomputed
+description-embedding table (``embed_desc_fn``), and the image modality,
+which encodes the iteration's stored observations with the CLIP vision
+tower (``embed_images_fn``). Nothing in an iteration waits for the host;
+logs are packed on the device and fetched one chunk behind
+(:class:`LogPipeline`), so the fetch of chunk *k* overlaps the queued work
+of chunk *k+1*.
 
 Every random draw comes from the ``torch.Generator`` in the
 :class:`TrainState`, unless the caller passes them to :meth:`Trainer.iteration`
@@ -67,13 +69,18 @@ class Trainer:
         num_iterations: total iterations (LR anneal, λ warmup).
         disturbance: optional DisturbanceParams applied each rollout step
             (batched semantics).
+        embed_images_fn: optional ``(obs_uint8 [T·N, H, W, 3], frozen) ->
+            [T·N, D]`` image-embedding function
+            (``clip_utils.make_encode_images_fn``), applied to the rollout's
+            stored observations flattened t-major; takes precedence over
+            ``embed_desc_fn`` as in the JAX package.
         embed_desc_fn: optional ``(rollout_desc, frozen) -> [T·N, D]``
             text-embedding function (the MiniGrid description table,
             ``clip_utils.make_text_table_embed_fn``).
         clip_lambda: target λ of the alignment loss (linear warmup over
             ``clip_warmup_fraction`` of the iterations).
         frozen_params: non-optimized tensors the embedding fn reads
-            (``{"text_table": ...}``).
+            (``{"text_table": ...}`` or ``{"clip": clip_params}``).
     """
 
     def __init__(
@@ -82,6 +89,7 @@ class Trainer:
         env,
         num_iterations: int,
         disturbance: Optional[DisturbanceParams] = None,
+        embed_images_fn: Optional[Callable] = None,
         embed_desc_fn: Optional[Callable] = None,
         clip_lambda: float = 0.0,
         clip_warmup_fraction: float = 0.2,
@@ -108,6 +116,7 @@ class Trainer:
         self.num_iterations = num_iterations
         self.disturbance = disturbance
         self.features_fn = agent_mod.cnn_features
+        self.embed_images_fn = embed_images_fn
         self.embed_desc_fn = embed_desc_fn
         self.clip_lambda = clip_lambda
         self.clip_warmup_fraction = clip_warmup_fraction
@@ -191,15 +200,23 @@ class Trainer:
         }
         return state, scalars
 
+    def embed(self, batch: rollout_mod.RolloutBatch, data: dict) -> Optional[torch.Tensor]:
+        """The iteration's CLIP embeddings, [T·N, D] t-major, or None."""
+        if self.embed_images_fn is not None:
+            obs = data["obs"]
+            return self.embed_images_fn(obs.reshape((-1,) + tuple(obs.shape[2:])),
+                                        self.frozen_params)
+        if self.embed_desc_fn is not None:
+            return self.embed_desc_fn(batch.desc, self.frozen_params)
+        return None
+
     def iteration(self, state: TrainState, iteration: int, draws: Draws = Draws()):
         """One full iteration. Returns (state, scalars, episode_stats,
         batch, data): the RolloutBatch and the GAE'd update inputs, both in
         rollout layout [T, N, ...]."""
         state, batch = self._rollout(state, draws)
         data = self._data2d(state, batch)
-        clip_embeddings = None
-        if self.embed_desc_fn is not None:
-            clip_embeddings = self.embed_desc_fn(batch.desc, self.frozen_params)
+        clip_embeddings = self.embed(batch, data)
         state, scalars = self._update(state, data, iteration, clip_embeddings, draws)
         stats = {
             "done_mask": batch.done_mask,

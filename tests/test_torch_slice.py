@@ -229,7 +229,8 @@ def test_cli_cuda_flag_needs_a_gpu(tmp_path, monkeypatch):
 @pytest.mark.parametrize("argv,match", [
     (["--num-devices", "2"], "multi-GPU"),
     (["--clip-config.ablation-mode", "FROZEN_CLIP"], "FROZEN_CLIP"),
-    (["--clip-config.clip-lambda", "1e-5", "--clip-config.clip-modality", "image"], "image"),
+    (["--clip-config.clip-lambda", "1e-5", "--clip-config.clip-modality", "image",
+      "--clip-config.structured-frozen-init"], "structured-frozen-init"),
     (["--mission-conditioning"], "extensions"),
     (["--clip-config.clip-lambda", "1e-5", "--no-text-embed-table"], "later slice"),
 ])
