@@ -10,11 +10,14 @@ non-zero at once:
    every hand-written kernel from ``clip_ppo_tpu_torch/csrc/``;
 2. kernels — each kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it (K2, K3 and K5 with random LayerNorm
-   affines and biases; K2 at the text and the vision tower's shapes; K5
-   also at ViT-L/14's width and at a ragged row count), with its median
-   time per call (CUDA events; K1 over back-to-back calls, beside its
-   profiled device time), the plain version's time and the least time the
-   card could take;
+   affines and biases; K2 at the text, the vision and ViT-L/14's text
+   tower's shapes; K5 also at ViT-L/14's width and at a ragged row count;
+   K4 at ViT-L/14's vision tower, at ViT-B/32's towers and at a ragged
+   batch; K8 fed strided views of one qkv buffer), with its median time per
+   call (CUDA events; K1 over back-to-back calls, beside its profiled device
+   time), the plain version's time, the least time the card could take and,
+   for K4 and K8, the time of ``scaled_dot_product_attention`` on the same
+   q/k/v;
 3. text slice — the CLIP-PPO MiniGrid CLI (text modality, HARD
    disturbances) for two iterations, with every launch count read from the
    run;
@@ -25,7 +28,13 @@ non-zero at once:
    its launch counts, and the tower's embeddings of a few frames on the
    card against the plain versions on the CPU;
 6. image profile — one steady image-modality iteration by part, and the
-   device's busy share.
+   device's busy share;
+7. encoder benchmark — the port's ``cli/benchmark_clip.py`` at ViT-L/14 in
+   float32 (K4 + K5 in the vision tower, K2 + K5 in the text tower), then at
+   ViT-B/32 with ``--attention-impl pallas`` (K8 in the vision tower), with
+   the launches of every call counted; ViT-L/14's embeddings of two frames
+   on the card against the plain versions on the CPU, and where one
+   batch-256 image call spends its device time.
 
 The last lines are the kernels' JSON summary, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device the
@@ -191,8 +200,9 @@ def phase_kernels(card: dict) -> list[dict]:
     })
 
     # -- K2 and K3 at the text table's [1024, 77, 512]; K2 and K5 at the vision
-    # tower's [1024, 50, 768]; K5 at ViT-L/14's [256, 257, 1024] and at a
-    # ragged row count (checked, not timed) ---------------------------------
+    # tower's [1024, 50, 768]; K2 at ViT-L/14's text tower, [1024, 77, 768]
+    # causal; K5 at ViT-L/14's [256, 257, 1024] and at a ragged row count
+    # (checked, not timed) ------------------------------------------------
     def block(dm):
         p = init_block(gen, dm, dev)
         # init_block leaves every LayerNorm at scale 1 and bias 0 and every bias
@@ -230,7 +240,8 @@ def phase_kernels(card: dict) -> list[dict]:
         (mlp_case("mlp_block", 1024, 77, 512, "text"), True),
         (attn_case(1024, 50, 768, False, "image"), True),
         (mlp_case("mlp_stream", 1024, 50, 768, "image"), True),
-        (mlp_case("mlp_stream", 256, 257, 1024, None), True),
+        (attn_case(1024, 77, 768, True, "benchmark"), True),
+        (mlp_case("mlp_stream", 256, 257, 1024, "benchmark"), True),
         (mlp_case("mlp_stream", 7, 50, 768, None), False),
     ]
     params = {}
@@ -274,10 +285,84 @@ def phase_kernels(card: dict) -> list[dict]:
     return results
 
 
+def phase_attention(card: dict) -> list[dict]:
+    """K4 and K8 against their plain versions on the card, timed beside
+    ``scaled_dot_product_attention`` on the same q/k/v viewed as
+    [B, H, T, 64] (the library yardstick; the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+
+    from clip_ppo_tpu_torch.models.clip import attention_kernels as ak
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    src = "clip_ppo_tpu_torch/csrc/fused_qkv.cu"
+    cases = [  # (kernel, path, (B, T, heads), causal, timed)
+        ("fused_qkv", "benchmark", (256, 257, 16), False, True),  # ViT-L/14 vision
+        ("fused_qkv", None, (1024, 50, 12), False, True),  # ViT-B/32 vision, impl="fused"
+        ("fused_qkv", None, (1024, 77, 12), True, True),  # ViT-L/14 text, impl="fused"
+        ("fused_qkv", None, (3, 257, 16), False, False),  # ragged: 1-row last tile
+        ("packed_attention", "pallas", (64, 50, 12), False, True),  # ViT-B/32, impl="pallas"
+        ("packed_attention", None, (256, 257, 16), False, True),  # ViT-L/14, impl="pallas"
+    ]
+    results = []
+    with torch.no_grad():
+        for name, path, (b, t, h), causal, timed in cases:
+            d = h * 64
+            qkv = torch.randn((b, t, 3 * d), generator=gen, device=dev)
+            q, k, v = (z.view(b, t, h, 64) for z in qkv.split(d, dim=-1))  # row stride 3D
+            if name == "fused_qkv":
+                fn = lambda: ak.fused_qkv_attention(qkv, h, causal)  # noqa: E731
+                plain = lambda: ak.fused_qkv_attention_plain(qkv, h, causal)  # noqa: E731
+                shape, line = f"[{b},{t},{3 * d}]" + (" causal" if causal else ""), 91
+            else:
+                fn = lambda: ak.packed_attention(q, k, v)  # noqa: E731
+                plain = lambda: ak.packed_attention_plain(q, k, v)  # noqa: E731
+                shape, line = f"[{b},{t},{h},64] strided", 391
+            got, ref = fn(), plain()
+            torch.cuda.synchronize()
+            err, rel = _errors(got, ref)
+            scale = ref.abs().max().item()
+            tol = 1e-4 * max(1.0, scale)
+            del got, ref
+            print(f"[kernels] {name} {shape}: max_abs_err {err:.3e} max_rel_err {rel:.3e} "
+                  f"(max |ref| {scale:.3f}; tolerance 1e-4 x max(1, max |ref|) = {tol:.1e})")
+            if not err <= tol:
+                fail(f"{name} {shape} disagrees with its plain version: {err} > {tol}")
+            if not timed:
+                continue
+            qh, kh, vh = (z.transpose(1, 2) for z in (q, k, v))
+            ms = time_ms(fn, reps=10)
+            plain_ms = time_ms(plain, reps=10)
+            library_ms = time_ms(
+                lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal), reps=10)
+            pairs = t * (t + 1) // 2 if causal else t * t
+            nflops = 2 * 2 * b * pairs * d  # scores and weighted values
+            bound_ms, bound_by = _bound(4 * b * t * d * 4, nflops, card)  # q, k, v read; out written
+            print(f"[kernels] {name} {shape}: {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+                  f"scaled_dot_product_attention {library_ms:.3f} ms, bound {bound_ms:.3f} ms "
+                  f"({bound_by}, {nflops / 1e9:.1f} GFLOP), {nflops / ms / 1e9:.2f} TFLOP/s")
+            results.append({
+                "name": name, "route": "cuda", "source": src,
+                "replaces": f"clip_ppo_tpu/models/clip/pallas_attention.py:{line}",
+                "shape": shape, "path": path, "max_abs_err": err, "max_rel_err": rel,
+                "tolerance": tol, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": library_ms,
+            })
+            del qkv, q, k, v, qh, kh, vh
+    torch.cuda.empty_cache()
+    return results
+
+
 SLICES = {
     # modality: launches expected on the CLI's main path, per iteration
-    "text": {"attn_block": 0, "mlp_block": 0, "mlp_stream": 0, "disturb": 128},
-    "image": {"attn_block": 12, "mlp_block": 0, "mlp_stream": 12, "disturb": 128},
+    "text": {"attn_block": 0, "mlp_block": 0, "mlp_stream": 0, "fused_qkv": 0,
+             "packed_attention": 0, "disturb": 128},
+    "image": {"attn_block": 12, "mlp_block": 0, "mlp_stream": 12, "fused_qkv": 0,
+              "packed_attention": 0, "disturb": 128},
 }
 STARTUP = {"text": {"attn_block": 12, "mlp_block": 12}, "image": {}}  # the text table
 
@@ -436,6 +521,127 @@ def phase_profile(card: dict, modality: str) -> None:
           + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.1f} ms x{e.count}" for e in top))
 
 
+# The encoder benchmark's two runs, and the launches each call must make.
+BENCH_L14 = ["--model", "ViT-L/14", "--dtype", "float32", "--batch-sizes", "64", "256",
+             "--text-batch", "1024", "--iterations", "3"]
+BENCH_L14_PER_CALL = {"image": {"fused_qkv": 24, "mlp_stream": 24},
+                      "text": {"attn_block": 12, "mlp_stream": 12}}
+BENCH_PALLAS = ["--model", "ViT-B/32", "--dtype", "float32", "--attention-impl", "pallas",
+                "--batch-sizes", "64", "--iterations", "2"]
+BENCH_PALLAS_PER_CALL = {"image": {"packed_attention": 12},
+                         "text": {"attn_block": 12, "mlp_block": 12}}
+
+
+def _launch_delta(before: dict, after: dict) -> dict:
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def phase_benchmark(results: list[dict], card: dict, path: str, argv: list[str],
+                    per_call: dict) -> None:
+    """The port's CLIP encoder benchmark as a user runs it, through its
+    ``main()``. Each timing (one per image batch size, then the text batch)
+    makes 1 + iterations calls; the launches of each are read around it and
+    must match ``per_call`` ("image" and "text": kernel -> launches per
+    call, every other kernel none)."""
+    import torch
+
+    from clip_ppo_tpu_torch import cuda_build
+    from clip_ppo_tpu_torch.cli import benchmark_clip as bench
+
+    timings = []
+    real = bench._bench
+
+    def counted(fn, data, iterations):
+        before = dict(cuda_build.LAUNCHES)
+        seconds = real(fn, data, iterations)
+        torch.cuda.synchronize()
+        timings.append((data.shape[0], seconds, iterations + 1,
+                        _launch_delta(before, cuda_build.LAUNCHES)))
+        return seconds
+
+    tag = f"[benchmark {path}]"
+    print(f"{tag} python -m clip_ppo_tpu_torch.cli.benchmark_clip {' '.join(argv)}")
+    bench._bench = counted
+    try:
+        cuda_build.reset_launches()
+        t0 = time.time()
+        bench.main(argv)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(cuda_build.LAUNCHES)
+    finally:
+        bench._bench = real
+    *images, text = timings
+    for half, rows in (("image", images), ("text", [text])):
+        for batch, seconds, calls, delta in rows:
+            want = {k: n * calls for k, n in per_call[half].items()}
+            print(f"{tag} {half} batch {batch}: {seconds * 1e3:.2f} ms/batch, "
+                  f"{batch / seconds:.1f} per second; launches over {calls} calls {delta}")
+            if delta != want:
+                fail(f"{path} {half} batch {batch}: launches {delta}, expected {want}")
+    print(f"{tag} whole run {wall:.1f} s wall; launches {launches} on {card['smi']}")
+    for r in results:
+        if r["path"] == path:
+            r["launches"] = launches[r["name"]]
+
+
+def phase_large_tower(card: dict) -> None:
+    """ViT-L/14's vision tower (K4 + K5): its embeddings of two frames on the
+    card against the plain versions on the CPU with the same weights, then
+    where one batch-256 image call of the benchmark spends its device time
+    (torch.profiler), beside the call's untraced wall time."""
+    import torch
+
+    from clip_ppo_tpu_torch import cuda_build
+    from clip_ppo_tpu_torch.models import clip_utils
+    from clip_ppo_tpu_torch.utils.tree import tree_map
+
+    dev = torch.device("cuda", 0)
+    params, cfg = clip_utils.load_clip_model("ViT-L/14", dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    frames = torch.randint(0, 256, (2, 84, 84, 3), generator=gen, device=dev, dtype=torch.uint8)
+    cuda_build.reset_launches()
+    got = clip_utils.encode_images(params, cfg, frames).cpu()
+    launches = _launch_delta({k: 0 for k in cuda_build.LAUNCHES}, cuda_build.LAUNCHES)
+    ref = clip_utils.encode_images({"visual": tree_map(lambda t: t.cpu(), params["visual"])},
+                                   cfg, frames.cpu())
+    err = (got - ref).abs().max().item()
+    print(f"[large tower] 2 frames through the ViT-L/14 tower (launches {launches}) vs the "
+          f"plain versions on the CPU: shape {tuple(got.shape)}, max_abs_err {err:.3e} on unit "
+          f"vectors (tolerance 1e-4)")
+    if launches != {"fused_qkv": 24, "mlp_stream": 24}:
+        fail(f"ViT-L/14's vision tower launched {launches}, expected 24 fused_qkv + 24 mlp_stream")
+    if got.shape != (2, cfg.embed_dim) or not torch.isfinite(got).all() or not err <= 1e-4:
+        fail(f"ViT-L/14 embeddings on the card disagree with the CPU: {err}")
+
+    frames = torch.randint(0, 255, (256, 84, 84, 3), generator=gen, device=dev, dtype=torch.uint8)
+    call = lambda: clip_utils.encode_images(params, cfg, frames)  # noqa: E731
+    call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    call()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events) / 1e6
+    if busy <= 0:
+        print("[large tower] device time of the batch-256 call: not measured (no device time "
+              "in the trace)")
+        return
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+    print(f"[large tower] one batch-256 image call: {wall * 1e3:.1f} ms untraced wall, device "
+          f"busy {busy * 1e3:.1f} ms ({100 * busy / wall:.1f}% of the wall); by kernel: "
+          + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.1f} ms x{e.count} "
+                      f"({100 * e.self_device_time_total / 1e6 / busy:.1f}%)" for e in top)
+          + f" on {card['smi']}")
+    del params, frames
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     try:
         import torch
@@ -448,12 +654,15 @@ def main() -> None:
     except ImportError as e:
         fail(f"the port is not importable from here ({e}); run from the repository root")
     card = phase_card()
-    results = phase_kernels(card)
+    results = phase_kernels(card) + phase_attention(card)
     for modality in ("text", "image"):
         phase_slice(results, card, modality)
         if modality == "image":
             phase_image_encode(card)
         phase_profile(card, modality)
+    phase_benchmark(results, card, "benchmark", BENCH_L14, BENCH_L14_PER_CALL)
+    phase_benchmark(results, card, "pallas", BENCH_PALLAS, BENCH_PALLAS_PER_CALL)
+    phase_large_tower(card)
     order = ("name", "route", "source", "replaces", "shape", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in order} for r in results if r["path"]]}))

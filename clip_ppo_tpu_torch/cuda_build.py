@@ -28,6 +28,7 @@ SOURCES = {
     "attn_block": "attn_block.cu",
     "mlp_block": "mlp_block.cu",
     "mlp_stream": "mlp_stream.cu",
+    "fused_qkv": "fused_qkv.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -35,8 +36,9 @@ NVCC_FLAGS = [
 ]
 
 # Launches of each kernel since the last reset_launches(); each wrapper adds
-# one where it launches its kernel and nowhere else.
-LAUNCHES: dict[str, int] = {name: 0 for name in SOURCES}
+# one where it launches its kernel and nowhere else. fused_qkv.cu has two
+# entry points, K4 ("fused_qkv") and K8 ("packed_attention"), counted apart.
+LAUNCHES: dict[str, int] = {name: 0 for name in [*SOURCES, "packed_attention"]}
 
 
 def reset_launches() -> None:
@@ -96,7 +98,7 @@ def build_log(name: str) -> str:
 
 
 def _declare(libs: dict[str, ctypes.CDLL]) -> None:
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     u32 = ctypes.c_uint32
     sig = {
         ("disturb", "disturb_launch"): [p, p, p, p, p, p, i, i, i, i, f, i, i, i, p],
@@ -104,6 +106,8 @@ def _declare(libs: dict[str, ctypes.CDLL]) -> None:
         ("attn_block", "attn_block_launch"): [p, p, p, p, p, p, p, p, p, i, i, i, i, i, f, p],
         ("mlp_block", "mlp_block_launch"): [p, p, p, p, p, p, p, p, i, i, i, f, p],
         ("mlp_stream", "mlp_stream_launch"): [p, p, p, p, p, p, p, p, i, i, i, f, p],
+        ("fused_qkv", "fused_qkv_launch"): [p, p, i, i, i, i, p],
+        ("fused_qkv", "packed_attention_launch"): [p, p, p, p, i, i, i, *[ll] * 9, p],
     }
     for (lib, fn), argtypes in sig.items():
         func = getattr(libs[lib], fn)

@@ -23,7 +23,9 @@ Each wrapper launches its kernel for a CUDA tensor, runs its plain version
 (which mirrors ``_attn_block_ref`` / ``_mlp_block_ref``) for a CPU tensor,
 and raises for any other device. Forward only: the towers run under
 ``torch.no_grad()``. The primitives the plain versions are built from
-(``layer_norm``, ``quick_gelu``, ``attention``) are the model's own.
+(``layer_norm``, ``quick_gelu``, ``attention``) are the model's own;
+``attention`` computes its scores through K4's plain version,
+:func:`attention_kernels.fused_qkv_attention_plain`.
 """
 
 from __future__ import annotations
@@ -31,6 +33,10 @@ from __future__ import annotations
 import torch
 
 from clip_ppo_tpu_torch import cuda_build
+from clip_ppo_tpu_torch.models.clip.attention_kernels import (  # noqa: F401  (re-exported)
+    causal_mask,
+    fused_qkv_attention_plain,
+)
 
 HEAD_DIM = 64
 # The TPU kernels' weight budget (``pallas_block.py:774``, ``model.py:204``).
@@ -44,9 +50,10 @@ def uses_mlp_stream(width: int, hidden: int, itemsize: int) -> bool:
 
 
 def uses_attn_block(width: int) -> bool:
-    """Whether a resblock takes K2 for its attention half: the MLP weights
-    in bf16 fit the budget whatever the dtype (``_use_fused_block``'s
-    rule). Wider towers take K4 (``_fused_qkv_kernel``) in the JAX package."""
+    """Whether a resblock takes K2 for its attention half under "auto": the
+    MLP weights in bf16 fit the budget whatever the dtype
+    (``_use_fused_block``'s rule). Wider towers (ViT-L/14's vision tower)
+    take K4, :func:`attention_kernels.fused_qkv_attention`."""
     return 2 * width * 4 * width * 2 <= WEIGHT_BUDGET_BYTES
 
 
@@ -65,25 +72,10 @@ def layer_norm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return y.to(x.dtype)
 
 
-def causal_mask(t: int, device=None) -> torch.Tensor:
-    """[T, T] additive mask: -inf above the diagonal."""
-    return torch.triu(torch.full((t, t), float("-inf"), device=device), diagonal=1)
-
-
 def attention(p: dict, x: torch.Tensor, heads: int, causal: bool = False) -> torch.Tensor:
     """Multi-head self-attention with a fused qkv projection (einsum MHA)."""
-    b, t, d = x.shape
-    dh = d // heads
     qkv = x @ p["in_proj_w"].to(x.dtype).T + p["in_proj_b"].to(x.dtype)
-    q, k, v = qkv.split(d, dim=-1)
-    q = q.reshape(b, t, heads, dh)
-    k = k.reshape(b, t, heads, dh)
-    v = v.reshape(b, t, heads, dh)
-    logits = torch.einsum("bqhc,bkhc->bhqk", q / dh ** 0.5, k)
-    if causal:
-        logits = logits + causal_mask(t, x.device).to(logits.dtype)
-    w = torch.softmax(logits.float(), dim=-1).to(x.dtype)
-    out = torch.einsum("bhqk,bkhc->bqhc", w, v).reshape(b, t, d)
+    out = fused_qkv_attention_plain(qkv, heads, causal)
     return out @ p["out_proj_w"].to(x.dtype).T + p["out_proj_b"].to(x.dtype)
 
 

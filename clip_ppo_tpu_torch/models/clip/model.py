@@ -6,67 +6,138 @@ Parameters are nested dicts of tensors with the JAX package's key layout
 between the packages (``clip_ppo_tpu_torch.convert``). Linear weights keep
 the ``[out, in]`` orientation, applied as ``x @ W.T``.
 
-Routing, as ``clip_ppo_tpu/models/clip/model.py:204`` routes: a resblock
-whose MLP weights fit the TPU kernels' budget in bf16
-(:func:`block_kernels.uses_attn_block`: widths up to 768, both ViT-B towers
-and every text tower) runs its attention half through K2
-(:func:`block_kernels.attn_block`); its MLP half goes through
-:func:`block_kernels.mlp_block`, which picks K3 or K5 by the weights' size
-in the activations' dtype. Wider towers (ViT-L/14's D = 1024) take K4
-(``_fused_qkv_kernel``) for attention in the JAX package; K4 is not ported
-yet, so such a block raises on a CUDA tensor and runs its plain version on
-the CPU. On a CPU tensor every kernel wrapper runs its plain version. The
-JAX package also routes by batch size and backend to save TPU compile
-time, which has no counterpart here.
+Routing by ``attention_impl``, as ``clip_ppo_tpu/models/clip/model.py:136-285``
+routes on the TPU (the text tower passes the causal mask, the vision tower
+none):
+
+* ``"auto"`` (the default): a resblock whose MLP weights fit the TPU
+  kernels' budget in bf16 (:func:`block_kernels.uses_attn_block`: widths up
+  to 768, both ViT-B towers and every text tower) runs its attention half
+  through K2 (:func:`block_kernels.attn_block`). A wider one (ViT-L/14's
+  vision tower, D = 1024) projects qkv with ``torch.matmul``, runs K4
+  (:func:`attention_kernels.fused_qkv_attention`), then the out-projection
+  and the residual. Either way the MLP half goes through
+  :func:`block_kernels.mlp_block`, which picks K3 or K5 by the weights' size
+  in the activations' dtype.
+* ``"fused"``: K4 for attention at any width, causal for the text tower;
+  the plain MLP.
+* ``"block"``: K2 and :func:`block_kernels.mlp_block` at any width (on the
+  GPU K2 takes T <= 80).
+* ``"xla"``: the plain einsum attention and the plain MLP, no kernel.
+* ``"packedN"``: the plain batch-packed attention (:func:`packed_sdpa`,
+  N sequences per block-masked sequence) where there is no mask; the plain
+  MLP.
+* ``"pallas"``: K8 (:func:`attention_kernels.packed_attention`) where there
+  is no mask (the vision tower; the text tower keeps the einsum path); the
+  plain MLP.
+
+On a CPU tensor every kernel wrapper runs its plain version. The JAX
+package also routes by batch size and backend to save TPU compile time,
+which has no counterpart here.
 """
 
 from __future__ import annotations
 
 import torch
 
+from clip_ppo_tpu_torch.models.clip.attention_kernels import (
+    fused_qkv_attention,
+    fused_qkv_attention_plain,
+    packed_attention,
+)
 from clip_ppo_tpu_torch.models.clip.block_kernels import (  # noqa: F401  (re-exported)
-    attention,
     attn_block,
     causal_mask,
     layer_norm,
     mlp_block,
+    mlp_block_plain,
     quick_gelu,
     uses_attn_block,
 )
 from clip_ppo_tpu_torch.models.clip.config import CLIPConfig
 
 
-def resblock(p: dict, x: torch.Tensor, heads: int, causal: bool = False) -> torch.Tensor:
+def _pack_factor(impl: str) -> int:
+    """N of ``impl="packedN"`` (2 for a bare "packed"), else 1."""
+    return int(impl[len("packed"):] or 2) if impl.startswith("packed") else 1
+
+
+def packed_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: int) -> torch.Tensor:
+    """Softmax attention over ``[B, T, H, Dh]`` with ``g`` batch elements
+    packed per block-masked sequence of length g·T (``model.py:105``).
+    Exact: each sequence attends only to itself."""
+    b, s, h, c = q.shape
+    pad = (-b) % g
+    if pad:
+        zeros = q.new_zeros((pad, s, h, c))
+        q, k, v = (torch.cat([z, zeros]) for z in (q, k, v))
+    bb = q.shape[0] // g
+    qp, kp, vp = (z.reshape(bb, g * s, h, c) for z in (q, k, v))
+    logits = torch.einsum("bqhc,bkhc->bhqk", qp * (1.0 / c ** 0.5), kp)
+    block = torch.arange(g * s, device=q.device) // s
+    block_mask = torch.zeros((g * s, g * s), device=q.device)
+    block_mask.masked_fill_(block[:, None] != block[None, :], float("-inf"))
+    weights = torch.softmax(logits.float() + block_mask, dim=-1).to(q.dtype)
+    out = torch.einsum("bhqk,bkhc->bqhc", weights, vp).reshape(bb * g, s, h, c)
+    return out[:b]
+
+
+def attention(p: dict, x: torch.Tensor, heads: int, causal: bool = False,
+              impl: str = "auto") -> torch.Tensor:
+    """Multi-head self-attention with a fused qkv projection and the
+    out-projection (no residual), its scores routed by ``impl``."""
+    b, t, d = x.shape
+    qkv = x @ p["in_proj_w"].to(x.dtype).T + p["in_proj_b"].to(x.dtype)
+    if impl in ("auto", "fused"):
+        out = fused_qkv_attention(qkv, heads, causal)
+    elif not causal and (impl == "pallas" or (_pack_factor(impl) > 1 and b > 1)):
+        q, k, v = (z.view(b, t, heads, d // heads) for z in qkv.split(d, dim=-1))
+        if impl == "pallas":
+            out = packed_attention(q, k, v)
+        else:
+            out = packed_sdpa(q, k, v, _pack_factor(impl))
+        out = out.reshape(b, t, d)
+    else:
+        out = fused_qkv_attention_plain(qkv, heads, causal)
+    return out @ p["out_proj_w"].to(x.dtype).T + p["out_proj_b"].to(x.dtype)
+
+
+def resblock(p: dict, x: torch.Tensor, heads: int, causal: bool = False,
+             impl: str = "auto") -> torch.Tensor:
     """Pre-LN transformer block with QuickGELU MLP (width → 4·width)."""
-    if not uses_attn_block(x.shape[-1]) and x.device.type != "cpu":
-        raise NotImplementedError(
-            f"resblock: width {x.shape[-1]} takes K4 (pallas_attention.py::_fused_qkv_kernel) "
-            "for its attention half, which comes with the ViT-L/14 slice of the port")
-    x = attn_block(x, p["ln_1"], p["attn"], heads, causal)  # plain version on the CPU
-    return mlp_block(x, p["ln_2"], p["mlp"])
+    if impl == "block" or (impl == "auto" and uses_attn_block(x.shape[-1])):
+        x = attn_block(x, p["ln_1"], p["attn"], heads, causal)  # plain version on the CPU
+        return mlp_block(x, p["ln_2"], p["mlp"])
+    x = x + attention(p["attn"], layer_norm(p["ln_1"], x), heads, causal, impl)
+    if impl == "auto":
+        return mlp_block(x, p["ln_2"], p["mlp"])
+    return mlp_block_plain(x, p["ln_2"], p["mlp"])
 
 
-def transformer(p: dict, x: torch.Tensor, heads: int, causal: bool = False) -> torch.Tensor:
+def transformer(p: dict, x: torch.Tensor, heads: int, causal: bool = False,
+                impl: str = "auto") -> torch.Tensor:
     for block in p["resblocks"]:
-        x = resblock(block, x, heads, causal)
+        x = resblock(block, x, heads, causal, impl)
     return x
 
 
-def encode_text(params: dict, cfg: CLIPConfig, tokens: torch.Tensor) -> torch.Tensor:
+def encode_text(params: dict, cfg: CLIPConfig, tokens: torch.Tensor,
+                attention_impl: str = "auto") -> torch.Tensor:
     """[B, 77] integer token ids → [B, embed_dim] float32 features, pooled at
     each sequence's argmax token id (the EOT token) as OpenAI CLIP does."""
     t = params["text"]
     tokens = tokens.long()
     x = t["token_embedding"][tokens]
     x = (x + t["positional_embedding"][: tokens.shape[1]]).contiguous()
-    x = transformer(t["transformer"], x, cfg.text_heads, causal=True)
+    x = transformer(t["transformer"], x, cfg.text_heads, causal=True, impl=attention_impl)
     x = layer_norm(t["ln_final"], x)
     eot = tokens.argmax(dim=-1)
     pooled = x[torch.arange(x.shape[0], device=x.device), eot]
     return pooled @ t["text_projection"]
 
 
-def encode_image(params: dict, cfg: CLIPConfig, images: torch.Tensor) -> torch.Tensor:
+def encode_image(params: dict, cfg: CLIPConfig, images: torch.Tensor,
+                 attention_impl: str = "auto") -> torch.Tensor:
     """[B, image_size, image_size, 3] normalized float32 images (NHWC) →
     [B, embed_dim] float32 features; feed with
     ``ops.resize.preprocess_for_clip``."""
@@ -79,7 +150,7 @@ def encode_image(params: dict, cfg: CLIPConfig, images: torch.Tensor) -> torch.T
     cls = v["class_embedding"].expand(b, 1, cfg.vision_width)
     x = torch.cat([cls, x], dim=1) + v["positional_embedding"]
     x = layer_norm(v["ln_pre"], x).contiguous()
-    x = transformer(v["transformer"], x, cfg.vision_heads)
+    x = transformer(v["transformer"], x, cfg.vision_heads, impl=attention_impl)
     x = layer_norm(v["ln_post"], x[:, 0, :])
     return x @ v["proj"]
 

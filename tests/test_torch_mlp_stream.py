@@ -115,8 +115,13 @@ def test_mlp_stream_refuses_other_devices(vision_block):
 
 
 def test_resblock_wider_than_k2_raises_off_the_cpu():
-    """D = 1024 takes K4 for attention in the JAX package; until K4 is
-    ported, a resblock of that width raises on a device tensor."""
-    p = {"ln_1": {}, "attn": {}, "ln_2": {}, "mlp": {}}
-    with pytest.raises(NotImplementedError, match="K4"):
-        tmodel.resblock(p, torch.zeros(1, 3, 1024, device="meta"), 16)
+    """D = 1024 takes K4 for attention (``attention_kernels.fused_qkv_attention``),
+    whose wrapper, like every kernel wrapper, raises on a device that is
+    neither the CPU nor CUDA."""
+    z = lambda *shape: torch.zeros(*shape, device="meta")  # noqa: E731
+    d = 1024
+    p = {"ln_1": {"scale": z(d), "bias": z(d)}, "ln_2": {},
+         "attn": {"in_proj_w": z(3 * d, d), "in_proj_b": z(3 * d),
+                  "out_proj_w": z(d, d), "out_proj_b": z(d)}, "mlp": {}}
+    with pytest.raises(ValueError, match="fused_qkv_attention: unsupported device meta"):
+        tmodel.resblock(p, z(1, 3, d), 16)
