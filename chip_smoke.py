@@ -17,7 +17,9 @@ non-zero at once:
    call (CUDA events; K1 over back-to-back calls, beside its profiled device
    time), the plain version's time, the least time the card could take and,
    for K4 and K8, the time of ``scaled_dot_product_attention`` on the same
-   q/k/v;
+   q/k/v; then K6 and K7 at ViT-L/14's shapes and at ragged ones, K6 timed
+   beside the route it replaces and K7 beside K5, and both refusing a width
+   their kernels do not take;
 3. text slice — the CLIP-PPO MiniGrid CLI (text modality, HARD
    disturbances) for two iterations, with every launch count read from the
    run;
@@ -32,9 +34,17 @@ non-zero at once:
 7. encoder benchmark — the port's ``cli/benchmark_clip.py`` at ViT-L/14 in
    float32 (K4 + K5 in the vision tower, K2 + K5 in the text tower), then at
    ViT-B/32 with ``--attention-impl pallas`` (K8 in the vision tower), with
-   the launches of every call counted; ViT-L/14's embeddings of two frames
-   on the card against the plain versions on the CPU, and where one
-   batch-256 image call spends its device time.
+   the launches of every call counted; then at ViT-L/14 under each of the
+   JAX package's weight-streaming switches (``CLIP_PPO_ATTN_STREAM=1``: K6;
+   ``CLIP_PPO_MLP_CHUNKED=1``: K7; both; ``CLIP_PPO_MLP_STREAM=0``: the
+   plain MLP), one batch size and 2 iterations each, launches checked, and
+   the image call's time under each beside the default route's;
+8. large tower — ViT-L/14's embeddings of two frames on the card, on the
+   default route and under both switches, against the plain versions on the
+   CPU, and where one batch-256 image call of each spends its device time.
+
+The paths of phases 3 to 7 before the switch runs run with every switch
+unset, and their launch checks hold K6 and K7 at 0.
 
 The last lines are the kernels' JSON summary, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device the
@@ -44,6 +54,7 @@ for both matmuls and cuDNN, so every plain version computes in full fp32.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -145,8 +156,6 @@ def _errors(got, ref) -> tuple[float, float]:
 def phase_kernels(card: dict) -> list[dict]:
     import torch
 
-    from clip_ppo_tpu_torch.models.clip import block_kernels as bk
-    from clip_ppo_tpu_torch.models.clip.model import init_block
     from clip_ppo_tpu_torch.ops import disturb_kernel as dk
     from clip_ppo_tpu_torch.ops.disturbances import DisturbanceDraws, draw
     from clip_ppo_tpu_torch.ops.severity import DisturbanceSeverity, SEVERITY_CONFIGS
@@ -203,52 +212,96 @@ def phase_kernels(card: dict) -> list[dict]:
     # tower's [1024, 50, 768]; K2 at ViT-L/14's text tower, [1024, 77, 768]
     # causal; K5 at ViT-L/14's [256, 257, 1024] and at a ragged row count
     # (checked, not timed) ------------------------------------------------
-    def block(dm):
-        p = init_block(gen, dm, dev)
-        # init_block leaves every LayerNorm at scale 1 and bias 0 and every bias
-        # at 0. Draw them, so a kernel that drops or misreads one disagrees.
-        for ln in (p["ln_1"], p["ln_2"]):
-            ln["scale"] = 1.0 + 0.1 * torch.randn(dm, generator=gen, device=dev)
-            ln["bias"] = 0.1 * torch.randn(dm, generator=gen, device=dev)
-        for part, key in (("attn", "in_proj_b"), ("attn", "out_proj_b"), ("mlp", "fc_b"),
-                          ("mlp", "proj_b")):
-            p[part][key] = 0.1 * torch.randn(p[part][key].shape, generator=gen, device=dev)
-        return p
-
-    def attn_case(b, t, dm, causal, path):
-        heads = dm // 64
-        # qkv and out-projections, then scores and weighted values over the
-        # causal triangle or the full T x T.
-        pairs = t * (t + 1) // 2 if causal else t * t
-        return ("attn_block", path, (b, t, dm),
-                lambda x, p: bk.attn_block(x, p["ln_1"], p["attn"], heads, causal=causal),
-                lambda x, p: bk.attn_block_plain(x, p["ln_1"], p["attn"], heads, causal=causal),
-                2 * b * t * dm * 4 * dm + 2 * 2 * b * pairs * dm, (4 * dm * dm + 6 * dm) * 4,
-                "clip_ppo_tpu_torch/csrc/attn_block.cu",
-                "clip_ppo_tpu/models/clip/pallas_block.py:110")
-
-    def mlp_case(name, b, t, dm, path):
-        fn = bk.mlp_block_resident if name == "mlp_block" else bk.mlp_stream
-        src, line = {"mlp_block": ("mlp_block.cu", 170), "mlp_stream": ("mlp_stream.cu", 393)}[name]
-        return (name, path, (b, t, dm), lambda x, p: fn(x, p["ln_2"], p["mlp"]),
-                lambda x, p: bk.mlp_block_plain(x, p["ln_2"], p["mlp"]),
-                2 * 2 * b * t * dm * 4 * dm, (8 * dm * dm + 7 * dm) * 4,
-                f"clip_ppo_tpu_torch/csrc/{src}", f"clip_ppo_tpu/models/clip/pallas_block.py:{line}")
-
     cases = [  # (case, timed); rows of no main path stay out of the kernels line
-        (attn_case(1024, 77, 512, True, "text"), True),
+        (attn_case("attn_block", 1024, 77, 512, True, "text"), True),
         (mlp_case("mlp_block", 1024, 77, 512, "text"), True),
-        (attn_case(1024, 50, 768, False, "image"), True),
+        (attn_case("attn_block", 1024, 50, 768, False, "image"), True),
         (mlp_case("mlp_stream", 1024, 50, 768, "image"), True),
-        (attn_case(1024, 77, 768, True, "benchmark"), True),
+        (attn_case("attn_block", 1024, 77, 768, True, "benchmark"), True),
         (mlp_case("mlp_stream", 256, 257, 1024, "benchmark"), True),
         (mlp_case("mlp_stream", 7, 50, 768, None), False),
     ]
+    results += run_block_cases(cases, card, gen, dev)
+    print("[kernels] " + json.dumps({"checked": [
+        {k: r.get(k) for k in ("name", "shape", "max_abs_err", "max_rel_err", "tolerance")}
+        | {"ok": True} for r in results]}))
+    return results
+
+
+def random_block(gen, dm: int, dev) -> dict:
+    """A resblock of width ``dm`` whose LayerNorm affines and biases are
+    drawn at random: init_block leaves every LayerNorm at scale 1 and bias 0
+    and every bias at 0, so a kernel that dropped or misread one would pass."""
+    import torch
+
+    from clip_ppo_tpu_torch.models.clip.model import init_block
+
+    p = init_block(gen, dm, dev)
+    for ln in (p["ln_1"], p["ln_2"]):
+        ln["scale"] = 1.0 + 0.1 * torch.randn(dm, generator=gen, device=dev)
+        ln["bias"] = 0.1 * torch.randn(dm, generator=gen, device=dev)
+    for part, key in (("attn", "in_proj_b"), ("attn", "out_proj_b"), ("mlp", "fc_b"),
+                      ("mlp", "proj_b")):
+        p[part][key] = 0.1 * torch.randn(p[part][key].shape, generator=gen, device=dev)
+    return p
+
+
+# kernel -> (source under clip_ppo_tpu_torch/csrc/, line of the TPU kernel in
+# clip_ppo_tpu/models/clip/pallas_block.py)
+BLOCK_KERNELS = {
+    "attn_block": ("attn_block.cu", 110),
+    "attn_stream": ("attn_stream.cu", 453),
+    "mlp_block": ("mlp_block.cu", 170),
+    "mlp_stream": ("mlp_stream.cu", 393),
+    "mlp_chunked": ("mlp_chunked.cu", 134),
+}
+
+
+def _source(name: str) -> tuple[str, str]:
+    src, line = BLOCK_KERNELS[name]
+    return f"clip_ppo_tpu_torch/csrc/{src}", f"clip_ppo_tpu/models/clip/pallas_block.py:{line}"
+
+
+def attn_case(name, b, t, dm, causal, path, beside=None):
+    """K2 or K6 at [b, t, dm]: the kernel, its plain version, the work of
+    the function (qkv and out-projections, then scores and weighted values
+    over the causal triangle or the full T x T) and its weight bytes."""
+    from clip_ppo_tpu_torch.models.clip import block_kernels as bk
+
+    heads = dm // 64
+    fn = getattr(bk, name)
+    pairs = t * (t + 1) // 2 if causal else t * t
+    return (name, path, (b, t, dm, causal),
+            lambda x, p: fn(x, p["ln_1"], p["attn"], heads, causal=causal),
+            lambda x, p: bk.attn_block_plain(x, p["ln_1"], p["attn"], heads, causal=causal),
+            2 * b * t * dm * 4 * dm + 2 * 2 * b * pairs * dm, (4 * dm * dm + 6 * dm) * 4,
+            *_source(name), beside)
+
+
+def mlp_case(name, b, t, dm, path, beside=None):
+    """K3, K5 or K7 at [b, t, dm]: two products of 2 * B*T * D * 4D flops."""
+    from clip_ppo_tpu_torch.models.clip import block_kernels as bk
+
+    fn = bk.mlp_block_resident if name == "mlp_block" else getattr(bk, name)
+    return (name, path, (b, t, dm, False), lambda x, p: fn(x, p["ln_2"], p["mlp"]),
+            lambda x, p: bk.mlp_block_plain(x, p["ln_2"], p["mlp"]),
+            2 * 2 * b * t * dm * 4 * dm, (8 * dm * dm + 7 * dm) * 4, *_source(name), beside)
+
+
+def run_block_cases(cases, card: dict, gen, dev) -> list[dict]:
+    """Each resblock-half kernel against its plain version on random inputs
+    (tolerance 1e-4 x max(1, max |ref|)); the timed ones also get their
+    median ms, the plain version's, the bound and, where a case names one,
+    the time of another route to the same function on the same inputs."""
+    import torch
+
+    results = []
     params = {}
     with torch.no_grad():
-        for (name, path, (b, t, dm), fn, plain, nflops, wbytes, src, line), timed in cases:
+        for (name, path, (b, t, dm, causal), fn, plain, nflops, wbytes, src, line,
+             beside), timed in cases:
             if dm not in params:
-                params[dm] = block(dm)
+                params[dm] = random_block(gen, dm, dev)
             p = params[dm]
             xb = torch.randn((b, t, dm), generator=gen, device=dev)
             got, ref = fn(xb, p), plain(xb, p)
@@ -257,7 +310,7 @@ def phase_kernels(card: dict) -> list[dict]:
             scale = ref.abs().max().item()
             tol = 1e-4 * max(1.0, scale)
             del got, ref
-            shape = f"[{b},{t},{dm}]"
+            shape = f"[{b},{t},{dm}]" + (" causal" if causal else "")
             print(f"[kernels] {name} {shape}: max_abs_err {err:.3e} max_rel_err {rel:.3e} "
                   f"(max |ref| {scale:.3f}; tolerance 1e-4 x max(1, max |ref|) = {tol:.1e})")
             if not err <= tol:
@@ -267,18 +320,67 @@ def phase_kernels(card: dict) -> list[dict]:
             ms = time_ms(lambda: fn(xb, p), reps=10)
             plain_ms = time_ms(lambda: plain(xb, p), reps=10)
             bound_ms, bound_by = _bound(2 * xb.numel() * 4 + wbytes, nflops, card)
-            print(f"[kernels] {name} {shape}: {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-                  f"{bound_ms:.3f} ms ({bound_by}, {nflops / 1e9:.1f} GFLOP), "
-                  f"{nflops / ms / 1e9:.2f} TFLOP/s")
-            results.append({
+            row = {
                 "name": name, "route": "cuda", "source": src, "replaces": line, "shape": shape,
                 "path": path, "max_abs_err": err, "max_rel_err": rel, "tolerance": tol, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": None,
-            })
+            }
+            other = ""
+            if beside is not None:
+                label, other_fn = beside
+                row["beside"], row["beside_ms"] = label, time_ms(lambda: other_fn(xb, p), reps=10)
+                other = f", {label} {row['beside_ms']:.3f} ms"
+            print(f"[kernels] {name} {shape}: {ms:.3f} ms, plain {plain_ms:.3f} ms{other}, bound "
+                  f"{bound_ms:.3f} ms ({bound_by}, {nflops / 1e9:.1f} GFLOP), "
+                  f"{nflops / ms / 1e9:.2f} TFLOP/s")
+            results.append(row)
             del xb
     del params
     torch.cuda.empty_cache()
+    return results
+
+
+def phase_stream_kernels(card: dict) -> list[dict]:
+    """K6 and K7 against their plain versions on the card at the shapes of
+    ViT-L/14's switch runs and at ragged ones, K6 timed beside the route it
+    replaces (LN1, the cuBLAS qkv projection, K4, the cuBLAS out-projection
+    and the residual) and K7 beside K5 on the same inputs."""
+    import torch
+
+    from clip_ppo_tpu_torch.models.clip import block_kernels as bk
+    from clip_ppo_tpu_torch.models.clip import model as cm
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def fused_route(x, p):
+        return x + cm.attention(p["attn"], bk.layer_norm(p["ln_1"], x), 16, False, "auto")
+
+    k4_route = ("LN1 + cuBLAS qkv + K4 + cuBLAS out-proj + residual", fused_route)
+    k5 = ("K5 (mlp_stream)", lambda x, p: bk.mlp_stream(x, p["ln_2"], p["mlp"]))
+    cases = [
+        (attn_case("attn_stream", 256, 257, 1024, False, "both", k4_route), True),
+        (attn_case("attn_stream", 3, 257, 1024, False, None), False),
+        (attn_case("attn_stream", 4, 77, 1024, True, None), False),
+        (mlp_case("mlp_chunked", 256, 257, 1024, "both", k5), True),
+        (mlp_case("mlp_chunked", 1024, 77, 768, "both", k5), True),
+        (mlp_case("mlp_chunked", 3, 257, 1024, None), False),
+    ]
+    results = run_block_cases(cases, card, gen, dev)
+    # A width the kernels do not take is refused by name, not run.
+    x, blk = torch.zeros((2, 3, 192), device=dev), random_block(gen, 192, dev)
+    for name, call in (("attn_stream", lambda: bk.attn_stream(x, blk["ln_1"], blk["attn"], 3)),
+                       ("mlp_chunked", lambda: bk.mlp_chunked(x, blk["ln_2"], blk["mlp"]))):
+        try:
+            call()
+        except ValueError as e:
+            print(f"[kernels] {name} refuses D = 192: {e}")
+        else:
+            fail(f"{name} ran at D = 192, a width its kernel does not take")
     print("[kernels] " + json.dumps({"checked": [
         {k: r.get(k) for k in ("name", "shape", "max_abs_err", "max_rel_err", "tolerance")}
         | {"ok": True} for r in results]}))
@@ -360,9 +462,9 @@ def phase_attention(card: dict) -> list[dict]:
 SLICES = {
     # modality: launches expected on the CLI's main path, per iteration
     "text": {"attn_block": 0, "mlp_block": 0, "mlp_stream": 0, "fused_qkv": 0,
-             "packed_attention": 0, "disturb": 128},
+             "packed_attention": 0, "attn_stream": 0, "mlp_chunked": 0, "disturb": 128},
     "image": {"attn_block": 12, "mlp_block": 0, "mlp_stream": 12, "fused_qkv": 0,
-              "packed_attention": 0, "disturb": 128},
+              "packed_attention": 0, "attn_stream": 0, "mlp_chunked": 0, "disturb": 128},
 }
 STARTUP = {"text": {"attn_block": 12, "mlp_block": 12}, "image": {}}  # the text table
 
@@ -530,6 +632,37 @@ BENCH_PALLAS = ["--model", "ViT-B/32", "--dtype", "float32", "--attention-impl",
                 "--batch-sizes", "64", "--iterations", "2"]
 BENCH_PALLAS_PER_CALL = {"image": {"packed_attention": 12},
                          "text": {"attn_block": 12, "mlp_block": 12}}
+# ViT-L/14 under the JAX package's weight-streaming switches, one batch size
+# and 2 iterations a run (3 in the default run above), each switch with the
+# launches of every call: (label, environment, launches per call).
+BENCH_SWITCH = ["--model", "ViT-L/14", "--dtype", "float32", "--batch-sizes", "256",
+                "--text-batch", "1024", "--iterations", "2"]
+SWITCH_VARS = ("CLIP_PPO_ATTN_STREAM", "CLIP_PPO_MLP_CHUNKED", "CLIP_PPO_MLP_STREAM")
+BOTH = {"CLIP_PPO_ATTN_STREAM": "1", "CLIP_PPO_MLP_CHUNKED": "1"}
+SWITCHES = [
+    ("attn_stream", {"CLIP_PPO_ATTN_STREAM": "1"},
+     {"image": {"attn_stream": 24, "mlp_stream": 24}, "text": {"attn_block": 12, "mlp_stream": 12}}),
+    ("mlp_chunked", {"CLIP_PPO_MLP_CHUNKED": "1"},
+     {"image": {"fused_qkv": 24, "mlp_chunked": 24}, "text": {"attn_block": 12, "mlp_chunked": 12}}),
+    ("both", BOTH,
+     {"image": {"attn_stream": 24, "mlp_chunked": 24}, "text": {"attn_block": 12, "mlp_chunked": 12}}),
+    ("mlp_stream_off", {"CLIP_PPO_MLP_STREAM": "0"},
+     {"image": {"fused_qkv": 24}, "text": {"attn_block": 12}}),
+]
+
+
+@contextlib.contextmanager
+def switches(env: dict):
+    """Run with exactly the switches in ``env`` set, the others unset."""
+    saved = {k: os.environ.pop(k, None) for k in SWITCH_VARS}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
 
 
 def _launch_delta(before: dict, after: dict) -> dict:
@@ -537,7 +670,7 @@ def _launch_delta(before: dict, after: dict) -> dict:
 
 
 def phase_benchmark(results: list[dict], card: dict, path: str, argv: list[str],
-                    per_call: dict) -> None:
+                    per_call: dict) -> list[tuple]:
     """The port's CLIP encoder benchmark as a user runs it, through its
     ``main()``. Each timing (one per image batch size, then the text batch)
     makes 1 + iterations calls; the launches of each are read around it and
@@ -560,7 +693,9 @@ def phase_benchmark(results: list[dict], card: dict, path: str, argv: list[str],
         return seconds
 
     tag = f"[benchmark {path}]"
-    print(f"{tag} python -m clip_ppo_tpu_torch.cli.benchmark_clip {' '.join(argv)}")
+    env = " ".join(f"{k}={os.environ[k]}" for k in SWITCH_VARS if k in os.environ)
+    print(f"{tag} {env + ' ' if env else ''}python -m clip_ppo_tpu_torch.cli.benchmark_clip "
+          f"{' '.join(argv)}")
     bench._bench = counted
     try:
         cuda_build.reset_launches()
@@ -583,40 +718,13 @@ def phase_benchmark(results: list[dict], card: dict, path: str, argv: list[str],
     for r in results:
         if r["path"] == path:
             r["launches"] = launches[r["name"]]
+    return timings
 
 
-def phase_large_tower(card: dict) -> None:
-    """ViT-L/14's vision tower (K4 + K5): its embeddings of two frames on the
-    card against the plain versions on the CPU with the same weights, then
-    where one batch-256 image call of the benchmark spends its device time
-    (torch.profiler), beside the call's untraced wall time."""
+def _profile_call(call, label: str, card: dict) -> None:
+    """Untraced wall time of one call, then its device time by kernel."""
     import torch
 
-    from clip_ppo_tpu_torch import cuda_build
-    from clip_ppo_tpu_torch.models import clip_utils
-    from clip_ppo_tpu_torch.utils.tree import tree_map
-
-    dev = torch.device("cuda", 0)
-    params, cfg = clip_utils.load_clip_model("ViT-L/14", dev)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(4)
-    frames = torch.randint(0, 256, (2, 84, 84, 3), generator=gen, device=dev, dtype=torch.uint8)
-    cuda_build.reset_launches()
-    got = clip_utils.encode_images(params, cfg, frames).cpu()
-    launches = _launch_delta({k: 0 for k in cuda_build.LAUNCHES}, cuda_build.LAUNCHES)
-    ref = clip_utils.encode_images({"visual": tree_map(lambda t: t.cpu(), params["visual"])},
-                                   cfg, frames.cpu())
-    err = (got - ref).abs().max().item()
-    print(f"[large tower] 2 frames through the ViT-L/14 tower (launches {launches}) vs the "
-          f"plain versions on the CPU: shape {tuple(got.shape)}, max_abs_err {err:.3e} on unit "
-          f"vectors (tolerance 1e-4)")
-    if launches != {"fused_qkv": 24, "mlp_stream": 24}:
-        fail(f"ViT-L/14's vision tower launched {launches}, expected 24 fused_qkv + 24 mlp_stream")
-    if got.shape != (2, cfg.embed_dim) or not torch.isfinite(got).all() or not err <= 1e-4:
-        fail(f"ViT-L/14 embeddings on the card disagree with the CPU: {err}")
-
-    frames = torch.randint(0, 255, (256, 84, 84, 3), generator=gen, device=dev, dtype=torch.uint8)
-    call = lambda: clip_utils.encode_images(params, cfg, frames)  # noqa: E731
     call()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -629,15 +737,56 @@ def phase_large_tower(card: dict) -> None:
     events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in events) / 1e6
     if busy <= 0:
-        print("[large tower] device time of the batch-256 call: not measured (no device time "
-              "in the trace)")
+        print(f"[large tower] device time of {label}: not measured (no device time in the trace)")
         return
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
-    print(f"[large tower] one batch-256 image call: {wall * 1e3:.1f} ms untraced wall, device "
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    print(f"[large tower] {label}: {wall * 1e3:.1f} ms untraced wall, device "
           f"busy {busy * 1e3:.1f} ms ({100 * busy / wall:.1f}% of the wall); by kernel: "
           + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.1f} ms x{e.count} "
                       f"({100 * e.self_device_time_total / 1e6 / busy:.1f}%)" for e in top)
           + f" on {card['smi']}")
+
+
+def phase_large_tower(card: dict) -> None:
+    """ViT-L/14's vision tower on its default route (K4 + K5) and under both
+    weight-streaming switches (K6 + K7): its embeddings of two frames on the
+    card against the plain versions on the CPU with the same weights, then
+    where one batch-256 image call of each spends its device time
+    (torch.profiler), beside the call's untraced wall time."""
+    import torch
+
+    from clip_ppo_tpu_torch import cuda_build
+    from clip_ppo_tpu_torch.models import clip_utils
+    from clip_ppo_tpu_torch.utils.tree import tree_map
+
+    dev = torch.device("cuda", 0)
+    params, cfg = clip_utils.load_clip_model("ViT-L/14", dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    frames = torch.randint(0, 256, (2, 84, 84, 3), generator=gen, device=dev, dtype=torch.uint8)
+    ref = clip_utils.encode_images({"visual": tree_map(lambda t: t.cpu(), params["visual"])},
+                                   cfg, frames.cpu())
+    routes = [("default route", {}, {"fused_qkv": 24, "mlp_stream": 24}),
+              ("both switches", BOTH, {"attn_stream": 24, "mlp_chunked": 24})]
+    for label, env, want in routes:
+        with switches(env):
+            cuda_build.reset_launches()
+            got = clip_utils.encode_images(params, cfg, frames).cpu()
+            launches = _launch_delta({k: 0 for k in cuda_build.LAUNCHES}, cuda_build.LAUNCHES)
+        err = (got - ref).abs().max().item()
+        print(f"[large tower] {label}: 2 frames through the ViT-L/14 tower (launches {launches}) "
+              f"vs the plain versions on the CPU: shape {tuple(got.shape)}, max_abs_err "
+              f"{err:.3e} on unit vectors (tolerance 1e-4)")
+        if launches != want:
+            fail(f"ViT-L/14's vision tower ({label}) launched {launches}, expected {want}")
+        if got.shape != (2, cfg.embed_dim) or not torch.isfinite(got).all() or not err <= 1e-4:
+            fail(f"ViT-L/14 embeddings ({label}) on the card disagree with the CPU: {err}")
+
+    frames = torch.randint(0, 255, (256, 84, 84, 3), generator=gen, device=dev, dtype=torch.uint8)
+    for label, env, _ in routes:
+        with switches(env):
+            _profile_call(lambda: clip_utils.encode_images(params, cfg, frames),
+                          f"one batch-256 image call, {label}", card)
     del params, frames
     torch.cuda.empty_cache()
 
@@ -653,18 +802,29 @@ def main() -> None:
         import clip_ppo_tpu_torch  # noqa: F401
     except ImportError as e:
         fail(f"the port is not importable from here ({e}); run from the repository root")
+    t_start = time.time()
+    for k in SWITCH_VARS:  # the earlier paths run with every switch unset
+        os.environ.pop(k, None)
     card = phase_card()
-    results = phase_kernels(card) + phase_attention(card)
+    results = phase_kernels(card) + phase_attention(card) + phase_stream_kernels(card)
     for modality in ("text", "image"):
         phase_slice(results, card, modality)
         if modality == "image":
             phase_image_encode(card)
         phase_profile(card, modality)
-    phase_benchmark(results, card, "benchmark", BENCH_L14, BENCH_L14_PER_CALL)
+    default = phase_benchmark(results, card, "benchmark", BENCH_L14, BENCH_L14_PER_CALL)
     phase_benchmark(results, card, "pallas", BENCH_PALLAS, BENCH_PALLAS_PER_CALL)
+    image = {"default route": next(r for r in default if r[0] == 256)[1]}
+    for label, env, per_call in SWITCHES:
+        with switches(env):
+            image[label] = phase_benchmark(results, card, label, BENCH_SWITCH, per_call)[0][1]
+    print("[switches] ViT-L/14 image call at batch 256: " + "; ".join(
+        f"{k} {v * 1e3:.2f} ms/batch, {256 / v:.1f} frames/s" for k, v in image.items())
+        + f" on {card['smi']}")
     phase_large_tower(card)
     order = ("name", "route", "source", "replaces", "shape", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(f"[done] every phase passed in {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": [{k: r[k] for k in order} for r in results if r["path"]]}))
     print(card["smi"])
     print(json.dumps({"ok": True, "device": {

@@ -72,15 +72,15 @@ def _reject_unported(args: ClipBenchArgs, device: torch.device) -> None:
         raise SystemExit(
             f"--dtype {args.dtype}: the port runs float32 only so far; bfloat16 (the JAX "
             "tool's default) comes with the FROZEN_CLIP/bf16 slice (ROADMAP.md Queue 1 "
-            "item 2.1). Pass --dtype float32.")
+            "item 3). Pass --dtype float32.")
     if args.tp > 1 or args.num_devices > 1:
         raise SystemExit(
             f"--tp {args.tp} --num-devices {args.num_devices}: multi-GPU runs come with "
-            "the multi-GPU slice (ROADMAP.md Queue 1 item 5); the port runs on one device.")
+            "the multi-GPU slice (ROADMAP.md Queue 1 item 9); the port runs on one device.")
     if args.model == "ViT-B/16" and device.type == "cuda":
         raise SystemExit(
             "--model ViT-B/16 on the GPU needs K2 at T = 197 tokens, which comes with the "
-            "ViT-B/16 slice (ROADMAP.md Queue 1 item 2.3); run it with --no-cuda.")
+            "ViT-B/16 slice (ROADMAP.md Queue 1 item 4); run it with --no-cuda.")
     if args.model not in CLIP_CONFIGS:
         raise SystemExit(f"--model {args.model}: one of {', '.join(CLIP_CONFIGS)}")
     impl = args.attention_impl

@@ -325,12 +325,14 @@ def train(args: Args, run_name: Optional[str] = None) -> dict:
         if args.save_model and ((iteration - 1) * args.batch_size) % args.save_freq == 0:
             pipeline.flush()
             save_checkpoint(checkpoint_path, state.params, state.opt_state, iteration - 1,
-                            logger.global_step, args, b_returns=logger.b_returns)
+                            logger.global_step, args, b_returns=logger.b_returns,
+                            learning_rate=trainer.learning_rate(iteration - 1))
     pipeline.flush()
 
     if args.save_model:
         save_checkpoint(checkpoint_path, state.params, state.opt_state, args.num_iterations,
-                        logger.global_step, args, b_returns=logger.b_returns, final=True)
+                        logger.global_step, args, b_returns=logger.b_returns, final=True,
+                        learning_rate=trainer.learning_rate(args.num_iterations))
     profiler.close()
     if recorder is not None:
         recorder.close()

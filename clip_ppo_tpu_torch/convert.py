@@ -14,18 +14,57 @@ jax. Outputs are the port's tensors on ``device``:
   ``VecState`` (batched over envs). The JAX state's PRNG key and the
   mission fields of other families have no counterpart here and are
   dropped.
+
+And back, for the checkpoints both packages read (``io/checkpoint.py``):
+
+* :func:`jax_agent_params` — the port's agent params → numpy, conv kernels
+  OIHW → HWIO.
+* :func:`jax_adam_state` — ``{"mu", "nu", "count"}`` and the last update's
+  learning rate → the optax chain state, built from stand-ins of optax's
+  state classes (:data:`OPTAX_CLASSES`) with numpy leaves.
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
 
 from clip_ppo_tpu_torch.envs.minigrid.core import EnvState
 from clip_ppo_tpu_torch.envs.vector import VecState
+from clip_ppo_tpu_torch.train.ppo import ADAM_B1, ADAM_B2, ADAM_EPS
 from clip_ppo_tpu_torch.utils.tree import tree_map
+
+_CONVS = ("conv1", "conv2", "conv3")
+
+
+class EmptyState(NamedTuple):
+    """Stand-in of ``optax.EmptyState``."""
+
+
+class ScaleByAdamState(NamedTuple):
+    """Stand-in of ``optax.ScaleByAdamState``."""
+    count: Any
+    mu: Any
+    nu: Any
+
+
+class InjectStatefulHyperparamsState(NamedTuple):
+    """Stand-in of ``optax.InjectStatefulHyperparamsState``."""
+    count: Any
+    hyperparams: Any
+    hyperparams_states: Any
+    inner_state: Any
+
+
+# Each stand-in and the module and name a pickle of the JAX package's
+# optimizer state records for the optax class it stands for (optax 0.2).
+OPTAX_CLASSES = {
+    EmptyState: ("optax._src.base", "EmptyState"),
+    ScaleByAdamState: ("optax._src.transform", "ScaleByAdamState"),
+    InjectStatefulHyperparamsState: ("optax.schedules._inject", "InjectStatefulHyperparamsState"),
+}
 
 
 def _t(a, device, dtype=None) -> torch.Tensor:
@@ -35,8 +74,16 @@ def _t(a, device, dtype=None) -> torch.Tensor:
 def agent_params(tree: dict, device="cpu") -> dict:
     """Agent params (trunk conv1-3 + fc, actor, critic)."""
     out = tree_map(lambda a: _t(a, device), tree)
-    for name in ("conv1", "conv2", "conv3"):
+    for name in _CONVS:
         out["trunk"][name]["w"] = out["trunk"][name]["w"].permute(3, 2, 0, 1).contiguous()
+    return out
+
+
+def jax_agent_params(params: dict) -> dict:
+    """Inverse of :func:`agent_params`: numpy arrays, conv kernels HWIO."""
+    out = tree_map(lambda t: t.detach().cpu().numpy(), params)
+    for name in _CONVS:
+        out["trunk"][name]["w"] = np.ascontiguousarray(out["trunk"][name]["w"].transpose(2, 3, 1, 0))
     return out
 
 
@@ -64,6 +111,19 @@ def adam_state(opt_state: Any, device="cpu") -> dict:
         raise ValueError("no Adam state (mu, nu, count) in the given optimizer state")
     return {"mu": agent_params(adam.mu, device), "nu": agent_params(adam.nu, device),
             "count": _t(adam.count, device, torch.int32)}
+
+
+def jax_adam_state(state: dict, learning_rate: float) -> tuple:
+    """Inverse of :func:`adam_state`: the state of the JAX package's
+    ``chain(clip_by_global_norm, inject_hyperparams(adam)(eps=1e-5))`` after
+    ``state["count"]`` updates, the last at ``learning_rate``."""
+    count = np.asarray(state["count"].cpu().numpy(), np.int32)
+    f32 = lambda v: np.asarray(v, np.float32)  # noqa: E731
+    hyperparams = {"learning_rate": f32(learning_rate), "b1": f32(ADAM_B1), "b2": f32(ADAM_B2),
+                   "eps": f32(ADAM_EPS), "eps_root": f32(0.0)}
+    adam = ScaleByAdamState(count, jax_agent_params(state["mu"]), jax_agent_params(state["nu"]))
+    return (EmptyState(), InjectStatefulHyperparamsState(count, hyperparams, {},
+                                                          (adam, EmptyState())))
 
 
 def env_state(st: Any, device="cpu") -> EnvState:

@@ -4,7 +4,8 @@ Each source under ``csrc/`` is compiled with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface and loaded with ``ctypes``. The
 build happens at first use, from the sources in this checkout only, into
 ``_build/`` beside this file; a library's file name carries a hash of its
-source, so an edited source is always rebuilt. All sources compile in
+source and of the shared headers (``csrc/*.cuh``), so an edited source or
+header is always rebuilt. All sources compile in
 parallel, one ``nvcc`` process each.
 
 Every kernel wrapper counts its launches in :data:`LAUNCHES`, so a run can
@@ -29,6 +30,8 @@ SOURCES = {
     "mlp_block": "mlp_block.cu",
     "mlp_stream": "mlp_stream.cu",
     "fused_qkv": "fused_qkv.cu",
+    "attn_stream": "attn_stream.cu",
+    "mlp_chunked": "mlp_chunked.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -58,7 +61,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / SOURCES[name]).read_bytes()).hexdigest()[:12]
+    h = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
@@ -108,6 +114,8 @@ def _declare(libs: dict[str, ctypes.CDLL]) -> None:
         ("mlp_stream", "mlp_stream_launch"): [p, p, p, p, p, p, p, p, i, i, i, f, p],
         ("fused_qkv", "fused_qkv_launch"): [p, p, i, i, i, i, p],
         ("fused_qkv", "packed_attention_launch"): [p, p, p, p, i, i, i, *[ll] * 9, p],
+        ("attn_stream", "attn_stream_launch"): [*[p] * 11, i, i, i, i, i, f, p],
+        ("mlp_chunked", "mlp_chunked_launch"): [*[p] * 10, i, i, i, i, f, p],
     }
     for (lib, fn), argtypes in sig.items():
         func = getattr(libs[lib], fn)

@@ -1,5 +1,5 @@
-"""K2, K3 and K5: the two halves of a pre-LN CLIP resblock as hand-written
-CUDA kernels, and their plain PyTorch versions.
+"""K2, K3, K5, K6 and K7: the two halves of a pre-LN CLIP resblock as
+hand-written CUDA kernels, and their plain PyTorch versions.
 
 * :func:`attn_block` — ``x + out_proj(MHA(qkv_proj(LN1(x))))`` with fp32 LN
   statistics and an optional causal mask. Replaces
@@ -8,27 +8,44 @@ CUDA kernels, and their plain PyTorch versions.
   D = heads × 64 and T ≤ 80 (the text tower's 77 tokens, ViT-B/32's 50).
   The [B, T, 3D] qkv never reaches device memory; the [B, T, D] attention
   output does, between the kernel's two launches.
+* :func:`attn_stream` — the same function, K6, replacing
+  ``_attn_stream_kernel`` (entry ``fused_attn_block_stream``), which
+  ``model.resblock`` takes under ``CLIP_PPO_ATTN_STREAM=1`` at widths past
+  K2's route (ViT-L/14's vision tower). Kernel in ``csrc/attn_stream.cu``,
+  for any batch and T, D = heads × 64 a multiple of 128, causal or not. Its
+  [B, T, 3D] qkv and [B, T, D] attention output are scratch in device memory
+  between its launches (one batch element's qkv, 3.2 MB at ViT-L/14, is far
+  beyond a block's shared memory); LN1(x) never is.
 * :func:`mlp_block` — ``x + proj(QuickGELU(fc(LN2(x))))``, routed as
-  ``fused_mlp_block`` routes (``pallas_block.py:774``): where both weight
-  matrices fit the TPU kernel's 12 MiB budget (:func:`uses_mlp_stream`
-  false: the text tower's D = 512 in fp32) it runs
-  :func:`mlp_block_resident`, K3, replacing ``_mlp_block_kernel``
-  (``csrc/mlp_block.cu``, D = 512); otherwise (the vision tower's D = 768
-  in fp32, ViT-L/14's D = 1024) :func:`mlp_stream`, K5, replacing
-  ``_mlp_stream_kernel`` (``csrc/mlp_stream.cu``, D a multiple of 128 up to
-  1024), which streams the weights through shared memory in tiles. Either
-  way the [B, T, 4D] hidden never reaches device memory.
+  ``fused_mlp_block`` routes (``pallas_block.py:759-820``), reading the
+  switches at call time: where both weight matrices fit the TPU kernel's
+  12 MiB budget (:func:`uses_mlp_stream` false: the text tower's D = 512 in
+  fp32) it runs :func:`mlp_block_resident`, K3, replacing
+  ``_mlp_block_kernel`` (``csrc/mlp_block.cu``, D = 512). Otherwise (the
+  vision tower's D = 768 in fp32, ViT-L/14's D = 1024 and 768):
+  ``CLIP_PPO_MLP_CHUNKED=1`` runs :func:`mlp_chunked`, K7, replacing
+  ``_mlp_block_chunked_kernel`` (``csrc/mlp_chunked.cu``: the hidden
+  dimension cut into chunks across the launch, the chunks' fp32 partial sums
+  added by a second pass); else ``CLIP_PPO_MLP_STREAM`` other than "1" runs
+  the plain version, as ``_mlp_block_ref``; else :func:`mlp_stream`, K5,
+  replacing ``_mlp_stream_kernel`` (``csrc/mlp_stream.cu``), which streams
+  the weights through shared memory in tiles. K5 and K7 take D a multiple of
+  128 up to 1024. In every kernel the [B, T, 4D] hidden never reaches device
+  memory.
 
 Each wrapper launches its kernel for a CUDA tensor, runs its plain version
 (which mirrors ``_attn_block_ref`` / ``_mlp_block_ref``) for a CPU tensor,
-and raises for any other device. Forward only: the towers run under
-``torch.no_grad()``. The primitives the plain versions are built from
-(``layer_norm``, ``quick_gelu``, ``attention``) are the model's own;
-``attention`` computes its scores through K4's plain version,
+and raises for any other device and for shapes its kernel does not take.
+Forward only: the towers run under ``torch.no_grad()``. The primitives the
+plain versions are built from (``layer_norm``, ``quick_gelu``,
+``attention``) are the model's own; ``attention`` computes its scores
+through K4's plain version,
 :func:`attention_kernels.fused_qkv_attention_plain`.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -41,6 +58,9 @@ from clip_ppo_tpu_torch.models.clip.attention_kernels import (  # noqa: F401  (r
 HEAD_DIM = 64
 # The TPU kernels' weight budget (``pallas_block.py:774``, ``model.py:204``).
 WEIGHT_BUDGET_BYTES = 12 << 20
+# K7's chunks of the hidden dimension, one launch axis (csrc/mlp_chunked.cu
+# says why 4).
+MLP_CHUNKS = 4
 
 
 def uses_mlp_stream(width: int, hidden: int, itemsize: int) -> bool:
@@ -91,8 +111,11 @@ def mlp_block_plain(x: torch.Tensor, ln2: dict, mlp: dict,
     return x + (h @ mlp["proj_w"].T + mlp["proj_b"])
 
 
-# The kernels compute K5's function exactly as K3's: one plain version.
+# K5 and K7 compute K3's function, and K6 computes K2's: one plain version
+# each.
 mlp_stream_plain = mlp_block_plain
+mlp_chunked_plain = mlp_block_plain
+attn_stream_plain = attn_block_plain
 
 
 def _check(x: torch.Tensor, weights: dict, name: str) -> None:
@@ -103,17 +126,34 @@ def _check(x: torch.Tensor, weights: dict, name: str) -> None:
             raise ValueError(f"{name}: {key} must be a contiguous float32 tensor on {x.device}")
 
 
-def _check_mlp_shapes(x: torch.Tensor, ln2: dict, mlp: dict, name: str) -> tuple[int, int]:
-    d = x.shape[-1]
-    d4 = mlp["fc_w"].shape[0]
-    want = {"ln_2.scale": (d,), "ln_2.bias": (d,), "fc_w": (d4, d), "fc_b": (d4,),
-            "proj_w": (d, d4), "proj_b": (d,)}
-    got = {"ln_2.scale": ln2["scale"], "ln_2.bias": ln2["bias"], **mlp}
+def _check_shapes(x: torch.Tensor, got: dict, want: dict, name: str) -> None:
     for key, shape in want.items():
         if tuple(got[key].shape) != shape:
             raise ValueError(f"{name}: {key} has shape {tuple(got[key].shape)}, expected {shape}")
     _check(x, got, name)
+
+
+def _check_mlp_shapes(x: torch.Tensor, ln2: dict, mlp: dict, name: str) -> tuple[int, int]:
+    d = x.shape[-1]
+    d4 = mlp["fc_w"].shape[0]
+    _check_shapes(x, {"ln_2.scale": ln2["scale"], "ln_2.bias": ln2["bias"], **mlp},
+                  {"ln_2.scale": (d,), "ln_2.bias": (d,), "fc_w": (d4, d), "fc_b": (d4,),
+                   "proj_w": (d, d4), "proj_b": (d,)}, name)
     return d, d4
+
+
+def _check_attn_shapes(x: torch.Tensor, ln1: dict, attn: dict, name: str) -> int:
+    d = x.shape[-1]
+    _check_shapes(x, {"ln_1.scale": ln1["scale"], "ln_1.bias": ln1["bias"], **attn},
+                  {"ln_1.scale": (d,), "ln_1.bias": (d,), "in_proj_w": (3 * d, d),
+                   "in_proj_b": (3 * d,), "out_proj_w": (d, d), "out_proj_b": (d,)}, name)
+    return d
+
+
+def _check_aligned(name: str, *tensors: torch.Tensor) -> None:
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: every tensor must start on a 16-byte boundary "
+                         "(the kernel reads and writes 16-byte pieces)")
 
 
 def attn_block(x: torch.Tensor, ln1: dict, attn: dict, heads: int,
@@ -146,9 +186,15 @@ def attn_block(x: torch.Tensor, ln1: dict, attn: dict, heads: int,
 
 def mlp_block(x: torch.Tensor, ln2: dict, mlp: dict, eps: float = 1e-5) -> torch.Tensor:
     """``x + proj(quick_gelu(fc(LN2(x))))``; ``ln2``/``mlp`` are the
-    resblock's ``ln_2``/``mlp`` dicts (fc_w [4D, D], proj_w [D, 4D]). Takes
-    K5 where :func:`uses_mlp_stream`, else K3."""
+    resblock's ``ln_2``/``mlp`` dicts (fc_w [4D, D], proj_w [D, 4D]). Where
+    :func:`uses_mlp_stream`: K7 under ``CLIP_PPO_MLP_CHUNKED=1``, else the
+    plain version when ``CLIP_PPO_MLP_STREAM`` is set to anything but "1",
+    else K5. Otherwise K3."""
     if uses_mlp_stream(x.shape[-1], mlp["fc_w"].shape[0], x.element_size()):
+        if os.environ.get("CLIP_PPO_MLP_CHUNKED", "0") == "1":
+            return mlp_chunked(x, ln2, mlp, eps)
+        if os.environ.get("CLIP_PPO_MLP_STREAM", "1") != "1":
+            return mlp_block_plain(x, ln2, mlp, eps)
         return mlp_stream(x, ln2, mlp, eps)
     return mlp_block_resident(x, ln2, mlp, eps)
 
@@ -202,4 +248,65 @@ def mlp_stream(x: torch.Tensor, ln2: dict, mlp: dict, eps: float = 1e-5) -> torc
         cuda_build.stream_handle(x.device),
     )
     cuda_build.LAUNCHES["mlp_stream"] += 1
+    return out
+
+
+def attn_stream(x: torch.Tensor, ln1: dict, attn: dict, heads: int,
+                causal: bool = False, eps: float = 1e-5) -> torch.Tensor:
+    """K6: :func:`attn_block`'s function at any T (D = heads x 64, a
+    multiple of 128), the residual included."""
+    if x.device.type == "cpu":
+        return attn_stream_plain(x, ln1, attn, heads, causal, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"attn_stream: unsupported device {x.device}")
+    b, t, _ = x.shape
+    d = _check_attn_shapes(x, ln1, attn, "attn_stream")
+    if d != heads * HEAD_DIM or d % 128 != 0 or -(-b * t // 128) > 65535:
+        raise ValueError(f"attn_stream: the kernel takes D = heads x {HEAD_DIM}, a multiple of "
+                         f"128, and B*T <= {65535 * 128} (any T, causal or not), got D={d}, "
+                         f"heads={heads}, B*T={b * t}")
+    _check_aligned("attn_stream", x, ln1["scale"], ln1["bias"], *attn.values())
+    stats = torch.empty((b * t, 2), dtype=x.dtype, device=x.device)  # LN1 mean, 1/std
+    qkv = torch.empty((b, t, 3 * d), dtype=x.dtype, device=x.device)
+    scratch = torch.empty_like(x)  # attention output, before out_proj
+    out = torch.empty_like(x)
+    cuda_build.launch(
+        "attn_stream", "attn_stream_launch",
+        x.data_ptr(), ln1["scale"].data_ptr(), ln1["bias"].data_ptr(),
+        attn["in_proj_w"].data_ptr(), attn["in_proj_b"].data_ptr(),
+        attn["out_proj_w"].data_ptr(), attn["out_proj_b"].data_ptr(),
+        stats.data_ptr(), qkv.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+        b, t, d, heads, int(causal), float(eps), cuda_build.stream_handle(x.device),
+    )
+    cuda_build.LAUNCHES["attn_stream"] += 1
+    return out
+
+
+def mlp_chunked(x: torch.Tensor, ln2: dict, mlp: dict, eps: float = 1e-5) -> torch.Tensor:
+    """K7: :func:`mlp_block` as a sum over :data:`MLP_CHUNKS` chunks of the
+    hidden dimension, one launch axis (D a multiple of 128 up to 1024, 4D a
+    multiple of 64 x MLP_CHUNKS)."""
+    if x.device.type == "cpu":
+        return mlp_chunked_plain(x, ln2, mlp, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"mlp_chunked: unsupported device {x.device}")
+    b, t, _ = x.shape
+    d, d4 = _check_mlp_shapes(x, ln2, mlp, "mlp_chunked")
+    if d % 128 != 0 or not 128 <= d <= 1024 or d4 % (64 * MLP_CHUNKS) != 0:
+        raise ValueError(f"mlp_chunked: the kernel takes D a multiple of 128 up to 1024 and "
+                         f"4D % {64 * MLP_CHUNKS} == 0, got {d}, {d4}")
+    _check_aligned("mlp_chunked", x, ln2["scale"], ln2["bias"], *mlp.values())
+    m = b * t
+    stats = torch.empty((m, 2), dtype=x.dtype, device=x.device)  # LN2 mean, 1/std
+    partial = torch.empty((MLP_CHUNKS, m, d), dtype=x.dtype, device=x.device)
+    out = torch.empty_like(x)
+    cuda_build.launch(
+        "mlp_chunked", "mlp_chunked_launch",
+        x.data_ptr(), ln2["scale"].data_ptr(), ln2["bias"].data_ptr(),
+        mlp["fc_w"].data_ptr(), mlp["fc_b"].data_ptr(),
+        mlp["proj_w"].data_ptr(), mlp["proj_b"].data_ptr(),
+        stats.data_ptr(), partial.data_ptr(), out.data_ptr(), m, d, d4, MLP_CHUNKS, float(eps),
+        cuda_build.stream_handle(x.device),
+    )
+    cuda_build.LAUNCHES["mlp_chunked"] += 1
     return out

@@ -106,11 +106,17 @@ def convert_openai_state_dict(sd: dict, device=None) -> tuple[dict, CLIPConfig]:
 
 
 def find_checkpoint(name: str) -> str | None:
-    root = os.environ.get("CLIP_PPO_CHECKPOINT_DIR", "")
-    if not root:
-        return None
-    path = os.path.join(root, _CKPT_FILENAMES.get(name, name.replace("/", "-") + ".pt"))
-    return path if os.path.exists(path) else None
+    """The OpenAI ``.pt`` for ``name`` in ``$CLIP_PPO_CHECKPOINT_DIR``, then
+    ``~/.cache/clip``, then ``~/.cache/clip_ppo_tpu`` (the JAX package's
+    order); None when none of them holds it."""
+    fname = _CKPT_FILENAMES.get(name, name.replace("/", "-") + ".pt")
+    for root in (os.environ.get("CLIP_PPO_CHECKPOINT_DIR", ""),
+                 os.path.expanduser("~/.cache/clip"),
+                 os.path.expanduser("~/.cache/clip_ppo_tpu")):
+        path = os.path.join(root, fname)
+        if root and os.path.exists(path):
+            return path
+    return None
 
 
 def load_openai_checkpoint(path: str, device=None) -> tuple[dict, CLIPConfig]:
@@ -140,8 +146,8 @@ def load_clip_model(name: str = "ViT-B/32", device=None, path: str | None = None
         return load_openai_checkpoint(ckpt, device)
     if pretrained is True:
         raise FileNotFoundError(
-            f"no CLIP checkpoint for {name!r}; set $CLIP_PPO_CHECKPOINT_DIR to a "
-            "directory holding the OpenAI .pt"
+            f"no CLIP checkpoint for {name!r}; set $CLIP_PPO_CHECKPOINT_DIR "
+            "or place the OpenAI .pt under ~/.cache/clip"
         )
     if pretrained == "auto":
         warnings.warn(

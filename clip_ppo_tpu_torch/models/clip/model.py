@@ -16,9 +16,13 @@ none):
   through K2 (:func:`block_kernels.attn_block`). A wider one (ViT-L/14's
   vision tower, D = 1024) projects qkv with ``torch.matmul``, runs K4
   (:func:`attention_kernels.fused_qkv_attention`), then the out-projection
-  and the residual. Either way the MLP half goes through
-  :func:`block_kernels.mlp_block`, which picks K3 or K5 by the weights' size
-  in the activations' dtype.
+  and the residual; under ``CLIP_PPO_ATTN_STREAM=1`` (read at call time, as
+  ``_use_stream_attn`` reads it) it runs K6
+  (:func:`block_kernels.attn_stream`) instead, residual included. Every
+  route sends the MLP half through :func:`block_kernels.mlp_block`, which
+  picks K3, K5, K7 or the plain version by the weights' size in the
+  activations' dtype and the ``CLIP_PPO_MLP_CHUNKED`` and
+  ``CLIP_PPO_MLP_STREAM`` switches.
 * ``"fused"``: K4 for attention at any width, causal for the text tower;
   the plain MLP.
 * ``"block"``: K2 and :func:`block_kernels.mlp_block` at any width (on the
@@ -38,6 +42,8 @@ which has no counterpart here.
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from clip_ppo_tpu_torch.models.clip.attention_kernels import (
@@ -47,6 +53,7 @@ from clip_ppo_tpu_torch.models.clip.attention_kernels import (
 )
 from clip_ppo_tpu_torch.models.clip.block_kernels import (  # noqa: F401  (re-exported)
     attn_block,
+    attn_stream,
     causal_mask,
     layer_norm,
     mlp_block,
@@ -108,7 +115,10 @@ def resblock(p: dict, x: torch.Tensor, heads: int, causal: bool = False,
     if impl == "block" or (impl == "auto" and uses_attn_block(x.shape[-1])):
         x = attn_block(x, p["ln_1"], p["attn"], heads, causal)  # plain version on the CPU
         return mlp_block(x, p["ln_2"], p["mlp"])
-    x = x + attention(p["attn"], layer_norm(p["ln_1"], x), heads, causal, impl)
+    if impl == "auto" and os.environ.get("CLIP_PPO_ATTN_STREAM", "0") == "1":
+        x = attn_stream(x, p["ln_1"], p["attn"], heads, causal)
+    else:
+        x = x + attention(p["attn"], layer_norm(p["ln_1"], x), heads, causal, impl)
     if impl == "auto":
         return mlp_block(x, p["ln_2"], p["mlp"])
     return mlp_block_plain(x, p["ln_2"], p["mlp"])

@@ -243,8 +243,14 @@ class HashTokenizer:
 
 
 def find_bpe_vocab() -> str | None:
-    p = os.environ.get("CLIP_PPO_BPE_PATH", "")
-    return p if p and os.path.exists(p) else None
+    """``$CLIP_PPO_BPE_PATH``, then
+    ``~/.cache/clip_ppo_tpu/bpe_simple_vocab_16e6.txt.gz``: the first that
+    exists, else None."""
+    for p in (os.environ.get("CLIP_PPO_BPE_PATH", ""),
+              os.path.expanduser("~/.cache/clip_ppo_tpu/bpe_simple_vocab_16e6.txt.gz")):
+        if p and os.path.exists(p):
+            return p
+    return None
 
 
 @functools.lru_cache()

@@ -153,7 +153,8 @@ def _ppo_from_eval(mb, cfg, newlogprob, entropy, newvalue, hidden,
     clip_loss = torch.zeros((), device=loss.device)
     if cfg.clip_mode != "none":
         if cfg.clip_mode != "precomputed":
-            raise ValueError(f"clip_mode {cfg.clip_mode!r} comes with the image-modality slice")
+            raise ValueError(f"clip_mode {cfg.clip_mode!r} comes with the Atari slice "
+                             "(ROADMAP.md Queue 1 item 7)")
         if use_clip_this_mb:
             # the latent is detached (`clip_ppo_minigrid.py:269-271`)
             clip_loss = compute_cosine_embedding_loss(hidden.detach(), clip_embeddings)

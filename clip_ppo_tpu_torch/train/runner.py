@@ -171,10 +171,14 @@ class Trainer:
         """[T, N, ...] → t-major [T·N, ...] (the reference's b_* layout)."""
         return {k: v.reshape((-1,) + tuple(v.shape[2:])) for k, v in data.items()}
 
+    def learning_rate(self, iteration: int) -> float:
+        """The learning rate of iteration ``iteration``'s update."""
+        return (ppo_mod.anneal_lr(self.cfg, iteration, self.num_iterations)
+                if self.cfg.anneal_lr else self.cfg.learning_rate)
+
     def _update(self, state: TrainState, data: dict, iteration: int,
                 clip_embeddings: Optional[torch.Tensor], draws: Draws):
-        lr = (ppo_mod.anneal_lr(self.cfg, iteration, self.num_iterations)
-              if self.cfg.anneal_lr else self.cfg.learning_rate)
+        lr = self.learning_rate(iteration)
         params, opt_state, metrics = ppo_mod.update_epochs(
             state.params, state.opt_state, self._flatten(data), self.cfg, lr,
             self.features_fn, clip_embeddings, self.clip_lambda_eff(iteration),

@@ -173,3 +173,30 @@ def test_load_clip_model_defaults_to_the_gpu(monkeypatch):
         loader.load_clip_model("ViT-B/32", pretrained=False)
     with pytest.raises(RuntimeError, match="--no-cuda"):
         loader.convert_openai_state_dict(_openai_state_dict())
+
+
+def test_find_checkpoint_searches_the_home_caches_like_jax(tmp_path, monkeypatch):
+    """Both packages look in $CLIP_PPO_CHECKPOINT_DIR, then ~/.cache/clip,
+    then ~/.cache/clip_ppo_tpu, find the same file at each step, and load
+    the same weights from it."""
+    from clip_ppo_tpu.models.clip import loader as jloader
+    from clip_ppo_tpu_torch.models.clip import loader as tloader
+
+    monkeypatch.delenv("CLIP_PPO_CHECKPOINT_DIR", raising=False)
+    monkeypatch.setenv("HOME", str(tmp_path / "home"))
+    assert tloader.find_checkpoint("ViT-B/32") is None and jloader.find_checkpoint("ViT-B/32") is None
+    for where in ("home/.cache/clip_ppo_tpu", "home/.cache/clip", "env"):
+        d = tmp_path / where
+        d.mkdir(parents=True)
+        torch.save(_openai_state_dict(), d / "ViT-B-32.pt")
+        if where == "env":
+            monkeypatch.setenv("CLIP_PPO_CHECKPOINT_DIR", str(d))
+        found = tloader.find_checkpoint("ViT-B/32")
+        assert found == jloader.find_checkpoint("ViT-B/32") == str(d / "ViT-B-32.pt")
+    jparams, _ = jloader.load_clip_model("ViT-B/32", pretrained=True)
+    tparams, _ = tloader.load_clip_model("ViT-B/32", "cpu", pretrained=True)
+    want = jax.tree_util.tree_leaves(_np(jparams))
+    got = jax.tree_util.tree_leaves(jax.tree_util.tree_map(lambda t: t.numpy(), tparams))
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)

@@ -18,7 +18,7 @@ from clip_ppo_tpu_torch.models.clip import tokenizer as torch_tok
 from clip_ppo_tpu_torch.ops import severity as torch_sev
 from clip_ppo_tpu_torch.utils import flags as torch_flags
 
-ROOT = Path(__file__).resolve().parent.parent
+ROOT = Path(__file__).resolve().parent.parent.parent
 PORT = ROOT / "clip_ppo_tpu_torch"
 
 
@@ -113,3 +113,31 @@ def test_port_imports_with_jax_blocked():
                          timeout=120, env=dict(os.environ, PYTHONPATH=str(ROOT)))
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip().splitlines()[-1]) > 20
+
+
+def test_bpe_vocab_in_the_home_cache_like_jax(tmp_path, monkeypatch):
+    """Both packages find a merge table under ~/.cache/clip_ppo_tpu and
+    tokenize with it alike. The JAX package fixes its search paths when it
+    is imported, so its tuple is set to what it reads under this HOME."""
+    import gzip
+
+    monkeypatch.delenv("CLIP_PPO_BPE_PATH", raising=False)
+    monkeypatch.setenv("HOME", str(tmp_path))
+    path = tmp_path / ".cache" / "clip_ppo_tpu" / "bpe_simple_vocab_16e6.txt.gz"
+    monkeypatch.setattr(jax_tok, "_DEFAULT_BPE_PATHS", ("", str(path)))
+    assert torch_tok.find_bpe_vocab() is None and jax_tok.find_bpe_vocab() is None
+    path.parent.mkdir(parents=True)
+    with gzip.open(path, "wt", encoding="utf-8") as f:
+        f.write("#version: 0.2\nh e\nl l\nhe ll\no</w> w\na g\nag e\nw a\n")
+    texts = ["hello agent", "agent at (1,2) facing up, wall at (0,0)"]
+    torch_tok.get_tokenizer.cache_clear()
+    jax_tok.get_tokenizer.cache_clear()
+    try:
+        assert torch_tok.find_bpe_vocab() == jax_tok.find_bpe_vocab() == str(path)
+        ours, theirs = torch_tok.get_tokenizer(), jax_tok.get_tokenizer()
+        assert isinstance(ours, torch_tok.BPETokenizer)
+        assert (ours.tokenize(texts) == theirs.tokenize(texts)).all()
+        assert not (ours.tokenize(texts) == torch_tok.HashTokenizer().tokenize(texts)).all()
+    finally:
+        torch_tok.get_tokenizer.cache_clear()
+        jax_tok.get_tokenizer.cache_clear()

@@ -13,7 +13,7 @@ through two blocks); L2-normalized embeddings 1e-5.
 The Trainer iteration (MiniGrid-Empty-5x5, 2 envs × 8 steps, no
 disturbance) starts both packages from the same state and hands the port
 the JAX iteration's Gumbel batch and permutations, as
-``tests/test_torch_slice.py`` does; actions, rewards and dones must be
+``tests/port/test_torch_slice.py`` does; actions, rewards and dones must be
 equal (the observations too: no disturbance, no rounding), the embeddings
 agree to 1e-5 and the losses, the CLIP term among them, to 1e-4.
 """

@@ -139,3 +139,15 @@ def test_explained_variance_and_anneal_match():
     cfg = jppo.PPOConfig()
     for it in (1, 7, 48):
         assert tppo.anneal_lr(tppo.PPOConfig(), it, 48) == float(jppo.anneal_lr(cfg, jnp.int32(it), 48))
+
+
+def test_projected_clip_mode_names_the_atari_slice():
+    """The "projected" CLIP mode (the JAX package's Atari temporal
+    projection) is refused with the slice that brings it."""
+    cfg = tppo.PPOConfig(clip_mode="projected")
+    n = 4
+    mb = {"logprobs": torch.zeros(n), "advantages": torch.randn(n), "values": torch.zeros(n),
+          "returns": torch.zeros(n)}
+    with pytest.raises(ValueError, match="Atari slice"):
+        tppo._ppo_from_eval(mb, cfg, torch.zeros(n), torch.zeros(n), torch.zeros(n),
+                            torch.zeros(n, 8), torch.zeros(n, 8), 1.0, True)

@@ -211,7 +211,8 @@ def test_cli_runs_on_cpu(tmp_path, monkeypatch):
     params, opt_state, it, step, _ = load_checkpoint(
         str(tmp_path / "checkpoints" / "smoke_final.ckpt"), template, init_adam_state(template), "cpu")
     assert (it, step) == (2, 64)
-    np.testing.assert_array_equal(params["trunk"]["conv1"]["w"].numpy(),
+    # The payload is the JAX package's: conv kernels HWIO, the port's OIHW.
+    np.testing.assert_array_equal(params["trunk"]["conv1"]["w"].permute(2, 3, 1, 0).numpy(),
                                   raw["agent_state"]["trunk"]["conv1"]["w"])
     assert int(opt_state["count"]) == 32  # 2 iterations × 4 epochs × 4 minibatches
 
