@@ -7,13 +7,16 @@ Phases, each printing its findings on its own lines; any failure exits
 non-zero at once:
 
 1. card — the GPU's name and power limit (nvidia-smi), and the build of
-   every hand-written kernel from ``clip_ppo_tpu_torch/csrc/``;
+   every hand-written kernel from ``clip_ppo_tpu_torch/csrc/`` with each
+   kernel's registers and spills, and the tensor-core (HMMA) instructions
+   of the attention kernel, which must not be 0;
 2. kernels — each kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it (K2, K3 and K5 with random LayerNorm
    affines and biases; K2 at the text, the vision and ViT-L/14's text
    tower's shapes; K5 also at ViT-L/14's width and at a ragged row count;
    K4 at ViT-L/14's vision tower, at ViT-B/32's towers and at a ragged
-   batch; K8 fed strided views of one qkv buffer), with its median time per
+   batch, and once with inputs x 4; K8 fed strided views of one qkv
+   buffer; K4 and K8 timed by device time), with its median time per
    call (CUDA events; K1 over back-to-back calls, beside its profiled device
    time), the plain version's time, the least time the card could take and,
    for K4 and K8, the time of ``scaled_dot_product_attention`` on the same
@@ -64,8 +67,10 @@ import tempfile
 import time
 
 # Published dense peaks of the H100 SXM at its full 700 W (NVIDIA data
-# sheet): fp32 outside the tensor cores, and device-memory bandwidth.
+# sheet): fp32 outside the tensor cores, TF32 on the tensor cores, and
+# device-memory bandwidth.
 FP32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -97,20 +102,23 @@ def time_ms(fn, reps: int, warmup: int = 2, calls: int = 1) -> float:
     return times[len(times) // 2]
 
 
-def profiled_ms(fn, kernel: str, calls: int) -> float:
-    """Device milliseconds per launch of the kernel whose name holds
-    ``kernel``, from a torch.profiler trace of ``calls`` calls of ``fn``
-    (0.0 when the trace holds no such kernel)."""
+def device_ms(fn, calls: int = 20, kernel: str = "") -> float:
+    """Device milliseconds per call of ``fn``: the kernels whose names hold
+    ``kernel`` (every kernel by default), summed from a torch.profiler trace
+    of ``calls`` back-to-back calls (0.0 when the trace holds none). Unlike
+    CUDA events around host calls, it leaves out the host's launch
+    overhead."""
     import torch
 
+    fn()
+    torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages() if kernel in e.key
               and e.device_type == torch.autograd.DeviceType.CUDA]
-    n = sum(e.count for e in events)
-    return sum(e.self_device_time_total for e in events) / 1e3 / n if n else 0.0
+    return sum(e.self_device_time_total for e in events) / 1e3 / calls
 
 
 def phase_card() -> dict:
@@ -124,7 +132,7 @@ def phase_card() -> dict:
     flops, bw = FP32_FLOPS, HBM_BYTES_PER_S
     print(f"[card] {smi} | torch {torch.__version__} cuda {torch.version.cuda} | "
           f"bounds against the H100 SXM data sheet: fp32 {flops / 1e12:.0f} TFLOP/s, "
-          f"{bw / 1e12:.2f} TB/s")
+          f"TF32 {TF32_FLOPS / 1e12:.0f} TFLOP/s, {bw / 1e12:.2f} TB/s")
     from clip_ppo_tpu_torch import cuda_build
 
     t0 = time.time()
@@ -139,7 +147,12 @@ def phase_card() -> dict:
                 kernel = f"{m[1]}<{m[2]}>" if m and m[2] else m[1] if m else ""
             elif "registers" in line or "spill" in line:
                 print(f"[card] ptxas {lib} {kernel}: {line.strip()}")
-    return {"smi": smi, "name": name, "flops": flops, "bw": bw}
+    hmma = cuda_build.sass_count("fused_qkv", "HMMA")
+    print(f"[card] HMMA instructions in the attention kernel's SASS (fused_qkv, cuobjdump "
+          f"-sass): {hmma}")
+    if not hmma:
+        fail("the attention kernel (fused_qkv) has no tensor-core instruction in its SASS")
+    return {"smi": smi, "name": name, "flops": flops, "tf32_flops": TF32_FLOPS, "bw": bw}
 
 
 def _bound(nbytes: float, nflops: float, card: dict) -> tuple[float, str]:
@@ -193,11 +206,11 @@ def phase_kernels(card: dict) -> list[dict]:
     k1 = lambda: dk.disturb_batched(x, params, d_seed)  # noqa: E731
     ms = time_ms(k1, reps=20, calls=50)
     plain_ms = time_ms(lambda: dk.disturb_batched_plain(x, params, d_in), reps=20, calls=50)
-    device_ms = profiled_ms(k1, "disturb_kernel", calls=50)
+    k1_device_ms = device_ms(k1, calls=50, kernel="disturb_kernel")  # one launch a call
     elems = x.numel()
     bound_ms, bound_by = _bound(2 * elems * 4, elems * (4 * params.blur_kernel_size + 7), card)
     print(f"[kernels] K1 HARD [8,84,84,3]: {ms:.4f} ms per call over 50 back-to-back calls "
-          f"(torch.profiler device time {device_ms:.4f} ms per launch; grid of {x.shape[0]} "
+          f"(torch.profiler device time {k1_device_ms:.4f} ms per launch; grid of {x.shape[0]} "
           f"blocks on {torch.cuda.get_device_properties(dev).multi_processor_count} SMs), "
           f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
     results.append({
@@ -390,7 +403,15 @@ def phase_stream_kernels(card: dict) -> list[dict]:
 def phase_attention(card: dict) -> list[dict]:
     """K4 and K8 against their plain versions on the card, timed beside
     ``scaled_dot_product_attention`` on the same q/k/v viewed as
-    [B, H, T, 64] (the library yardstick; the port never calls it)."""
+    [B, H, T, 64] (the library yardstick; the port never calls it). Both
+    are timed as device time per call from a profiler trace, so the host's
+    launch overhead, which sets CUDA-event times at ViT-B/32's small K8
+    call, stays out; the event times stand beside them. The kernel runs
+    both products in 3xTF32 (three TF32 passes per fp32
+    product), so its bound is the larger of the bytes and 3 x the flops at
+    the TF32 peak; the fp32 CUDA-core bound stands beside it. A case with
+    inputs x 4 (scores up to |s| ~ 30) shows that the three passes hold the
+    full-fp32 tolerance where one TF32 pass would not."""
     import torch
     import torch.nn.functional as F
 
@@ -402,24 +423,26 @@ def phase_attention(card: dict) -> list[dict]:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     src = "clip_ppo_tpu_torch/csrc/fused_qkv.cu"
-    cases = [  # (kernel, path, (B, T, heads), causal, timed)
-        ("fused_qkv", "benchmark", (256, 257, 16), False, True),  # ViT-L/14 vision
-        ("fused_qkv", None, (1024, 50, 12), False, True),  # ViT-B/32 vision, impl="fused"
-        ("fused_qkv", None, (1024, 77, 12), True, True),  # ViT-L/14 text, impl="fused"
-        ("fused_qkv", None, (3, 257, 16), False, False),  # ragged: 1-row last tile
-        ("packed_attention", "pallas", (64, 50, 12), False, True),  # ViT-B/32, impl="pallas"
-        ("packed_attention", None, (256, 257, 16), False, True),  # ViT-L/14, impl="pallas"
+    cases = [  # (kernel, path, (B, T, heads), causal, timed, input scale)
+        ("fused_qkv", "benchmark", (256, 257, 16), False, True, 1),  # ViT-L/14 vision
+        ("fused_qkv", None, (1024, 50, 12), False, True, 1),  # ViT-B/32 vision, impl="fused"
+        ("fused_qkv", None, (1024, 77, 12), True, True, 1),  # ViT-L/14 text, impl="fused"
+        ("fused_qkv", None, (3, 257, 16), False, False, 1),  # ragged: 1-row last tile
+        ("packed_attention", "pallas", (64, 50, 12), False, True, 1),  # ViT-B/32, "pallas"
+        ("packed_attention", None, (256, 257, 16), False, True, 1),  # ViT-L/14, "pallas"
+        ("fused_qkv", None, (8, 257, 16), False, False, 4),  # large scores
     ]
     results = []
     with torch.no_grad():
-        for name, path, (b, t, h), causal, timed in cases:
+        for name, path, (b, t, h), causal, timed, mag in cases:
             d = h * 64
-            qkv = torch.randn((b, t, 3 * d), generator=gen, device=dev)
+            qkv = mag * torch.randn((b, t, 3 * d), generator=gen, device=dev)
             q, k, v = (z.view(b, t, h, 64) for z in qkv.split(d, dim=-1))  # row stride 3D
             if name == "fused_qkv":
                 fn = lambda: ak.fused_qkv_attention(qkv, h, causal)  # noqa: E731
                 plain = lambda: ak.fused_qkv_attention_plain(qkv, h, causal)  # noqa: E731
-                shape, line = f"[{b},{t},{3 * d}]" + (" causal" if causal else ""), 91
+                shape = f"[{b},{t},{3 * d}]" + (" causal" if causal else "")
+                shape, line = shape + (f" x{mag}" if mag != 1 else ""), 91
             else:
                 fn = lambda: ak.packed_attention(q, k, v)  # noqa: E731
                 plain = lambda: ak.packed_attention_plain(q, k, v)  # noqa: E731
@@ -437,22 +460,35 @@ def phase_attention(card: dict) -> list[dict]:
             if not timed:
                 continue
             qh, kh, vh = (z.transpose(1, 2) for z in (q, k, v))
-            ms = time_ms(fn, reps=10)
+            sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal)  # noqa: E731
+            event_ms, library_event_ms = time_ms(fn, reps=10), time_ms(sdpa, reps=10)
             plain_ms = time_ms(plain, reps=10)
-            library_ms = time_ms(
-                lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal), reps=10)
+            ms, library_ms = device_ms(fn), device_ms(sdpa)
+            if not (ms > 0 and library_ms > 0):
+                print(f"[kernels] {name} {shape}: device time not measured (no device time in "
+                      f"the trace); CUDA-event times used")
+                ms, library_ms = event_ms, library_event_ms
             pairs = t * (t + 1) // 2 if causal else t * t
             nflops = 2 * 2 * b * pairs * d  # scores and weighted values
-            bound_ms, bound_by = _bound(4 * b * t * d * 4, nflops, card)  # q, k, v read; out written
-            print(f"[kernels] {name} {shape}: {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-                  f"scaled_dot_product_attention {library_ms:.3f} ms, bound {bound_ms:.3f} ms "
-                  f"({bound_by}, {nflops / 1e9:.1f} GFLOP), {nflops / ms / 1e9:.2f} TFLOP/s")
+            nbytes = 4 * b * t * d * 4  # q, k, v read; out written
+            bound_fp32_ms = _bound(nbytes, nflops, card)[0]
+            t_bytes, t_ops = nbytes / card["bw"] * 1e3, 3 * nflops / card["tf32_flops"] * 1e3
+            bound_ms, bound_by = max(t_bytes, t_ops), (
+                "bytes" if t_bytes >= t_ops else "3xTF32 operations")
+            print(f"[kernels] {name} {shape}: {ms:.4f} ms device time ({event_ms:.4f} ms by "
+                  f"CUDA events around one call), plain {plain_ms:.3f} ms (events), "
+                  f"scaled_dot_product_attention {library_ms:.4f} ms device time "
+                  f"({library_event_ms:.4f} by events; {library_ms / ms:.2f}x the kernel's "
+                  f"device time), bound {bound_ms:.3f} ms ({bound_by}; {ms / bound_ms:.2f}x "
+                  f"it), fp32 CUDA-core bound {bound_fp32_ms:.3f} ms, {nflops / 1e9:.1f} "
+                  f"GFLOP, {nflops / ms / 1e9:.2f} TFLOP/s")
             results.append({
                 "name": name, "route": "cuda", "source": src,
                 "replaces": f"clip_ppo_tpu/models/clip/pallas_attention.py:{line}",
                 "shape": shape, "path": path, "max_abs_err": err, "max_rel_err": rel,
                 "tolerance": tol, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": library_ms,
+                "bound_by": bound_by, "bound_fp32_ms": bound_fp32_ms, "library_ms": library_ms,
+                "event_ms": event_ms, "library_event_ms": library_event_ms,
             })
             del qkv, q, k, v, qh, kh, vh
     torch.cuda.empty_cache()
@@ -825,7 +861,8 @@ def main() -> None:
     order = ("name", "route", "source", "replaces", "shape", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(f"[done] every phase passed in {time.time() - t_start:.1f} s")
-    print(json.dumps({"kernels": [{k: r[k] for k in order} for r in results if r["path"]]}))
+    print(json.dumps({"kernels": [{k: r[k] for k in (*order, "bound_fp32_ms") if k in r}
+                                  for r in results if r["path"]]}))
     print(card["smi"])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -28,7 +28,8 @@
 //      so LN1(x) never reaches device memory.
 //   3. attention_kernel (attention_tile.cuh, K4's body): the heads' softmax
 //      attention from the packed qkv, keys in tiles of 64 with an online
-//      softmax, into attn[B*T, D].
+//      softmax, both products on the tensor cores in 3xTF32, into
+//      attn[B*T, D]. The launch sizes its query tile by T.
 //   4. gemm_kernel<residual>: out = x + (attn @ w_out^T + b_out).
 // The products are the kernel's own: a 128 x 128 output tile a block, 256
 // threads each owning 8 x 8 outputs, the reduction in slices of 8 staged
@@ -210,7 +211,6 @@ int attn_stream_launch(const float* x, const float* ln_g, const float* ln_b,
   a.oh = attention_tile::kHeadDim;
   a.T = T;
   a.H = heads;
-  a.q_tiles = (T + attention_tile::kRows - 1) / attention_tile::kRows;
   a.causal = causal != 0;
   err = attention_tile::launch(a, B, st);
   if (err != cudaSuccess) return err;

@@ -1,5 +1,5 @@
-// K4 and K8: multi-head softmax attention, one head of one batch element per
-// block row, float32 throughout:
+// K4 and K8: multi-head softmax attention, float32 in and out, the products
+// on the tensor cores in 3xTF32 (about 20 bits, see attention_tile.cuh):
 //   out[b, i, h, :] = sum_j softmax_j((q[b, i, h, :] * scale) . k[b, j, h, :]) v[b, j, h, :]
 // with scale = 1/sqrt(64), the row max subtracted before the exponent, and,
 // when asked, the causal mask (key j > query i gets -inf, as the reference's
@@ -17,43 +17,29 @@
 // Both compute one function, so one kernel body serves both: the entry
 // points differ only in the pointers and strides they pass.
 //
-// Bound on Hopper: operations. At ViT-L/14's vision tower, [256, 257, 3 x 1024]
-// with 16 heads, the scores and the weighted sum are 2 * 2 * B * T^2 * D =
-// 69.3 GFLOP against 0.27 GB of qkv and output: 1.03 ms of fp32 FMA at 67
-// TFLOP/s, 0.08 ms of bytes.
+// Bound on Hopper: operations at ViT-L/14, bytes at ViT-B/32. At ViT-L/14's
+// vision tower, [256, 257, 3 x 1024] with 16 heads, the scores and the
+// weighted sum are 2 * 2 * B * T^2 * D = 69.3 GFLOP, run on the tensor cores
+// in 3xTF32 (three TF32 products per fp32 product, 208 GFLOP: 0.42 ms at 495
+// TFLOP/s), against 4 * B * T * D * 4 = 1.08 GB of q, k and v read and output
+// written (0.32 ms at 3.35 TB/s).
 //
 // What the TPU kernel keeps out of device memory, and how this one does it:
 // the [B, H, T, T] scores and the head-split copies of q, k and v never exist
-// in device memory. A block owns 64 query rows of one (batch, head): it stages
-// them (pre-scaled) in shared memory, then walks the keys in tiles of 64 rows
-// of k and v, staged in shared memory too, with an online softmax (a running
-// row max m and row sum l; each tile rescales the partial output by
-// exp(m_old - m_new)), so T is not bounded by shared memory. The TPU kernel's
-// 128-lane head pairs, lane masks and row stacking are layout devices of its
-// matrix unit and have no counterpart here.
-//
-// Threads: 256 as a 16 x 16 grid. Thread (ty, tx) owns query rows 4ty..4ty+3
-// of the block; for the scores it owns keys tx + 16j of the tile (j < 4), for
-// the output columns 4tx..4tx+3. Every product step reads 16-byte vectors
-// from shared memory: 8 loads per 64 FMAs. A warp owns 8 consecutive query
-// rows, so a warp whose rows are all past T (the ragged last tile, T = 257
-// leaves one row) or, with the causal mask, all before the tile's first key
-// skips the tile's work; groups of 16 keys past T are skipped alike. Row
-// stride 68 floats in shared memory keeps the 16-byte loads free of bank
-// conflicts. Plain fp32 FMA loops on the CUDA cores: right first; wgmma (TF32
-// or bf16) would change the numerics and is later work.
-//
-// The element type of q, k, v and the output is a template parameter; only
-// float is instantiated. A bf16 instantiation adds a Vec specialisation.
-
-// The kernel body lives in attention_tile.cuh, which K6 (attn_stream.cu)
-// includes as well.
+// in device memory. A block owns up to 96 query rows of one (batch, head),
+// 16 a warp, held in registers as tensor-core fragments, and walks the keys
+// in tiles of 64 rows of k and v, staged in shared memory through a
+// two-stage cp.async ring, with an online softmax (a running row max m and
+// row sum l; each tile rescales the partial output by exp(m_old - m_new)), so
+// T is not bounded by shared memory. The TPU kernel's 128-lane head pairs,
+// lane masks and row stacking are layout devices of its matrix unit and have
+// no counterpart here. The body, its numerics and its layouts are described
+// in attention_tile.cuh, which K6 (attn_stream.cu) includes as well.
 
 #include "attention_tile.cuh"
 
 using attention_tile::Args;
 using attention_tile::kHeadDim;
-using attention_tile::kRows;
 using attention_tile::launch;
 
 extern "C" {
@@ -77,7 +63,6 @@ int fused_qkv_launch(const float* qkv, float* out, int B, int T, int H, int caus
   a.oh = kHeadDim;
   a.T = T;
   a.H = H;
-  a.q_tiles = (T + kRows - 1) / kRows;
   a.causal = causal != 0;
   return launch(a, B, static_cast<cudaStream_t>(stream));
 }
@@ -109,7 +94,6 @@ int packed_attention_launch(const float* q, const float* k, const float* v, floa
   a.oh = kHeadDim;
   a.T = T;
   a.H = H;
-  a.q_tiles = (T + kRows - 1) / kRows;
   a.causal = 0;
   return launch(a, B, static_cast<cudaStream_t>(stream));
 }

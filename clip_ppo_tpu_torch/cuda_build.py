@@ -18,6 +18,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -101,6 +102,16 @@ def build_log(name: str) -> str:
     """nvcc's output (register and shared-memory use) from this build."""
     path = BUILD_DIR / f"{name}.log"
     return path.read_text() if path.exists() else ""
+
+
+def sass_count(name: str, opcode: str) -> int:
+    """How many instructions of ``opcode`` (e.g. "HMMA") the built library
+    ``name`` holds, from ``cuobjdump -sass``."""
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    tool = os.path.join(home, "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(_lib_path(name))], capture_output=True,
+                          text=True, check=True).stdout
+    return len(re.findall(rf"\b{opcode}[.\s]", sass))
 
 
 def _declare(libs: dict[str, ctypes.CDLL]) -> None:

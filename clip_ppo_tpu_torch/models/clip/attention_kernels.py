@@ -15,10 +15,14 @@ Counterpart of ``clip_ppo_tpu/models/clip/pallas_attention.py``:
   one qkv buffer, row stride 3D) go to the kernel as pointers and strides,
   never copied. Plain version :func:`packed_attention_plain`.
 
-Both kernels are ``csrc/fused_qkv.cu`` (fp32, one block per 64 query rows
-of one head, keys in tiles of 64 with an online softmax), for Dh = 64 — every
-CLIP tower's head width — any T and any batch; the wrappers raise for any
-other Dh on the GPU. The plain versions take any Dh.
+Both kernels are ``csrc/fused_qkv.cu`` around the body in
+``csrc/attention_tile.cuh``: fp32 in and out, up to 96 query rows of one
+head per block (16 a warp), keys in tiles of 64 staged by ``cp.async`` with
+an online softmax, both products on the tensor cores as three TF32 passes
+per fp32 product, so the result stays within the fp32 tolerance of the
+plain versions. They take Dh = 64 — every CLIP tower's head width — any T
+and any batch; the wrappers raise for any other Dh on the GPU. The plain
+versions take any Dh.
 
 The TPU tiling arguments have no counterpart and are not carried over:
 ``block_batches`` and ``group`` (batches and heads per VMEM block and per
