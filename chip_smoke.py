@@ -16,9 +16,9 @@ non-zero at once:
    tower's shapes; K5 also at ViT-L/14's width and at a ragged row count;
    K4 at ViT-L/14's vision tower, at ViT-B/32's towers and at a ragged
    batch, and once with inputs x 4; K8 fed strided views of one qkv
-   buffer; K4 and K8 timed by device time), with its median time per
-   call (CUDA events; K1 over back-to-back calls, beside its profiled device
-   time), the plain version's time, the least time the card could take and,
+   buffer), with its median time per call (CUDA events; K1, K4 and K8 over
+   back-to-back calls, beside their profiled device time), the plain
+   version's time, the least time the card could take and,
    for K4 and K8, the time of ``scaled_dot_product_attention`` on the same
    q/k/v; then K6 and K7 at ViT-L/14's shapes and at ragged ones, K6 timed
    beside the route it replaces and K7 beside K5, and both refusing a width
@@ -102,10 +102,10 @@ def time_ms(fn, reps: int, warmup: int = 2, calls: int = 1) -> float:
     return times[len(times) // 2]
 
 
-def device_ms(fn, calls: int = 20, kernel: str = "") -> float:
+def device_ms(fn, calls: int = 20, kernel: str = "") -> float | None:
     """Device milliseconds per call of ``fn``: the kernels whose names hold
     ``kernel`` (every kernel by default), summed from a torch.profiler trace
-    of ``calls`` back-to-back calls (0.0 when the trace holds none). Unlike
+    of ``calls`` back-to-back calls (None when the trace holds none). Unlike
     CUDA events around host calls, it leaves out the host's launch
     overhead."""
     import torch
@@ -118,7 +118,12 @@ def device_ms(fn, calls: int = 20, kernel: str = "") -> float:
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages() if kernel in e.key
               and e.device_type == torch.autograd.DeviceType.CUDA]
-    return sum(e.self_device_time_total for e in events) / 1e3 / calls
+    total = sum(e.self_device_time_total for e in events)
+    return total / 1e3 / calls if total else None
+
+
+def _fmt_ms(ms: float | None) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def phase_card() -> dict:
@@ -147,9 +152,15 @@ def phase_card() -> dict:
                 kernel = f"{m[1]}<{m[2]}>" if m and m[2] else m[1] if m else ""
             elif "registers" in line or "spill" in line:
                 print(f"[card] ptxas {lib} {kernel}: {line.strip()}")
-    hmma = cuda_build.sass_count("fused_qkv", "HMMA")
+    # The attention kernel's SASS, kept beside its nvcc log in the build directory.
+    sass = subprocess.run(
+        [os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump"),
+         "-sass", str(cuda_build._lib_path("fused_qkv"))],
+        capture_output=True, text=True, check=True).stdout
+    (cuda_build.BUILD_DIR / "fused_qkv.sass").write_text(sass)
+    hmma = len(re.findall(r"\bHMMA[.\s]", sass))
     print(f"[card] HMMA instructions in the attention kernel's SASS (fused_qkv, cuobjdump "
-          f"-sass): {hmma}")
+          f"-sass, in {cuda_build.BUILD_DIR.name}/fused_qkv.sass): {hmma}")
     if not hmma:
         fail("the attention kernel (fused_qkv) has no tensor-core instruction in its SASS")
     return {"smi": smi, "name": name, "flops": flops, "tf32_flops": TF32_FLOPS, "bw": bw}
@@ -210,7 +221,7 @@ def phase_kernels(card: dict) -> list[dict]:
     elems = x.numel()
     bound_ms, bound_by = _bound(2 * elems * 4, elems * (4 * params.blur_kernel_size + 7), card)
     print(f"[kernels] K1 HARD [8,84,84,3]: {ms:.4f} ms per call over 50 back-to-back calls "
-          f"(torch.profiler device time {k1_device_ms:.4f} ms per launch; grid of {x.shape[0]} "
+          f"(torch.profiler device time {_fmt_ms(k1_device_ms)} per launch; grid of {x.shape[0]} "
           f"blocks on {torch.cuda.get_device_properties(dev).multi_processor_count} SMs), "
           f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
     results.append({
@@ -400,22 +411,63 @@ def phase_stream_kernels(card: dict) -> list[dict]:
     return results
 
 
-def phase_attention(card: dict) -> list[dict]:
-    """K4 and K8 against their plain versions on the card, timed beside
-    ``scaled_dot_product_attention`` on the same q/k/v viewed as
-    [B, H, T, 64] (the library yardstick; the port never calls it). Both
-    are timed as device time per call from a profiler trace, so the host's
-    launch overhead, which sets CUDA-event times at ViT-B/32's small K8
-    call, stays out; the event times stand beside them. The kernel runs
-    both products in 3xTF32 (three TF32 passes per fp32
-    product), so its bound is the larger of the bytes and 3 x the flops at
-    the TF32 peak; the fp32 CUDA-core bound stands beside it. A case with
-    inputs x 4 (scores up to |s| ~ 30) shows that the three passes hold the
-    full-fp32 tolerance where one TF32 pass would not."""
+ATTENTION_CASES = [  # (kernel, path, (B, T, heads), causal, timed, input scale)
+    ("fused_qkv", "benchmark", (256, 257, 16), False, True, 1),  # ViT-L/14 vision
+    ("fused_qkv", None, (1024, 50, 12), False, True, 1),  # ViT-B/32 vision, impl="fused"
+    ("fused_qkv", None, (1024, 77, 12), True, True, 1),  # ViT-L/14 text, impl="fused"
+    ("fused_qkv", None, (3, 257, 16), False, False, 1),  # ragged: 1-row last tile
+    ("packed_attention", "pallas", (64, 50, 12), False, True, 1),  # ViT-B/32, "pallas"
+    ("packed_attention", None, (256, 257, 16), False, True, 1),  # ViT-L/14, "pallas"
+    ("fused_qkv", None, (8, 257, 16), False, False, 4),  # large scores
+]
+ATTENTION_CALLS = 20  # back-to-back calls between one pair of CUDA events
+
+
+def attention_case(case: tuple, gen):
+    """The inputs of one ``ATTENTION_CASES`` row on the card: the kernel's
+    call, its plain version's, ``scaled_dot_product_attention``'s on the same
+    q/k/v viewed as [B, H, T, 64], a label, and the work the bounds count."""
     import torch
     import torch.nn.functional as F
 
     from clip_ppo_tpu_torch.models.clip import attention_kernels as ak
+
+    name, _, (b, t, h), causal, _, mag = case
+    d = h * 64
+    qkv = mag * torch.randn((b, t, 3 * d), generator=gen, device=gen.device)
+    q, k, v = (z.view(b, t, h, 64) for z in qkv.split(d, dim=-1))  # row stride 3D
+    if name == "fused_qkv":
+        fn = lambda: ak.fused_qkv_attention(qkv, h, causal)  # noqa: E731
+        plain = lambda: ak.fused_qkv_attention_plain(qkv, h, causal)  # noqa: E731
+        shape = f"[{b},{t},{3 * d}]" + (" causal" if causal else "")
+        shape += f" x{mag}" if mag != 1 else ""
+    else:
+        fn = lambda: ak.packed_attention(q, k, v)  # noqa: E731
+        plain = lambda: ak.packed_attention_plain(q, k, v)  # noqa: E731
+        shape = f"[{b},{t},{h},64] strided"
+    qh, kh, vh = (z.transpose(1, 2) for z in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal)  # noqa: E731
+    pairs = t * (t + 1) // 2 if causal else t * t
+    nflops = 2 * 2 * b * pairs * d  # scores and weighted values
+    nbytes = 4 * b * t * d * 4  # q, k, v read; out written
+    return fn, plain, sdpa, shape, nflops, nbytes
+
+
+def phase_attention(card: dict) -> list[dict]:
+    """K4 and K8 against their plain versions on the card, timed beside
+    ``scaled_dot_product_attention`` on the same q/k/v viewed as
+    [B, H, T, 64] (the library yardstick; the port never calls it). Kernel,
+    plain version and SDPA are timed alike, by CUDA events around
+    ``ATTENTION_CALLS`` back-to-back calls, so the host's launch overhead
+    is hidden wherever the device is the slower of the two; their device
+    time per call from a profiler trace stands beside, as ``device_ms`` and
+    ``library_device_ms``. The kernel runs both products in 3xTF32 (three
+    TF32 passes per fp32 product), so its bound is the larger of the bytes
+    and 3 x the flops at the TF32 peak; the fp32 CUDA-core bound stands
+    beside it. A case with inputs x 4 (scores up to |s| ~ 30) shows that the
+    three passes hold the full-fp32 tolerance where one TF32 pass would
+    not."""
+    import torch
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
@@ -423,30 +475,11 @@ def phase_attention(card: dict) -> list[dict]:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     src = "clip_ppo_tpu_torch/csrc/fused_qkv.cu"
-    cases = [  # (kernel, path, (B, T, heads), causal, timed, input scale)
-        ("fused_qkv", "benchmark", (256, 257, 16), False, True, 1),  # ViT-L/14 vision
-        ("fused_qkv", None, (1024, 50, 12), False, True, 1),  # ViT-B/32 vision, impl="fused"
-        ("fused_qkv", None, (1024, 77, 12), True, True, 1),  # ViT-L/14 text, impl="fused"
-        ("fused_qkv", None, (3, 257, 16), False, False, 1),  # ragged: 1-row last tile
-        ("packed_attention", "pallas", (64, 50, 12), False, True, 1),  # ViT-B/32, "pallas"
-        ("packed_attention", None, (256, 257, 16), False, True, 1),  # ViT-L/14, "pallas"
-        ("fused_qkv", None, (8, 257, 16), False, False, 4),  # large scores
-    ]
     results = []
     with torch.no_grad():
-        for name, path, (b, t, h), causal, timed, mag in cases:
-            d = h * 64
-            qkv = mag * torch.randn((b, t, 3 * d), generator=gen, device=dev)
-            q, k, v = (z.view(b, t, h, 64) for z in qkv.split(d, dim=-1))  # row stride 3D
-            if name == "fused_qkv":
-                fn = lambda: ak.fused_qkv_attention(qkv, h, causal)  # noqa: E731
-                plain = lambda: ak.fused_qkv_attention_plain(qkv, h, causal)  # noqa: E731
-                shape = f"[{b},{t},{3 * d}]" + (" causal" if causal else "")
-                shape, line = shape + (f" x{mag}" if mag != 1 else ""), 91
-            else:
-                fn = lambda: ak.packed_attention(q, k, v)  # noqa: E731
-                plain = lambda: ak.packed_attention_plain(q, k, v)  # noqa: E731
-                shape, line = f"[{b},{t},{h},64] strided", 391
+        for case in ATTENTION_CASES:
+            name, path, _, _, timed, _ = case
+            fn, plain, sdpa, shape, nflops, nbytes = attention_case(case, gen)
             got, ref = fn(), plain()
             torch.cuda.synchronize()
             err, rel = _errors(got, ref)
@@ -459,38 +492,30 @@ def phase_attention(card: dict) -> list[dict]:
                 fail(f"{name} {shape} disagrees with its plain version: {err} > {tol}")
             if not timed:
                 continue
-            qh, kh, vh = (z.transpose(1, 2) for z in (q, k, v))
-            sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal)  # noqa: E731
-            event_ms, library_event_ms = time_ms(fn, reps=10), time_ms(sdpa, reps=10)
-            plain_ms = time_ms(plain, reps=10)
-            ms, library_ms = device_ms(fn), device_ms(sdpa)
-            if not (ms > 0 and library_ms > 0):
-                print(f"[kernels] {name} {shape}: device time not measured (no device time in "
-                      f"the trace); CUDA-event times used")
-                ms, library_ms = event_ms, library_event_ms
-            pairs = t * (t + 1) // 2 if causal else t * t
-            nflops = 2 * 2 * b * pairs * d  # scores and weighted values
-            nbytes = 4 * b * t * d * 4  # q, k, v read; out written
+            n = ATTENTION_CALLS
+            ms, library_ms = time_ms(fn, reps=10, calls=n), time_ms(sdpa, reps=10, calls=n)
+            plain_ms = time_ms(plain, reps=10, calls=n)
+            dev_ms, library_dev_ms = device_ms(fn, calls=n), device_ms(sdpa, calls=n)
             bound_fp32_ms = _bound(nbytes, nflops, card)[0]
             t_bytes, t_ops = nbytes / card["bw"] * 1e3, 3 * nflops / card["tf32_flops"] * 1e3
             bound_ms, bound_by = max(t_bytes, t_ops), (
                 "bytes" if t_bytes >= t_ops else "3xTF32 operations")
-            print(f"[kernels] {name} {shape}: {ms:.4f} ms device time ({event_ms:.4f} ms by "
-                  f"CUDA events around one call), plain {plain_ms:.3f} ms (events), "
-                  f"scaled_dot_product_attention {library_ms:.4f} ms device time "
-                  f"({library_event_ms:.4f} by events; {library_ms / ms:.2f}x the kernel's "
-                  f"device time), bound {bound_ms:.3f} ms ({bound_by}; {ms / bound_ms:.2f}x "
-                  f"it), fp32 CUDA-core bound {bound_fp32_ms:.3f} ms, {nflops / 1e9:.1f} "
-                  f"GFLOP, {nflops / ms / 1e9:.2f} TFLOP/s")
+            print(f"[kernels] {name} {shape}: {ms:.4f} ms per call over {n} back-to-back calls "
+                  f"(device time {_fmt_ms(dev_ms)}), plain {plain_ms:.3f} ms, "
+                  f"scaled_dot_product_attention {library_ms:.4f} ms (device time "
+                  f"{_fmt_ms(library_dev_ms)}; {library_ms / ms:.2f}x the kernel's time), "
+                  f"bound {bound_ms:.3f} ms ({bound_by}; {ms / bound_ms:.2f}x it), fp32 "
+                  f"CUDA-core bound {bound_fp32_ms:.3f} ms, {nflops / 1e9:.1f} GFLOP, "
+                  f"{nflops / ms / 1e9:.2f} TFLOP/s")
             results.append({
                 "name": name, "route": "cuda", "source": src,
-                "replaces": f"clip_ppo_tpu/models/clip/pallas_attention.py:{line}",
+                "replaces": "clip_ppo_tpu/models/clip/pallas_attention.py:"
+                            + ("91" if name == "fused_qkv" else "391"),
                 "shape": shape, "path": path, "max_abs_err": err, "max_rel_err": rel,
                 "tolerance": tol, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "bound_fp32_ms": bound_fp32_ms, "library_ms": library_ms,
-                "event_ms": event_ms, "library_event_ms": library_event_ms,
+                "device_ms": dev_ms, "library_device_ms": library_dev_ms,
             })
-            del qkv, q, k, v, qh, kh, vh
     torch.cuda.empty_cache()
     return results
 
@@ -861,7 +886,8 @@ def main() -> None:
     order = ("name", "route", "source", "replaces", "shape", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(f"[done] every phase passed in {time.time() - t_start:.1f} s")
-    print(json.dumps({"kernels": [{k: r[k] for k in (*order, "bound_fp32_ms") if k in r}
+    extra = ("bound_fp32_ms", "device_ms", "library_device_ms")
+    print(json.dumps({"kernels": [{k: r[k] for k in (*order, *extra) if k in r}
                                   for r in results if r["path"]]}))
     print(card["smi"])
     print(json.dumps({"ok": True, "device": {

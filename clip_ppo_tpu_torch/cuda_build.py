@@ -18,7 +18,6 @@ import ctypes
 import functools
 import hashlib
 import os
-import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -104,16 +103,6 @@ def build_log(name: str) -> str:
     return path.read_text() if path.exists() else ""
 
 
-def sass_count(name: str, opcode: str) -> int:
-    """How many instructions of ``opcode`` (e.g. "HMMA") the built library
-    ``name`` holds, from ``cuobjdump -sass``."""
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    tool = os.path.join(home, "bin", "cuobjdump")
-    sass = subprocess.run([tool, "-sass", str(_lib_path(name))], capture_output=True,
-                          text=True, check=True).stdout
-    return len(re.findall(rf"\b{opcode}[.\s]", sass))
-
-
 def _declare(libs: dict[str, ctypes.CDLL]) -> None:
     p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     u32 = ctypes.c_uint32
@@ -142,9 +131,14 @@ def launch(lib: str, fn: str, *args) -> None:
 
 
 def stream_handle(device) -> int:
+    """The raw ``cudaStream_t`` of ``device``'s current stream, read as
+    PyTorch's own generated kernels read it: ``torch.cuda.current_stream``
+    builds a ``Stream`` object on every call, which costs about as much host
+    time as the kernel's launch itself."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def ptr(t) -> int | None:

@@ -12,6 +12,11 @@ is set before PyTorch is imported and left set for the worker's life:
 setting the thread count through ``torch.set_num_threads`` alone, or
 restoring the variable after the import, gives back most of the slowdown.
 A run without xdist keeps PyTorch's default.
+
+The setting is not confined to the port's tests: every worker collects
+``tests/port`` and so loads this file, and the JAX package's tests that the
+same worker runs afterwards run with the same ``OMP_NUM_THREADS`` and
+PyTorch thread count.
 """
 
 import os
