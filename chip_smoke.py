@@ -8,21 +8,25 @@ non-zero at once:
 
 1. card — the GPU's name and power limit (nvidia-smi), and the build of
    every hand-written kernel from ``clip_ppo_tpu_torch/csrc/`` with each
-   kernel's registers and spills, and the tensor-core (HMMA) instructions
-   of the attention kernel, which must not be 0;
+   kernel's registers and spills; the tensor-core instructions (HMMA,
+   HGMMA) of each kernel in the libraries that run on the tensor cores
+   (``TENSOR_CORE_LIBS``: K4/K8, K2, K5), which must hold some and spill
+   nothing;
 2. kernels — each kernel against its plain PyTorch version on the card, at
-   the shapes the main paths give it (K2, K3 and K5 with random LayerNorm
-   affines and biases; K2 at the text, the vision and ViT-L/14's text
-   tower's shapes; K5 also at ViT-L/14's width and at a ragged row count;
-   K4 at ViT-L/14's vision tower, at ViT-B/32's towers and at a ragged
-   batch, and once with inputs x 4; K8 fed strided views of one qkv
+   the shapes the main paths give it (``BLOCK_CASES``: K2, K3 and K5 with
+   random LayerNorm affines and biases; K2 at the text, the vision and
+   ViT-L/14's text tower's shapes, at ViT-B/16's T = 197 and at K6's
+   [256, 257, 1024] beside K6; K5 also at ViT-L/14's width and at a ragged
+   row count; K4 at ViT-L/14's vision tower, at ViT-B/32's towers and at a
+   ragged batch, and once with inputs x 4; K8 fed strided views of one qkv
    buffer), with its median time per call (CUDA events; K1, K4 and K8 over
    back-to-back calls, beside their profiled device time), the plain
-   version's time, the least time the card could take and,
-   for K4 and K8, the time of ``scaled_dot_product_attention`` on the same
-   q/k/v; then K6 and K7 at ViT-L/14's shapes and at ragged ones, K6 timed
-   beside the route it replaces and K7 beside K5, and both refusing a width
-   their kernels do not take;
+   version's time, the least time the card could take (for the tensor-core
+   kernels, 3xTF32 work at the TF32 peak, the fp32 CUDA-core bound beside)
+   and, for K4 and K8, the time of ``scaled_dot_product_attention`` on the
+   same q/k/v; then K6 and K7 at ViT-L/14's shapes and at ragged ones, K6
+   timed beside the route it replaces and K7 beside K5, and both refusing a
+   width their kernels do not take;
 3. text slice — the CLIP-PPO MiniGrid CLI (text modality, HARD
    disturbances) for two iterations, with every launch count read from the
    run;
@@ -143,32 +147,68 @@ def phase_card() -> dict:
     t0 = time.time()
     cuda_build.build_all()
     print(f"[card] built {len(cuda_build.SOURCES)} kernel libraries in {time.time() - t0:.1f} s")
+    spills = []
     for lib in cuda_build.SOURCES:
         kernel = ""
         for line in cuda_build.build_log(lib).splitlines():
             if "Function properties for" in line:
-                # a mangled name such as ..._17mlp_stream_kernelILi768EEvPKf...
-                m = re.search(r"([a-z_]+_kernel)(?:ILi(\d+)E)?", line)
-                kernel = f"{m[1]}<{m[2]}>" if m and m[2] else m[1] if m else ""
+                kernel = _kernel_name(line)
             elif "registers" in line or "spill" in line:
                 print(f"[card] ptxas {lib} {kernel}: {line.strip()}")
-    # The attention kernel's SASS, kept beside its nvcc log in the build directory.
-    sass = subprocess.run(
-        [os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump"),
-         "-sass", str(cuda_build._lib_path("fused_qkv"))],
-        capture_output=True, text=True, check=True).stdout
-    (cuda_build.BUILD_DIR / "fused_qkv.sass").write_text(sass)
-    hmma = len(re.findall(r"\bHMMA[.\s]", sass))
-    print(f"[card] HMMA instructions in the attention kernel's SASS (fused_qkv, cuobjdump "
-          f"-sass, in {cuda_build.BUILD_DIR.name}/fused_qkv.sass): {hmma}")
-    if not hmma:
-        fail("the attention kernel (fused_qkv) has no tensor-core instruction in its SASS")
+                m = re.search(r"(\d+) bytes spill stores", line)
+                if lib in TENSOR_CORE_LIBS and m and int(m[1]):
+                    spills.append(f"{lib} {kernel}")
+    # The tensor-core kernels' SASS, kept beside their nvcc logs in the build
+    # directory: each library must hold tensor-core instructions.
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    for lib in TENSOR_CORE_LIBS:
+        sass = subprocess.run([cuobjdump, "-sass", str(cuda_build._lib_path(lib))],
+                              capture_output=True, text=True, check=True).stdout
+        (cuda_build.BUILD_DIR / f"{lib}.sass").write_text(sass)
+        per_kernel = {}
+        kernel = ""
+        for line in sass.splitlines():
+            if "Function :" in line:
+                kernel = _kernel_name(line)
+            elif re.search(r"\bH(?:G)?MMA[.\s]", line):
+                per_kernel[kernel] = per_kernel.get(kernel, 0) + 1
+        print(f"[card] tensor-core (HMMA/HGMMA) instructions in {lib}'s SASS (cuobjdump -sass, "
+              f"in {cuda_build.BUILD_DIR.name}/{lib}.sass): {per_kernel}")
+        if not per_kernel:
+            fail(f"{lib} has no tensor-core instruction in its SASS")
+    if spills:
+        fail(f"ptxas spills registers in the tensor-core kernels: {spills}")
     return {"smi": smi, "name": name, "flops": flops, "tf32_flops": TF32_FLOPS, "bw": bw}
+
+
+# The libraries whose kernels run their products on the tensor cores in
+# 3xTF32: their SASS must hold tensor-core instructions, ptxas must spill
+# nothing in them, and their bounds count three TF32 passes a product.
+TENSOR_CORE_LIBS = ("fused_qkv", "attn_block", "mlp_stream")
+
+
+def _kernel_name(line: str) -> str:
+    """A readable kernel name from a mangled one in ptxas's or cuobjdump's
+    output: ..._17mlp_stream_kernelILi768EEvPKf... -> mlp_stream_kernel<768>,
+    ...11gemm_kernelILb1ELi1EEEvNS_6ParamsE -> gemm_kernel<true,1>."""
+    m = re.search(r"([a-z_]+_kernel)(I(?:L[a-z]+\d+E)+E)?", line)
+    if not m:
+        return ""
+    args = [("true" if v == "1" else "false") if t == "b" else v
+            for t, v in re.findall(r"L([a-z]+)(\d+)E", m[2] or "")]
+    return m[1] + (f"<{','.join(args)}>" if args else "")
 
 
 def _bound(nbytes: float, nflops: float, card: dict) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / card["bw"] * 1e3, nflops / card["flops"] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _bound_tf32x3(nbytes: float, nflops: float, card: dict) -> tuple[float, str]:
+    """The bound of a kernel that runs every product as three TF32 passes:
+    the bytes, or 3 x the flops at the TF32 tensor-core peak."""
+    t_bytes, t_ops = nbytes / card["bw"] * 1e3, 3 * nflops / card["tf32_flops"] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "3xTF32 operations")
 
 
 def _errors(got, ref) -> tuple[float, float]:
@@ -180,6 +220,7 @@ def _errors(got, ref) -> tuple[float, float]:
 def phase_kernels(card: dict) -> list[dict]:
     import torch
 
+    from clip_ppo_tpu_torch.models.clip import block_kernels as bk
     from clip_ppo_tpu_torch.ops import disturb_kernel as dk
     from clip_ppo_tpu_torch.ops.disturbances import DisturbanceDraws, draw
     from clip_ppo_tpu_torch.ops.severity import DisturbanceSeverity, SEVERITY_CONFIGS
@@ -232,19 +273,13 @@ def phase_kernels(card: dict) -> list[dict]:
         "library_ms": None,
     })
 
-    # -- K2 and K3 at the text table's [1024, 77, 512]; K2 and K5 at the vision
-    # tower's [1024, 50, 768]; K2 at ViT-L/14's text tower, [1024, 77, 768]
-    # causal; K5 at ViT-L/14's [256, 257, 1024] and at a ragged row count
-    # (checked, not timed) ------------------------------------------------
-    cases = [  # (case, timed); rows of no main path stay out of the kernels line
-        (attn_case("attn_block", 1024, 77, 512, True, "text"), True),
-        (mlp_case("mlp_block", 1024, 77, 512, "text"), True),
-        (attn_case("attn_block", 1024, 50, 768, False, "image"), True),
-        (mlp_case("mlp_stream", 1024, 50, 768, "image"), True),
-        (attn_case("attn_block", 1024, 77, 768, True, "benchmark"), True),
-        (mlp_case("mlp_stream", 256, 257, 1024, "benchmark"), True),
-        (mlp_case("mlp_stream", 7, 50, 768, None), False),
-    ]
+    # -- K2, K3 and K5 at the shapes of BLOCK_CASES; K2 at K6's shape timed
+    # beside K6 on the same inputs ---------------------------------------
+    def k6(x, p):
+        return bk.attn_stream(x, p["ln_1"], p["attn"], x.shape[-1] // 64)
+
+    cases = [(block_case(spec, ("K6 (attn_stream)", k6) if spec[0] == "attn_block"
+                         and spec[3] == 1024 else None), spec[6]) for spec in BLOCK_CASES]
     results += run_block_cases(cases, card, gen, dev)
     print("[kernels] " + json.dumps({"checked": [
         {k: r.get(k) for k in ("name", "shape", "max_abs_err", "max_rel_err", "tolerance")}
@@ -284,6 +319,27 @@ BLOCK_KERNELS = {
 def _source(name: str) -> tuple[str, str]:
     src, line = BLOCK_KERNELS[name]
     return f"clip_ppo_tpu_torch/csrc/{src}", f"clip_ppo_tpu/models/clip/pallas_block.py:{line}"
+
+
+BLOCK_CASES = [  # (kernel, B, T, D, causal, path, timed); rows of no path stay out of the kernels line
+    ("attn_block", 1024, 77, 512, True, "text", True),  # text table
+    ("mlp_block", 1024, 77, 512, False, "text", True),
+    ("attn_block", 1024, 50, 768, False, "image", True),  # ViT-B/32 vision
+    ("mlp_stream", 1024, 50, 768, False, "image", True),
+    ("attn_block", 1024, 77, 768, True, "benchmark", True),  # ViT-L/14 text
+    ("mlp_stream", 256, 257, 1024, False, "benchmark", True),  # ViT-L/14 vision
+    ("mlp_stream", 7, 50, 768, False, None, False),  # ragged row count
+    ("attn_block", 64, 197, 768, False, None, False),  # ViT-B/16's length
+    ("attn_block", 256, 257, 1024, False, None, True),  # K6's shape, K6 beside
+]
+
+
+def block_case(spec: tuple, beside=None):
+    """One ``BLOCK_CASES`` row as :func:`attn_case` or :func:`mlp_case`."""
+    name, b, t, dm, causal, path, _ = spec
+    if name.startswith("attn"):
+        return attn_case(name, b, t, dm, causal, path, beside)
+    return mlp_case(name, b, t, dm, path, beside)
 
 
 def attn_case(name, b, t, dm, causal, path, beside=None):
@@ -343,21 +399,27 @@ def run_block_cases(cases, card: dict, gen, dev) -> list[dict]:
                 continue
             ms = time_ms(lambda: fn(xb, p), reps=10)
             plain_ms = time_ms(lambda: plain(xb, p), reps=10)
-            bound_ms, bound_by = _bound(2 * xb.numel() * 4 + wbytes, nflops, card)
+            nbytes = 2 * xb.numel() * 4 + wbytes
+            bound_ms, bound_by = _bound(nbytes, nflops, card)
             row = {
                 "name": name, "route": "cuda", "source": src, "replaces": line, "shape": shape,
                 "path": path, "max_abs_err": err, "max_rel_err": rel, "tolerance": tol, "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": None,
+                "plain_ms": plain_ms, "library_ms": None,
             }
+            fp32 = ""
+            if name in TENSOR_CORE_LIBS:  # three TF32 passes a product
+                row["bound_fp32_ms"] = bound_ms
+                fp32 = f"; fp32 CUDA-core bound {bound_ms:.3f} ms"
+                bound_ms, bound_by = _bound_tf32x3(nbytes, nflops, card)
+            row["bound_ms"], row["bound_by"] = bound_ms, bound_by
             other = ""
             if beside is not None:
                 label, other_fn = beside
                 row["beside"], row["beside_ms"] = label, time_ms(lambda: other_fn(xb, p), reps=10)
                 other = f", {label} {row['beside_ms']:.3f} ms"
             print(f"[kernels] {name} {shape}: {ms:.3f} ms, plain {plain_ms:.3f} ms{other}, bound "
-                  f"{bound_ms:.3f} ms ({bound_by}, {nflops / 1e9:.1f} GFLOP), "
-                  f"{nflops / ms / 1e9:.2f} TFLOP/s")
+                  f"{bound_ms:.3f} ms ({bound_by}, {nflops / 1e9:.1f} GFLOP{fp32}; "
+                  f"{ms / bound_ms:.2f}x it), {nflops / ms / 1e9:.2f} TFLOP/s")
             results.append(row)
             del xb
     del params
@@ -497,9 +559,7 @@ def phase_attention(card: dict) -> list[dict]:
             plain_ms = time_ms(plain, reps=10, calls=n)
             dev_ms, library_dev_ms = device_ms(fn, calls=n), device_ms(sdpa, calls=n)
             bound_fp32_ms = _bound(nbytes, nflops, card)[0]
-            t_bytes, t_ops = nbytes / card["bw"] * 1e3, 3 * nflops / card["tf32_flops"] * 1e3
-            bound_ms, bound_by = max(t_bytes, t_ops), (
-                "bytes" if t_bytes >= t_ops else "3xTF32 operations")
+            bound_ms, bound_by = _bound_tf32x3(nbytes, nflops, card)
             print(f"[kernels] {name} {shape}: {ms:.4f} ms per call over {n} back-to-back calls "
                   f"(device time {_fmt_ms(dev_ms)}), plain {plain_ms:.3f} ms, "
                   f"scaled_dot_product_attention {library_ms:.4f} ms (device time "

@@ -79,7 +79,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tf32x3.cuh"
+
 namespace attention_tile {
+
+using tf32x3::cp_async16;
+using tf32x3::cp_async_commit;
+using tf32x3::cp_async_wait;
 
 constexpr int kHeadDim = 64;
 constexpr int kKeys = 64;        // keys per tile
@@ -122,27 +128,11 @@ __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-// 16 bytes from device memory to shared memory, bypassing L1; src_bytes = 0
-// fills the 16 bytes with zeros and reads nothing.
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem, int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // x = big + small to about 20 bits as the tensor core reads them (the top 19
 // bits of each): big = x, read as trunc(x); small = x - trunc(x), exact.
 __device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
   big = __float_as_uint(x);
-  small = __float_as_uint(x - __uint_as_float(big & 0xffffe000u));
+  small = __float_as_uint(tf32x3::small_part(x));
 }
 
 __device__ __forceinline__ float ex2(float x) {

@@ -2,9 +2,10 @@
 // are streamed,
 //   out = x + out_proj(MHA(qkv_proj(LN1(x)))),
 // with fp32 LayerNorm statistics and an optional causal mask, in float32: the
-// same function as K2 (csrc/attn_block.cu), at widths and lengths K2's
-// 80-row tile cannot take (ViT-L/14's vision tower: D = 1024, 16 heads,
-// T = 257).
+// same function as K2 (csrc/attn_block.cu), which runs the same four
+// launches on a tensor-core GEMM; this one, at the widths past K2's route
+// (ViT-L/14's vision tower: D = 1024, 16 heads, T = 257), keeps its GEMM on
+// the CUDA cores.
 //
 // Replaces: clip_ppo_tpu/models/clip/pallas_block.py::_attn_stream_kernel
 // (entry fused_attn_block_stream, taken under CLIP_PPO_ATTN_STREAM=1 by the

@@ -109,9 +109,9 @@ def _declare(libs: dict[str, ctypes.CDLL]) -> None:
     sig = {
         ("disturb", "disturb_launch"): [p, p, p, p, p, p, i, i, i, i, f, i, i, i, p],
         ("disturb", "philox_normal_launch"): [p, u32, u32, i, p],
-        ("attn_block", "attn_block_launch"): [p, p, p, p, p, p, p, p, p, i, i, i, i, i, f, p],
+        ("attn_block", "attn_block_launch"): [*[p] * 11, i, i, i, i, i, f, p],
         ("mlp_block", "mlp_block_launch"): [p, p, p, p, p, p, p, p, i, i, i, f, p],
-        ("mlp_stream", "mlp_stream_launch"): [p, p, p, p, p, p, p, p, i, i, i, f, p],
+        ("mlp_stream", "mlp_stream_launch"): [*[p] * 10, i, i, i, f, p],
         ("fused_qkv", "fused_qkv_launch"): [p, p, i, i, i, i, p],
         ("fused_qkv", "packed_attention_launch"): [p, p, p, p, i, i, i, *[ll] * 9, p],
         ("attn_stream", "attn_stream_launch"): [*[p] * 11, i, i, i, i, i, f, p],

@@ -4,10 +4,12 @@ hand-written CUDA kernels, and their plain PyTorch versions.
 * :func:`attn_block` — ``x + out_proj(MHA(qkv_proj(LN1(x))))`` with fp32 LN
   statistics and an optional causal mask. Replaces
   ``clip_ppo_tpu/models/clip/pallas_block.py::_attn_block_kernel`` (entry
-  ``fused_attn_block``); kernel in ``csrc/attn_block.cu``, for any batch,
-  D = heads × 64 and T ≤ 80 (the text tower's 77 tokens, ViT-B/32's 50).
-  The [B, T, 3D] qkv never reaches device memory; the [B, T, D] attention
-  output does, between the kernel's two launches.
+  ``fused_attn_block``); kernel in ``csrc/attn_block.cu``, for any batch and
+  T, D = heads × 64, causal or not: LN statistics, the qkv projection with
+  LN1 applied as x loads, K4's attention body, the out-projection with the
+  residual, every product on the tensor cores in 3xTF32. The [B, T, 3D] qkv
+  and the [B, T, D] attention output are scratch in device memory between
+  its launches; LN1(x) never is.
 * :func:`attn_stream` — the same function, K6, replacing
   ``_attn_stream_kernel`` (entry ``fused_attn_block_stream``), which
   ``model.resblock`` takes under ``CLIP_PPO_ATTN_STREAM=1`` at widths past
@@ -29,9 +31,11 @@ hand-written CUDA kernels, and their plain PyTorch versions.
   added by a second pass); else ``CLIP_PPO_MLP_STREAM`` other than "1" runs
   the plain version, as ``_mlp_block_ref``; else :func:`mlp_stream`, K5,
   replacing ``_mlp_stream_kernel`` (``csrc/mlp_stream.cu``), which streams
-  the weights through shared memory in tiles. K5 and K7 take D a multiple of
-  128 up to 1024. In every kernel the [B, T, 4D] hidden never reaches device
-  memory.
+  the weights and runs both products on the tensor cores in 3xTF32. K5 takes
+  D and 4D multiples of 32, K7 D a multiple of 128 up to 1024. K3 and K7
+  keep the [B, T, 4D] hidden out of device memory (K7 writes fp32 partial
+  sums of the output instead); K5 writes it once and reads it once, as
+  scratch between its two products (``csrc/mlp_stream.cu`` says why).
 
 Each wrapper launches its kernel for a CUDA tensor, runs its plain version
 (which mirrors ``_attn_block_ref`` / ``_mlp_block_ref``) for a CPU tensor,
@@ -61,6 +65,8 @@ WEIGHT_BUDGET_BYTES = 12 << 20
 # K7's chunks of the hidden dimension, one launch axis (csrc/mlp_chunked.cu
 # says why 4).
 MLP_CHUNKS = 4
+# The largest row count (B*T) the C entry points take: an int.
+_INT_MAX = 2**31 - 1
 
 
 def uses_mlp_stream(width: int, hidden: int, itemsize: int) -> bool:
@@ -164,12 +170,15 @@ def attn_block(x: torch.Tensor, ln1: dict, attn: dict, heads: int,
         return attn_block_plain(x, ln1, attn, heads, causal, eps)
     if x.device.type != "cuda":
         raise ValueError(f"attn_block: unsupported device {x.device}")
-    b, t, d = x.shape
-    weights = {"ln_1.scale": ln1["scale"], "ln_1.bias": ln1["bias"], **attn}
-    _check(x, weights, "attn_block")
-    if d != heads * HEAD_DIM or not 1 <= t <= 80:
-        raise ValueError(f"attn_block: the kernel takes D = heads x {HEAD_DIM} and 1 <= T <= 80 "
-                         f"(any batch, causal or not), got D={d}, heads={heads}, T={t}")
+    b, t, _ = x.shape
+    d = _check_attn_shapes(x, ln1, attn, "attn_block")
+    if d != heads * HEAD_DIM or b < 1 or t < 1 or b * t > _INT_MAX:
+        raise ValueError(f"attn_block: the kernel takes D = heads x {HEAD_DIM} and 1 <= B*T <= "
+                         f"{_INT_MAX} (any T, causal or not), got D={d}, heads={heads}, "
+                         f"B={b}, T={t}")
+    _check_aligned("attn_block", x, ln1["scale"], ln1["bias"], *attn.values())
+    stats = torch.empty((b * t, 2), dtype=x.dtype, device=x.device)  # LN1 mean, 1/std
+    qkv = torch.empty((b, t, 3 * d), dtype=x.dtype, device=x.device)
     scratch = torch.empty_like(x)  # attention output, before out_proj
     out = torch.empty_like(x)
     cuda_build.launch(
@@ -177,8 +186,8 @@ def attn_block(x: torch.Tensor, ln1: dict, attn: dict, heads: int,
         x.data_ptr(), ln1["scale"].data_ptr(), ln1["bias"].data_ptr(),
         attn["in_proj_w"].data_ptr(), attn["in_proj_b"].data_ptr(),
         attn["out_proj_w"].data_ptr(), attn["out_proj_b"].data_ptr(),
-        scratch.data_ptr(), out.data_ptr(), b, t, d, heads, int(causal), float(eps),
-        cuda_build.stream_handle(x.device),
+        stats.data_ptr(), qkv.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+        b, t, d, heads, int(causal), float(eps), cuda_build.stream_handle(x.device),
     )
     cuda_build.LAUNCHES["attn_block"] += 1
     return out
@@ -224,27 +233,28 @@ def mlp_block_resident(x: torch.Tensor, ln2: dict, mlp: dict, eps: float = 1e-5)
 
 
 def mlp_stream(x: torch.Tensor, ln2: dict, mlp: dict, eps: float = 1e-5) -> torch.Tensor:
-    """K5: :func:`mlp_block` with the weights streamed through shared memory
-    in tiles (D a multiple of 128 up to 1024, 4D a multiple of 64)."""
+    """K5: :func:`mlp_block` as two tensor-core GEMMs with the [B, T, 4D]
+    hidden as scratch between them (D and 4D multiples of 32)."""
     if x.device.type == "cpu":
         return mlp_stream_plain(x, ln2, mlp, eps)
     if x.device.type != "cuda":
         raise ValueError(f"mlp_stream: unsupported device {x.device}")
     b, t, _ = x.shape
     d, d4 = _check_mlp_shapes(x, ln2, mlp, "mlp_stream")
-    if d % 128 != 0 or not 128 <= d <= 1024 or d4 % 64 != 0:
-        raise ValueError(f"mlp_stream: the kernel takes D a multiple of 128 up to 1024 and "
-                         f"4D % 64 == 0, got {d}, {d4}")
-    if mlp["fc_w"].data_ptr() % 16 or mlp["proj_w"].data_ptr() % 16:
-        raise ValueError("mlp_stream: fc_w and proj_w must start on a 16-byte boundary "
-                         "(the kernel copies them in 16-byte pieces)")
+    m = b * t
+    if d < 32 or d % 32 != 0 or d4 < 32 or d4 % 32 != 0 or not 1 <= m <= _INT_MAX:
+        raise ValueError(f"mlp_stream: the kernel takes D and 4D multiples of 32 and "
+                         f"1 <= B*T <= {_INT_MAX}, got D={d}, 4D={d4}, B*T={m}")
+    _check_aligned("mlp_stream", x, ln2["scale"], ln2["bias"], *mlp.values())
+    stats = torch.empty((m, 2), dtype=x.dtype, device=x.device)  # LN2 mean, 1/std
+    hidden = torch.empty((m, d4), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
     cuda_build.launch(
         "mlp_stream", "mlp_stream_launch",
         x.data_ptr(), ln2["scale"].data_ptr(), ln2["bias"].data_ptr(),
         mlp["fc_w"].data_ptr(), mlp["fc_b"].data_ptr(),
         mlp["proj_w"].data_ptr(), mlp["proj_b"].data_ptr(),
-        out.data_ptr(), b * t, d, d4, float(eps),
+        stats.data_ptr(), hidden.data_ptr(), out.data_ptr(), m, d, d4, float(eps),
         cuda_build.stream_handle(x.device),
     )
     cuda_build.LAUNCHES["mlp_stream"] += 1

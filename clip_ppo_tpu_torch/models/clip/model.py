@@ -25,8 +25,7 @@ none):
   ``CLIP_PPO_MLP_STREAM`` switches.
 * ``"fused"``: K4 for attention at any width, causal for the text tower;
   the plain MLP.
-* ``"block"``: K2 and :func:`block_kernels.mlp_block` at any width (on the
-  GPU K2 takes T <= 80).
+* ``"block"``: K2 and :func:`block_kernels.mlp_block` at any width.
 * ``"xla"``: the plain einsum attention and the plain MLP, no kernel.
 * ``"packedN"``: the plain batch-packed attention (:func:`packed_sdpa`,
   N sequences per block-masked sequence) where there is no mask; the plain
