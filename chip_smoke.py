@@ -16,11 +16,14 @@ non-zero at once:
    the shapes the main paths give it (``BLOCK_CASES``: K2, K3 and K5 with
    random LayerNorm affines and biases; K2 at the text, the vision and
    ViT-L/14's text tower's shapes, at ViT-B/16's T = 197 and at K6's
-   [256, 257, 1024] beside K6; K5 also at ViT-L/14's width and at a ragged
-   row count; K4 at ViT-L/14's vision tower, at ViT-B/32's towers and at a
+   [256, 257, 1024] beside K6; K5 also at ViT-L/14's two widths and at a
+   ragged row count; K2 and K5 at widths whose products end in a partial
+   column tile; K4 at ViT-L/14's vision tower, at ViT-B/32's towers and at a
    ragged batch, and once with inputs x 4; K8 fed strided views of one qkv
    buffer), with its median time per call (CUDA events; K1, K4 and K8 over
-   back-to-back calls, beside their profiled device time), the plain
+   back-to-back calls; K1, K2, K4, K5 and K8 beside their profiled device
+   time, the resblock halves beside the SM clock and power draw sampled
+   while they were timed), the plain
    version's time, the least time the card could take (for the tensor-core
    kernels, 3xTF32 work at the TF32 peak, the fp32 CUDA-core bound beside)
    and, for K4 and K8, the time of ``scaled_dot_product_attention`` on the
@@ -31,13 +34,14 @@ non-zero at once:
    disturbances) for two iterations, with every launch count read from the
    run;
 4. text profile — one steady iteration of the same configuration timed by
-   part, and the device's busy share from a torch.profiler trace;
+   part, and the device's busy share from a torch.profiler trace, with the
+   device time of each ported kernel (``ENTRY_POINTS``);
 5. image slice — the same CLI with the image modality (the ViT-B/32 vision
    tower encodes each iteration's 1,024 frames) for two iterations, with
    its launch counts, and the tower's embeddings of a few frames on the
    card against the plain versions on the CPU;
 6. image profile — one steady image-modality iteration by part, and the
-   device's busy share;
+   device's busy share and time by ported kernel;
 7. encoder benchmark — the port's ``cli/benchmark_clip.py`` at ViT-L/14 in
    float32 (K4 + K5 in the vision tower, K2 + K5 in the text tower), then at
    ViT-B/32 with ``--attention-impl pallas`` (K8 in the vision tower), with
@@ -48,7 +52,8 @@ non-zero at once:
    the image call's time under each beside the default route's;
 8. large tower — ViT-L/14's embeddings of two frames on the card, on the
    default route and under both switches, against the plain versions on the
-   CPU, and where one batch-256 image call of each spends its device time.
+   CPU, and where one batch-256 image call of each spends its device time,
+   by kernel and by ported kernel.
 
 The paths of phases 3 to 7 before the switch runs run with every switch
 unset, and their launch checks hold K6 and K7 at 0.
@@ -106,6 +111,67 @@ def time_ms(fn, reps: int, warmup: int = 2, calls: int = 1) -> float:
     return times[len(times) // 2]
 
 
+# Each ported kernel's C entry point. cuda_build.launch opens a profiler
+# range of that name around the call, which splits a trace's device time by
+# ported kernel where kernels share one template (K2's and K5's GEMM, the
+# LayerNorm statistics, the attention tile).
+ENTRY_POINTS = {
+    "disturb_launch": "K1 disturb", "attn_block_launch": "K2 attn_block",
+    "mlp_block_launch": "K3 mlp_block", "fused_qkv_launch": "K4 fused_qkv",
+    "mlp_stream_launch": "K5 mlp_stream", "attn_stream_launch": "K6 attn_stream",
+    "mlp_chunked_launch": "K7 mlp_chunked", "packed_attention_launch": "K8 packed_attention",
+}
+
+
+def _kernel_events(prof) -> list:
+    """The device kernels of a trace, averaged by name, without the device
+    side of the entry points' ranges."""
+    import torch
+
+    return [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.key.endswith("_launch")]
+
+
+def by_ported_kernel(prof) -> dict:
+    """Device ms and calls of each ported kernel in a trace that records
+    both the CPU and the device: the device side of its entry point's
+    ranges, each from the start of the call's first kernel to the end of
+    its last."""
+    import torch
+
+    return {ENTRY_POINTS[e.key]: (e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.key in ENTRY_POINTS and e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def _fmt_ported(rows: dict) -> str:
+    return "; ".join(f"{k} {ms:.1f} ms x{n}" for k, (ms, n) in sorted(rows.items())) or "none"
+
+
+@contextlib.contextmanager
+def card_clocks(out: dict):
+    """The card's SM clock (MHz) and power draw (W), sampled every 20 ms by
+    nvidia-smi while the block runs: their median, least and largest go
+    into ``out`` (nothing when nvidia-smi gives no sample)."""
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader,nounits",
+         "-lms", "20"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    first = proc.stdout.readline()  # sampling has started
+    try:
+        yield
+    finally:
+        proc.terminate()
+        text = first + proc.communicate(timeout=10)[0]
+    samples = []
+    for line in text.splitlines():
+        with contextlib.suppress(ValueError):
+            samples.append(tuple(float(v) for v in line.split(",")))
+    if samples:
+        mhz = sorted(c for c, _ in samples)
+        out.update(sm_mhz=mhz[len(mhz) // 2], sm_mhz_min=mhz[0],
+                   power_w=max(w for _, w in samples), samples=len(samples))
+
+
 def device_ms(fn, calls: int = 20, kernel: str = "") -> float | None:
     """Device milliseconds per call of ``fn``: the kernels whose names hold
     ``kernel`` (every kernel by default), summed from a torch.profiler trace
@@ -120,8 +186,7 @@ def device_ms(fn, calls: int = 20, kernel: str = "") -> float | None:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if kernel in e.key
-              and e.device_type == torch.autograd.DeviceType.CUDA]
+    events = [e for e in _kernel_events(prof) if kernel in e.key]
     total = sum(e.self_device_time_total for e in events)
     return total / 1e3 / calls if total else None
 
@@ -328,8 +393,11 @@ BLOCK_CASES = [  # (kernel, B, T, D, causal, path, timed); rows of no path stay 
     ("mlp_stream", 1024, 50, 768, False, "image", True),
     ("attn_block", 1024, 77, 768, True, "benchmark", True),  # ViT-L/14 text
     ("mlp_stream", 256, 257, 1024, False, "benchmark", True),  # ViT-L/14 vision
+    ("mlp_stream", 1024, 77, 768, False, "benchmark", True),  # ViT-L/14 text
     ("mlp_stream", 7, 50, 768, False, None, False),  # ragged row count
+    ("mlp_stream", 7, 50, 672, False, None, False),  # proj N = 672: a partial column tile
     ("attn_block", 64, 197, 768, False, None, False),  # ViT-B/16's length
+    ("attn_block", 4, 77, 832, True, None, False),  # 13 heads: N = 2496 and 832, partial tiles
     ("attn_block", 256, 257, 1024, False, None, True),  # K6's shape, K6 beside
 ]
 
@@ -397,7 +465,9 @@ def run_block_cases(cases, card: dict, gen, dev) -> list[dict]:
                 fail(f"{name} {shape} disagrees with its plain version: {err} > {tol}")
             if not timed:
                 continue
-            ms = time_ms(lambda: fn(xb, p), reps=10)
+            clocks = {}
+            with card_clocks(clocks):
+                ms = time_ms(lambda: fn(xb, p), reps=10)
             plain_ms = time_ms(lambda: plain(xb, p), reps=10)
             nbytes = 2 * xb.numel() * 4 + wbytes
             bound_ms, bound_by = _bound(nbytes, nflops, card)
@@ -406,20 +476,25 @@ def run_block_cases(cases, card: dict, gen, dev) -> list[dict]:
                 "path": path, "max_abs_err": err, "max_rel_err": rel, "tolerance": tol, "ms": ms,
                 "plain_ms": plain_ms, "library_ms": None,
             }
-            fp32 = ""
+            fp32 = dev_note = ""
             if name in TENSOR_CORE_LIBS:  # three TF32 passes a product
                 row["bound_fp32_ms"] = bound_ms
                 fp32 = f"; fp32 CUDA-core bound {bound_ms:.3f} ms"
                 bound_ms, bound_by = _bound_tf32x3(nbytes, nflops, card)
+                row["device_ms"] = device_ms(lambda: fn(xb, p), calls=10)
+                dev_note = f" (torch.profiler device time {_fmt_ms(row['device_ms'])} per call)"
             row["bound_ms"], row["bound_by"] = bound_ms, bound_by
             other = ""
             if beside is not None:
                 label, other_fn = beside
                 row["beside"], row["beside_ms"] = label, time_ms(lambda: other_fn(xb, p), reps=10)
                 other = f", {label} {row['beside_ms']:.3f} ms"
-            print(f"[kernels] {name} {shape}: {ms:.3f} ms, plain {plain_ms:.3f} ms{other}, bound "
+            card_note = (f"; while timed: SM clock median {clocks['sm_mhz']:.0f} MHz, least "
+                         f"{clocks['sm_mhz_min']:.0f}, power up to {clocks['power_w']:.0f} W over "
+                         f"{clocks['samples']} samples" if clocks else "")
+            print(f"[kernels] {name} {shape}: {ms:.3f} ms{dev_note}, plain {plain_ms:.3f} ms{other}, bound "
                   f"{bound_ms:.3f} ms ({bound_by}, {nflops / 1e9:.1f} GFLOP{fp32}; "
-                  f"{ms / bound_ms:.2f}x it), {nflops / ms / 1e9:.2f} TFLOP/s")
+                  f"{ms / bound_ms:.2f}x it), {nflops / ms / 1e9:.2f} TFLOP/s{card_note}")
             results.append(row)
             del xb
     del params
@@ -730,7 +805,7 @@ def phase_profile(card: dict, modality: str) -> None:
         trainer.iteration(state, 2)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = _kernel_events(prof)
     busy = sum(e.self_device_time_total for e in events) / 1e6
     if busy <= 0:
         print(f"{tag} device busy share: not measured (the trace holds no device time)")
@@ -742,6 +817,9 @@ def phase_profile(card: dict, modality: str) -> None:
           f"the untraced {total * 1e3:.1f} ms (idle {100 * (1 - busy / total):.1f}%; traced wall "
           f"{wall * 1e3:.0f} ms); top kernels: "
           + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.1f} ms x{e.count}" for e in top))
+    print(f"{tag} device time by ported kernel (the device side of the profiler range "
+          "around each entry point's call, first kernel's start to last kernel's end): "
+          + _fmt_ported(by_ported_kernel(prof)))
 
 
 # The encoder benchmark's two runs, and the launches each call must make.
@@ -852,10 +930,11 @@ def _profile_call(call, label: str, card: dict) -> None:
     call()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
         call()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = _kernel_events(prof)
     busy = sum(e.self_device_time_total for e in events) / 1e6
     if busy <= 0:
         print(f"[large tower] device time of {label}: not measured (no device time in the trace)")
@@ -866,6 +945,8 @@ def _profile_call(call, label: str, card: dict) -> None:
           + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.1f} ms x{e.count} "
                       f"({100 * e.self_device_time_total / 1e6 / busy:.1f}%)" for e in top)
           + f" on {card['smi']}")
+    print(f"[large tower] {label}, device time by ported kernel (the device side of the "
+          f"profiler range around each entry point's call): {_fmt_ported(by_ported_kernel(prof))}")
 
 
 def phase_large_tower(card: dict) -> None:

@@ -1,4 +1,5 @@
-// LayerNorm row statistics shared by K6 (csrc/attn_stream.cu) and K7
+// LayerNorm row statistics shared by K2 (csrc/attn_block.cu), K5
+// (csrc/mlp_stream.cu), K6 (csrc/attn_stream.cu) and K7
 // (csrc/mlp_chunked.cu): stats[m] = (mean, 1 / sqrt(var + eps)) of row m of a
 // [M, D] float32 tensor, the variance taken about the mean (two passes), as
 // the plain versions' layer_norm computes it. One warp per row. The kernels

@@ -124,8 +124,19 @@ def _declare(libs: dict[str, ctypes.CDLL]) -> None:
 
 
 def launch(lib: str, fn: str, *args) -> None:
-    """Call a C entry point; raise if it reports a CUDA error."""
-    err = getattr(build_all()[lib], fn)(*args)
+    """Call a C entry point; raise if it reports a CUDA error. While
+    torch.profiler records, the call runs inside a range named after the
+    entry point (``mlp_stream_launch``, ...), so a trace gives each ported
+    kernel its own device time where several share one template (the GEMM of
+    K2 and K5, the LayerNorm statistics, the attention tile)."""
+    import torch
+
+    entry = getattr(build_all()[lib], fn)
+    if torch._C._autograd._profiler_enabled():
+        with torch.profiler.record_function(fn):
+            err = entry(*args)
+    else:
+        err = entry(*args)
     if err != 0:
         raise RuntimeError(f"{lib}.{fn} failed with CUDA error {err}")
 
