@@ -10,13 +10,13 @@ non-zero at once:
    every hand-written kernel from ``clip_ppo_tpu_torch/csrc/`` with each
    kernel's registers and spills; the tensor-core instructions (HMMA,
    HGMMA) of each kernel in the libraries that run on the tensor cores
-   (``TENSOR_CORE_LIBS``: K4/K8, K2, K5), which must hold some and spill
-   nothing;
+   (``TENSOR_CORE_LIBS``: K4/K8, K2, K5, K6, K7), which must hold some and
+   spill nothing;
 2. kernels — each kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it (``BLOCK_CASES``: K2, K3 and K5 with
    random LayerNorm affines and biases; K2 at the text, the vision and
    ViT-L/14's text tower's shapes, at ViT-B/16's T = 197 and at K6's
-   [256, 257, 1024] beside K6; K5 also at ViT-L/14's two widths and at a
+   [256, 257, 1024]; K5 also at ViT-L/14's two widths and at a
    ragged row count; K2 and K5 at widths whose products end in a partial
    column tile; K4 at ViT-L/14's vision tower, at ViT-B/32's towers and at a
    ragged batch, and once with inputs x 4; K8 fed strided views of one qkv
@@ -27,9 +27,13 @@ non-zero at once:
    version's time, the least time the card could take (for the tensor-core
    kernels, 3xTF32 work at the TF32 peak, the fp32 CUDA-core bound beside)
    and, for K4 and K8, the time of ``scaled_dot_product_attention`` on the
-   same q/k/v; then K6 and K7 at ViT-L/14's shapes and at ragged ones, K6
-   timed beside the route it replaces and K7 beside K5, and both refusing a
-   width their kernels do not take;
+   same q/k/v; then K6 and K7 at ViT-L/14's shapes, at ragged ones and at
+   widths whose products end in a partial column tile (``STREAM_CASES``),
+   K6 timed beside K2 and beside the route it replaces, K7 beside K5 on the
+   same inputs, and both refusing a width their kernels do not take. Every
+   resblock-half case prints the device memory its wrapper allocates
+   besides the output (scratch), and K7's must not exceed one [B*T, D]
+   chunk of the hidden plus the row statistics;
 3. text slice — the CLIP-PPO MiniGrid CLI (text modality, HARD
    disturbances) for two iterations, with every launch count read from the
    run;
@@ -249,7 +253,7 @@ def phase_card() -> dict:
 # The libraries whose kernels run their products on the tensor cores in
 # 3xTF32: their SASS must hold tensor-core instructions, ptxas must spill
 # nothing in them, and their bounds count three TF32 passes a product.
-TENSOR_CORE_LIBS = ("fused_qkv", "attn_block", "mlp_stream")
+TENSOR_CORE_LIBS = ("fused_qkv", "attn_block", "mlp_stream", "attn_stream", "mlp_chunked")
 
 
 def _kernel_name(line: str) -> str:
@@ -285,7 +289,6 @@ def _errors(got, ref) -> tuple[float, float]:
 def phase_kernels(card: dict) -> list[dict]:
     import torch
 
-    from clip_ppo_tpu_torch.models.clip import block_kernels as bk
     from clip_ppo_tpu_torch.ops import disturb_kernel as dk
     from clip_ppo_tpu_torch.ops.disturbances import DisturbanceDraws, draw
     from clip_ppo_tpu_torch.ops.severity import DisturbanceSeverity, SEVERITY_CONFIGS
@@ -338,14 +341,9 @@ def phase_kernels(card: dict) -> list[dict]:
         "library_ms": None,
     })
 
-    # -- K2, K3 and K5 at the shapes of BLOCK_CASES; K2 at K6's shape timed
-    # beside K6 on the same inputs ---------------------------------------
-    def k6(x, p):
-        return bk.attn_stream(x, p["ln_1"], p["attn"], x.shape[-1] // 64)
-
-    cases = [(block_case(spec, ("K6 (attn_stream)", k6) if spec[0] == "attn_block"
-                         and spec[3] == 1024 else None), spec[6]) for spec in BLOCK_CASES]
-    results += run_block_cases(cases, card, gen, dev)
+    # -- K2, K3 and K5 at the shapes of BLOCK_CASES ---------------------
+    results += run_block_cases([(block_case(spec), spec[6]) for spec in BLOCK_CASES],
+                               card, gen, dev)
     print("[kernels] " + json.dumps({"checked": [
         {k: r.get(k) for k in ("name", "shape", "max_abs_err", "max_rel_err", "tolerance")}
         | {"ok": True} for r in results]}))
@@ -398,12 +396,27 @@ BLOCK_CASES = [  # (kernel, B, T, D, causal, path, timed); rows of no path stay 
     ("mlp_stream", 7, 50, 672, False, None, False),  # proj N = 672: a partial column tile
     ("attn_block", 64, 197, 768, False, None, False),  # ViT-B/16's length
     ("attn_block", 4, 77, 832, True, None, False),  # 13 heads: N = 2496 and 832, partial tiles
-    ("attn_block", 256, 257, 1024, False, None, True),  # K6's shape, K6 beside
+    ("attn_block", 256, 257, 1024, False, None, True),  # K6's shape
+]
+
+
+# K6 and K7, checked and timed in phase_stream_kernels (rows as BLOCK_CASES)
+STREAM_CASES = [
+    ("attn_stream", 256, 257, 1024, False, "both", True),  # ViT-L/14 vision, switch on
+    ("attn_stream", 3, 257, 1024, False, None, False),  # ragged row count
+    ("attn_stream", 4, 77, 1024, True, None, False),
+    ("attn_stream", 4, 77, 832, True, None, False),  # 13 heads: N = 2496 and 832, partial tiles
+    ("mlp_chunked", 256, 257, 1024, False, "both", True),  # ViT-L/14 vision, switch on
+    ("mlp_chunked", 1024, 77, 768, False, "both", True),  # ViT-L/14 text, switch on
+    ("mlp_chunked", 3, 257, 1024, False, None, False),  # ragged row count
+    ("mlp_chunked", 7, 50, 672, False, None, False),  # fc N = ck = 672, proj N = 672: partial tiles
 ]
 
 
 def block_case(spec: tuple, beside=None):
-    """One ``BLOCK_CASES`` row as :func:`attn_case` or :func:`mlp_case`."""
+    """One ``BLOCK_CASES`` or ``STREAM_CASES`` row as :func:`attn_case` or
+    :func:`mlp_case`; ``beside``, a list of (label, fn), other routes timed
+    on the same inputs."""
     name, b, t, dm, causal, path, _ = spec
     if name.startswith("attn"):
         return attn_case(name, b, t, dm, causal, path, beside)
@@ -438,10 +451,15 @@ def mlp_case(name, b, t, dm, path, beside=None):
 
 def run_block_cases(cases, card: dict, gen, dev) -> list[dict]:
     """Each resblock-half kernel against its plain version on random inputs
-    (tolerance 1e-4 x max(1, max |ref|)); the timed ones also get their
-    median ms, the plain version's, the bound and, where a case names one,
-    the time of another route to the same function on the same inputs."""
+    (tolerance 1e-4 x max(1, max |ref|)), with the device memory its wrapper
+    asks for besides the output (the allocator's peak of requested bytes
+    during the call, less what was requested before and the output); the
+    timed ones also get their median ms, the plain version's, the bound and,
+    where a case names them, the times of other routes to the same function
+    on the same inputs."""
     import torch
+
+    from clip_ppo_tpu_torch.models.clip import block_kernels as bk
 
     results = []
     params = {}
@@ -452,7 +470,13 @@ def run_block_cases(cases, card: dict, gen, dev) -> list[dict]:
                 params[dm] = random_block(gen, dm, dev)
             p = params[dm]
             xb = torch.randn((b, t, dm), generator=gen, device=dev)
-            got, ref = fn(xb, p), plain(xb, p)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_stats(dev)["requested_bytes.all.current"]
+            torch.cuda.reset_peak_memory_stats(dev)
+            got = fn(xb, p)
+            peak = torch.cuda.memory_stats(dev)["requested_bytes.all.peak"]
+            scratch = peak - base - xb.numel() * 4
+            ref = plain(xb, p)
             torch.cuda.synchronize()
             err, rel = _errors(got, ref)
             scale = ref.abs().max().item()
@@ -460,9 +484,17 @@ def run_block_cases(cases, card: dict, gen, dev) -> list[dict]:
             del got, ref
             shape = f"[{b},{t},{dm}]" + (" causal" if causal else "")
             print(f"[kernels] {name} {shape}: max_abs_err {err:.3e} max_rel_err {rel:.3e} "
-                  f"(max |ref| {scale:.3f}; tolerance 1e-4 x max(1, max |ref|) = {tol:.1e})")
+                  f"(max |ref| {scale:.3f}; tolerance 1e-4 x max(1, max |ref|) = {tol:.1e}); "
+                  f"scratch {scratch} bytes = {scratch / (xb.numel() * 4):.3f}x the activations")
             if not err <= tol:
                 fail(f"{name} {shape} disagrees with its plain version: {err} > {tol}")
+            # K7's hidden scratch is one chunk, [B*T, D] at 4D / MLP_CHUNKS = D
+            if name == "mlp_chunked":
+                m = b * t
+                limit = m * (4 * dm // bk.MLP_CHUNKS) * 4 + m * 2 * 4
+                if not scratch <= limit:
+                    fail(f"mlp_chunked {shape} allocated {scratch} bytes of scratch, more than "
+                         f"one chunk of the hidden and the row statistics ({limit})")
             if not timed:
                 continue
             clocks = {}
@@ -474,7 +506,7 @@ def run_block_cases(cases, card: dict, gen, dev) -> list[dict]:
             row = {
                 "name": name, "route": "cuda", "source": src, "replaces": line, "shape": shape,
                 "path": path, "max_abs_err": err, "max_rel_err": rel, "tolerance": tol, "ms": ms,
-                "plain_ms": plain_ms, "library_ms": None,
+                "plain_ms": plain_ms, "library_ms": None, "scratch_bytes": scratch,
             }
             fp32 = dev_note = ""
             if name in TENSOR_CORE_LIBS:  # three TF32 passes a product
@@ -484,11 +516,9 @@ def run_block_cases(cases, card: dict, gen, dev) -> list[dict]:
                 row["device_ms"] = device_ms(lambda: fn(xb, p), calls=10)
                 dev_note = f" (torch.profiler device time {_fmt_ms(row['device_ms'])} per call)"
             row["bound_ms"], row["bound_by"] = bound_ms, bound_by
-            other = ""
-            if beside is not None:
-                label, other_fn = beside
-                row["beside"], row["beside_ms"] = label, time_ms(lambda: other_fn(xb, p), reps=10)
-                other = f", {label} {row['beside_ms']:.3f} ms"
+            row["beside_ms"] = {label: time_ms(lambda: other_fn(xb, p), reps=10)
+                                for label, other_fn in beside or []}
+            other = "".join(f", {k} {v:.3f} ms" for k, v in row["beside_ms"].items())
             card_note = (f"; while timed: SM clock median {clocks['sm_mhz']:.0f} MHz, least "
                          f"{clocks['sm_mhz_min']:.0f}, power up to {clocks['power_w']:.0f} W over "
                          f"{clocks['samples']} samples" if clocks else "")
@@ -504,9 +534,9 @@ def run_block_cases(cases, card: dict, gen, dev) -> list[dict]:
 
 def phase_stream_kernels(card: dict) -> list[dict]:
     """K6 and K7 against their plain versions on the card at the shapes of
-    ViT-L/14's switch runs and at ragged ones, K6 timed beside the route it
-    replaces (LN1, the cuBLAS qkv projection, K4, the cuBLAS out-projection
-    and the residual) and K7 beside K5 on the same inputs."""
+    ``STREAM_CASES``; at ViT-L/14's, K6 timed beside K2 and beside the route
+    it replaces (LN1, the cuBLAS qkv projection, K4, the cuBLAS
+    out-projection and the residual), K7 beside K5, on the same inputs."""
     import torch
 
     from clip_ppo_tpu_torch.models.clip import block_kernels as bk
@@ -521,27 +551,26 @@ def phase_stream_kernels(card: dict) -> list[dict]:
     def fused_route(x, p):
         return x + cm.attention(p["attn"], bk.layer_norm(p["ln_1"], x), 16, False, "auto")
 
-    k4_route = ("LN1 + cuBLAS qkv + K4 + cuBLAS out-proj + residual", fused_route)
-    k5 = ("K5 (mlp_stream)", lambda x, p: bk.mlp_stream(x, p["ln_2"], p["mlp"]))
-    cases = [
-        (attn_case("attn_stream", 256, 257, 1024, False, "both", k4_route), True),
-        (attn_case("attn_stream", 3, 257, 1024, False, None), False),
-        (attn_case("attn_stream", 4, 77, 1024, True, None), False),
-        (mlp_case("mlp_chunked", 256, 257, 1024, "both", k5), True),
-        (mlp_case("mlp_chunked", 1024, 77, 768, "both", k5), True),
-        (mlp_case("mlp_chunked", 3, 257, 1024, None), False),
-    ]
+    beside = {
+        "attn_stream": [
+            ("K2 (attn_block)", lambda x, p: bk.attn_block(x, p["ln_1"], p["attn"], 16)),
+            ("LN1 + cuBLAS qkv + K4 + cuBLAS out-proj + residual", fused_route)],
+        "mlp_chunked": [("K5 (mlp_stream)", lambda x, p: bk.mlp_stream(x, p["ln_2"], p["mlp"]))],
+    }
+    cases = [(block_case(spec, beside[spec[0]] if spec[6] else None), spec[6])
+             for spec in STREAM_CASES]
     results = run_block_cases(cases, card, gen, dev)
-    # A width the kernels do not take is refused by name, not run.
-    x, blk = torch.zeros((2, 3, 192), device=dev), random_block(gen, 192, dev)
+    # A width the kernels do not take (not a multiple of 32, nor of 64 for
+    # the heads) is refused by name, not run.
+    x, blk = torch.zeros((2, 3, 200), device=dev), random_block(gen, 200, dev)
     for name, call in (("attn_stream", lambda: bk.attn_stream(x, blk["ln_1"], blk["attn"], 3)),
                        ("mlp_chunked", lambda: bk.mlp_chunked(x, blk["ln_2"], blk["mlp"]))):
         try:
             call()
         except ValueError as e:
-            print(f"[kernels] {name} refuses D = 192: {e}")
+            print(f"[kernels] {name} refuses D = 200: {e}")
         else:
-            fail(f"{name} ran at D = 192, a width its kernel does not take")
+            fail(f"{name} ran at D = 200, a width its kernel does not take")
     print("[kernels] " + json.dumps({"checked": [
         {k: r.get(k) for k in ("name", "shape", "max_abs_err", "max_rel_err", "tolerance")}
         | {"ok": True} for r in results]}))

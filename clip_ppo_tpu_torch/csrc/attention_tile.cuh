@@ -1,11 +1,11 @@
-// The attention tile shared by K4/K8 (csrc/fused_qkv.cu) and K6
-// (csrc/attn_stream.cu): softmax attention of the query rows of one (batch,
+// The attention tile shared by K4/K8 (csrc/fused_qkv.cu) and the attention
+// halves K2 and K6 (csrc/attn_half.cuh): softmax attention of the query rows of one (batch,
 // head) against all keys, in tiles of 64 keys with an online softmax, Dh = 64,
 // float32, optionally causal, both products on the tensor cores in 3xTF32.
 //
 // Replaces the bodies of clip_ppo_tpu/models/clip/pallas_attention.py::
 // _fused_qkv_kernel (:91, entry fused_qkv_attention) and ::_attn_kernel (:391,
-// entry packed_attention); K6 runs it as its attention stage.
+// entry packed_attention); K2 and K6 run it as their attention stage.
 //
 // Bound on Hopper. At ViT-L/14's vision tower ([256, 257, 3 x 1024], 16 heads)
 // the scores and the weighted sum are 2 * 2 * B * T^2 * D = 69.3 GFLOP; in

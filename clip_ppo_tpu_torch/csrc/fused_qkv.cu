@@ -34,7 +34,7 @@
 // T is not bounded by shared memory. The TPU kernel's 128-lane head pairs,
 // lane masks and row stacking are layout devices of its matrix unit and have
 // no counterpart here. The body, its numerics and its layouts are described
-// in attention_tile.cuh, which K6 (attn_stream.cu) includes as well.
+// in attention_tile.cuh, which K2 and K6 (attn_half.cuh) include as well.
 
 #include "attention_tile.cuh"
 

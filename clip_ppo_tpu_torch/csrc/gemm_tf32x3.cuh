@@ -1,12 +1,17 @@
-// The GEMM shared by K2 (attn_block.cu) and K5 (mlp_stream.cu):
+// The GEMM shared by K2 (attn_block.cu), K5 (mlp_stream.cu), K6
+// (attn_stream.cu) and K7 (mlp_chunked.cu):
 //   C[M, N] = epilogue(A'[M, K] @ W[N, K]^T),
 // float32 in and out, the products on Hopper's tensor cores (wgmma) in
 // 3xTF32. A' is A, or LN(A): (a - mean) * rstd * gamma + beta from
 // ln_stats.cuh's per-row (mean, rstd), applied in shared memory as each
 // slice of A arrives, so LN(A) never reaches device memory. The epilogue
 // adds the bias, then applies QuickGELU (h * sigmoid(1.702 h)) or adds the
-// residual R[M, N]. W is a weight stored [out, in], as the resblocks keep
-// theirs, so both operands are K-major: the layout wgmma takes TF32 in.
+// residual R[M, N]; or adds R with no bias, where R may be C itself (K7 adds
+// each chunk of the hidden dimension's product to its output in place). W
+// is a weight stored [out, in], as the resblocks keep theirs, so both
+// operands are K-major: the layout wgmma takes TF32 in. W's rows may lie
+// further apart than K (ldw): K7 reads a block of columns of proj_w [D, 4D]
+// as a [D, 4D / chunks] W.
 //
 // Bound on Hopper: operations. A product of 2 M N K flops runs as three TF32
 // passes, 6 M N K flops of tensor-core work at the 495 TFLOP/s TF32 peak
@@ -78,11 +83,16 @@ constexpr int kSmallBytes = 2 * 2 * kTileBytes;         // 64 KB
 constexpr int kSmemBytes = kRawBytes + kSmallBytes + 1024;  // + alignment to the swizzle's 1 KB
 static_assert(kBM == kBN, "A and W tiles share one layout");
 
-enum Epilogue { kBias, kBiasQuickGelu, kBiasResidual };
+// kAccumulate: C = R + A' @ W^T, no bias, R == C allowed. Each element of R
+// is read, and the same element of C written, by one thread; the read is a
+// coherent ld.global (never __ldg or ld.global.nc, whose path assumes the
+// data does not change while the kernel runs).
+enum Epilogue { kBias, kBiasQuickGelu, kBiasResidual, kAccumulate };
 
 // C = epilogue(A' @ W^T). stats, ln_g, ln_b are read only with LN; R only
-// with kBiasResidual. A, W, C, R, bias, ln_g, ln_b 16-byte aligned; K a
-// multiple of kBK, N a multiple of 8.
+// with kBiasResidual and kAccumulate; bias not with kAccumulate. A, W, C, R, bias, ln_g,
+// ln_b 16-byte aligned; K a multiple of kBK, N a multiple of 8; W's rows
+// ldw floats apart (0: K), ldw >= K and a multiple of 4.
 struct Params {
   const float* A;
   const float2* stats;  // [M] (mean, rstd)
@@ -93,6 +103,7 @@ struct Params {
   const float* R;
   float* C;
   int M, N, K;
+  int ldw;
 };
 
 // Byte offset of 16-byte chunk c of row r in a 128-byte-swizzled tile.
@@ -146,6 +157,13 @@ __device__ __forceinline__ void wgmma(float (&d)[64], uint64_t a, uint64_t b, in
       : "memory");
 }
 
+// Two floats from device memory through the coherent path.
+__device__ __forceinline__ float2 ld_coherent(const float* p) {
+  float2 v;
+  asm volatile("ld.global.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "l"(p));
+  return v;
+}
+
 __device__ __forceinline__ float4 small_part(float4 x) {
   return make_float4(tf32x3::small_part(x.x), tf32x3::small_part(x.y),
                      tf32x3::small_part(x.z), tf32x3::small_part(x.w));
@@ -183,7 +201,7 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(const Params p) {
       cp_async16(reinterpret_cast<float*>(s + off[j]),
                  p.A + static_cast<size_t>(m < p.M ? m : 0) * p.K + k, m < p.M ? 16 : 0);
       cp_async16(reinterpret_cast<float*>(s + kTileBytes + off[j]),
-                 p.W + static_cast<size_t>(n < p.N ? n : 0) * p.K + k, n < p.N ? 16 : 0);
+                 p.W + static_cast<size_t>(n < p.N ? n : 0) * p.ldw + k, n < p.N ? 16 : 0);
     }
   };
 
@@ -277,9 +295,15 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(const Params p) {
     for (int j = 0; j < 16; ++j) {
       const int n = n0 + 8 * j + 2 * (lane & 3);
       if (n >= p.N) continue;
-      const float2 bias = __ldg(reinterpret_cast<const float2*>(p.bias + n));
-      float2 v = make_float2(acc[4 * j + 2 * h] + bias.x, acc[4 * j + 2 * h + 1] + bias.y);
       const size_t o = static_cast<size_t>(m) * p.N + n;
+      float2 v = make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      if (kEpi == kAccumulate) {
+        const float2 r = ld_coherent(p.R + o);
+        *reinterpret_cast<float2*>(p.C + o) = make_float2(r.x + v.x, r.y + v.y);
+        continue;
+      }
+      const float2 bias = __ldg(reinterpret_cast<const float2*>(p.bias + n));
+      v = make_float2(v.x + bias.x, v.y + bias.y);
       if (kEpi == kBiasQuickGelu) {
         v.x = v.x / (1.0f + __expf(-1.702f * v.x));
         v.y = v.y / (1.0f + __expf(-1.702f * v.y));
@@ -294,8 +318,10 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(const Params p) {
 
 // Launches C = epilogue(A' @ W^T) on st. Returns a cudaError_t.
 template <bool kLN, int kEpi>
-int launch(const Params& p, cudaStream_t st) {
-  if (p.M < 1 || p.N < 8 || p.N % 8 != 0 || p.K < kBK || p.K % kBK != 0)
+int launch(Params p, cudaStream_t st) {
+  if (p.ldw == 0) p.ldw = p.K;
+  if (p.M < 1 || p.N < 8 || p.N % 8 != 0 || p.K < kBK || p.K % kBK != 0 || p.ldw < p.K ||
+      p.ldw % 4 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long blocks =
       static_cast<long long>((p.M + kBM - 1) / kBM) * ((p.N + kBN - 1) / kBN);

@@ -1,7 +1,7 @@
 // The primitives shared by the attention tile (attention_tile.cuh: K4, K8 and
-// K6's attention stage) and the GEMM (gemm_tf32x3.cuh: K2 and K5): cp.async
-// staging into shared memory, and the small part of the truncating TF32
-// split.
+// the attention stage of K2 and K6) and the GEMM (gemm_tf32x3.cuh: K2, K5, K6
+// and K7): cp.async staging into shared memory, and the small part of the
+// truncating TF32 split.
 //
 // The split. A TF32 operand keeps 10 mantissa bits. The H100's tensor core
 // reads only the top 19 bits of a .tf32 operand (it ignores the low 13), so

@@ -14,10 +14,11 @@ hand-written CUDA kernels, and their plain PyTorch versions.
   ``_attn_stream_kernel`` (entry ``fused_attn_block_stream``), which
   ``model.resblock`` takes under ``CLIP_PPO_ATTN_STREAM=1`` at widths past
   K2's route (ViT-L/14's vision tower). Kernel in ``csrc/attn_stream.cu``,
-  for any batch and T, D = heads × 64 a multiple of 128, causal or not. Its
-  [B, T, 3D] qkv and [B, T, D] attention output are scratch in device memory
-  between its launches (one batch element's qkv, 3.2 MB at ViT-L/14, is far
-  beyond a block's shared memory); LN1(x) never is.
+  on K2's four launches (``csrc/attn_half.cuh``) and widths: any batch and
+  T, D = heads × 64, causal or not. Its [B, T, 3D] qkv and [B, T, D]
+  attention output are scratch in device memory between its launches (one
+  batch element's qkv, 3.2 MB at ViT-L/14, is far beyond a block's shared
+  memory); LN1(x) never is.
 * :func:`mlp_block` — ``x + proj(QuickGELU(fc(LN2(x))))``, routed as
   ``fused_mlp_block`` routes (``pallas_block.py:759-820``), reading the
   switches at call time: where both weight matrices fit the TPU kernel's
@@ -27,15 +28,17 @@ hand-written CUDA kernels, and their plain PyTorch versions.
   vision tower's D = 768 in fp32, ViT-L/14's D = 1024 and 768):
   ``CLIP_PPO_MLP_CHUNKED=1`` runs :func:`mlp_chunked`, K7, replacing
   ``_mlp_block_chunked_kernel`` (``csrc/mlp_chunked.cu``: the hidden
-  dimension cut into chunks across the launch, the chunks' fp32 partial sums
-  added by a second pass); else ``CLIP_PPO_MLP_STREAM`` other than "1" runs
-  the plain version, as ``_mlp_block_ref``; else :func:`mlp_stream`, K5,
-  replacing ``_mlp_stream_kernel`` (``csrc/mlp_stream.cu``), which streams
-  the weights and runs both products on the tensor cores in 3xTF32. K5 takes
-  D and 4D multiples of 32, K7 D a multiple of 128 up to 1024. K3 and K7
-  keep the [B, T, 4D] hidden out of device memory (K7 writes fp32 partial
-  sums of the output instead); K5 writes it once and reads it once, as
-  scratch between its two products (``csrc/mlp_stream.cu`` says why).
+  dimension cut into :data:`MLP_CHUNKS` chunks, each chunk's product added
+  to the output in chunk order); else ``CLIP_PPO_MLP_STREAM`` other than "1"
+  runs the plain version, as ``_mlp_block_ref``; else :func:`mlp_stream`,
+  K5, replacing ``_mlp_stream_kernel`` (``csrc/mlp_stream.cu``). K5 and K7
+  run their products on the tensor cores in 3xTF32 on the GEMM they share
+  with K2 and K6 (``csrc/gemm_tf32x3.cuh``). K5 takes D and 4D multiples of
+  32, K7 D a multiple of 32 and 4D a multiple of 32 × MLP_CHUNKS. K3 keeps
+  the [B, T, 4D] hidden out of device memory; K5 writes it once and reads it
+  once, as scratch between its two products (``csrc/mlp_stream.cu`` says
+  why); K7 does the same with one chunk's [B, T, 4D / MLP_CHUNKS] at a
+  time.
 
 Each wrapper launches its kernel for a CUDA tensor, runs its plain version
 (which mirrors ``_attn_block_ref`` / ``_mlp_block_ref``) for a CPU tensor,
@@ -62,7 +65,7 @@ from clip_ppo_tpu_torch.models.clip.attention_kernels import (  # noqa: F401  (r
 HEAD_DIM = 64
 # The TPU kernels' weight budget (``pallas_block.py:774``, ``model.py:204``).
 WEIGHT_BUDGET_BYTES = 12 << 20
-# K7's chunks of the hidden dimension, one launch axis (csrc/mlp_chunked.cu
+# K7's chunks of the hidden dimension, run in order (csrc/mlp_chunked.cu
 # says why 4).
 MLP_CHUNKS = 4
 # The largest row count (B*T) the C entry points take: an int.
@@ -168,28 +171,36 @@ def attn_block(x: torch.Tensor, ln1: dict, attn: dict, heads: int,
     resblock's ``ln_1``/``attn`` dicts (in_proj_w [3D, D], out_proj_w [D, D])."""
     if x.device.type == "cpu":
         return attn_block_plain(x, ln1, attn, heads, causal, eps)
+    return _attn_half("attn_block", x, ln1, attn, heads, causal, eps)
+
+
+def _attn_half(name: str, x: torch.Tensor, ln1: dict, attn: dict, heads: int, causal: bool,
+               eps: float) -> torch.Tensor:
+    """K2 or K6 (``name``) on a device tensor: the four launches of
+    ``csrc/attn_half.cuh`` through the kernel's own entry point, for any
+    batch and T, D = heads x 64."""
     if x.device.type != "cuda":
-        raise ValueError(f"attn_block: unsupported device {x.device}")
+        raise ValueError(f"{name}: unsupported device {x.device}")
     b, t, _ = x.shape
-    d = _check_attn_shapes(x, ln1, attn, "attn_block")
+    d = _check_attn_shapes(x, ln1, attn, name)
     if d != heads * HEAD_DIM or b < 1 or t < 1 or b * t > _INT_MAX:
-        raise ValueError(f"attn_block: the kernel takes D = heads x {HEAD_DIM} and 1 <= B*T <= "
+        raise ValueError(f"{name}: the kernel takes D = heads x {HEAD_DIM} and 1 <= B*T <= "
                          f"{_INT_MAX} (any T, causal or not), got D={d}, heads={heads}, "
                          f"B={b}, T={t}")
-    _check_aligned("attn_block", x, ln1["scale"], ln1["bias"], *attn.values())
+    _check_aligned(name, x, ln1["scale"], ln1["bias"], *attn.values())
     stats = torch.empty((b * t, 2), dtype=x.dtype, device=x.device)  # LN1 mean, 1/std
     qkv = torch.empty((b, t, 3 * d), dtype=x.dtype, device=x.device)
     scratch = torch.empty_like(x)  # attention output, before out_proj
     out = torch.empty_like(x)
     cuda_build.launch(
-        "attn_block", "attn_block_launch",
+        name, f"{name}_launch",
         x.data_ptr(), ln1["scale"].data_ptr(), ln1["bias"].data_ptr(),
         attn["in_proj_w"].data_ptr(), attn["in_proj_b"].data_ptr(),
         attn["out_proj_w"].data_ptr(), attn["out_proj_b"].data_ptr(),
         stats.data_ptr(), qkv.data_ptr(), scratch.data_ptr(), out.data_ptr(),
         b, t, d, heads, int(causal), float(eps), cuda_build.stream_handle(x.device),
     )
-    cuda_build.LAUNCHES["attn_block"] += 1
+    cuda_build.LAUNCHES[name] += 1
     return out
 
 
@@ -263,59 +274,40 @@ def mlp_stream(x: torch.Tensor, ln2: dict, mlp: dict, eps: float = 1e-5) -> torc
 
 def attn_stream(x: torch.Tensor, ln1: dict, attn: dict, heads: int,
                 causal: bool = False, eps: float = 1e-5) -> torch.Tensor:
-    """K6: :func:`attn_block`'s function at any T (D = heads x 64, a
-    multiple of 128), the residual included."""
+    """K6: :func:`attn_block`'s function, at its widths (D = heads x 64,
+    any batch and T, causal or not), the residual included."""
     if x.device.type == "cpu":
         return attn_stream_plain(x, ln1, attn, heads, causal, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"attn_stream: unsupported device {x.device}")
-    b, t, _ = x.shape
-    d = _check_attn_shapes(x, ln1, attn, "attn_stream")
-    if d != heads * HEAD_DIM or d % 128 != 0 or -(-b * t // 128) > 65535:
-        raise ValueError(f"attn_stream: the kernel takes D = heads x {HEAD_DIM}, a multiple of "
-                         f"128, and B*T <= {65535 * 128} (any T, causal or not), got D={d}, "
-                         f"heads={heads}, B*T={b * t}")
-    _check_aligned("attn_stream", x, ln1["scale"], ln1["bias"], *attn.values())
-    stats = torch.empty((b * t, 2), dtype=x.dtype, device=x.device)  # LN1 mean, 1/std
-    qkv = torch.empty((b, t, 3 * d), dtype=x.dtype, device=x.device)
-    scratch = torch.empty_like(x)  # attention output, before out_proj
-    out = torch.empty_like(x)
-    cuda_build.launch(
-        "attn_stream", "attn_stream_launch",
-        x.data_ptr(), ln1["scale"].data_ptr(), ln1["bias"].data_ptr(),
-        attn["in_proj_w"].data_ptr(), attn["in_proj_b"].data_ptr(),
-        attn["out_proj_w"].data_ptr(), attn["out_proj_b"].data_ptr(),
-        stats.data_ptr(), qkv.data_ptr(), scratch.data_ptr(), out.data_ptr(),
-        b, t, d, heads, int(causal), float(eps), cuda_build.stream_handle(x.device),
-    )
-    cuda_build.LAUNCHES["attn_stream"] += 1
-    return out
+    return _attn_half("attn_stream", x, ln1, attn, heads, causal, eps)
 
 
 def mlp_chunked(x: torch.Tensor, ln2: dict, mlp: dict, eps: float = 1e-5) -> torch.Tensor:
     """K7: :func:`mlp_block` as a sum over :data:`MLP_CHUNKS` chunks of the
-    hidden dimension, one launch axis (D a multiple of 128 up to 1024, 4D a
-    multiple of 64 x MLP_CHUNKS)."""
+    hidden dimension, taken in chunk order, with one chunk's [B, T, 4D /
+    MLP_CHUNKS] hidden as scratch (D a multiple of 32, 4D a multiple of 32 x
+    MLP_CHUNKS)."""
     if x.device.type == "cpu":
         return mlp_chunked_plain(x, ln2, mlp, eps)
     if x.device.type != "cuda":
         raise ValueError(f"mlp_chunked: unsupported device {x.device}")
     b, t, _ = x.shape
     d, d4 = _check_mlp_shapes(x, ln2, mlp, "mlp_chunked")
-    if d % 128 != 0 or not 128 <= d <= 1024 or d4 % (64 * MLP_CHUNKS) != 0:
-        raise ValueError(f"mlp_chunked: the kernel takes D a multiple of 128 up to 1024 and "
-                         f"4D % {64 * MLP_CHUNKS} == 0, got {d}, {d4}")
-    _check_aligned("mlp_chunked", x, ln2["scale"], ln2["bias"], *mlp.values())
     m = b * t
+    if (d < 32 or d % 32 != 0 or d4 < 32 * MLP_CHUNKS or d4 % (32 * MLP_CHUNKS) != 0
+            or not 1 <= m <= _INT_MAX):
+        raise ValueError(f"mlp_chunked: the kernel takes D a multiple of 32, 4D a multiple of "
+                         f"{32 * MLP_CHUNKS} and 1 <= B*T <= {_INT_MAX}, got D={d}, 4D={d4}, "
+                         f"B*T={m}")
+    _check_aligned("mlp_chunked", x, ln2["scale"], ln2["bias"], *mlp.values())
     stats = torch.empty((m, 2), dtype=x.dtype, device=x.device)  # LN2 mean, 1/std
-    partial = torch.empty((MLP_CHUNKS, m, d), dtype=x.dtype, device=x.device)
+    hidden = torch.empty((m, d4 // MLP_CHUNKS), dtype=x.dtype, device=x.device)  # a chunk
     out = torch.empty_like(x)
     cuda_build.launch(
         "mlp_chunked", "mlp_chunked_launch",
         x.data_ptr(), ln2["scale"].data_ptr(), ln2["bias"].data_ptr(),
         mlp["fc_w"].data_ptr(), mlp["fc_b"].data_ptr(),
         mlp["proj_w"].data_ptr(), mlp["proj_b"].data_ptr(),
-        stats.data_ptr(), partial.data_ptr(), out.data_ptr(), m, d, d4, MLP_CHUNKS, float(eps),
+        stats.data_ptr(), hidden.data_ptr(), out.data_ptr(), m, d, d4, MLP_CHUNKS, float(eps),
         cuda_build.stream_handle(x.device),
     )
     cuda_build.LAUNCHES["mlp_chunked"] += 1

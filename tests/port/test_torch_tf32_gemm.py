@@ -1,4 +1,4 @@
-"""The numerics of the tensor-core GEMM shared by K2 and K5
+"""The numerics of the tensor-core GEMM shared by K2, K5, K6 and K7
 (``csrc/gemm_tf32x3.cuh``) on the CPU: both halves of a resblock computed
 with the kernels' arithmetic, held against the JAX package's references.
 
@@ -20,12 +20,16 @@ the residual; the attention runs the three-pass emulation of
 ``test_torch_tf32_split.py``.
 
 The MLP half runs at D = 1024, 4D = 4096 (ViT-L/14's vision tower: its
-second product sums 4,096 terms), the attention half at D = 768 (ViT-B/32's
-vision tower and ViT-L/14's text tower, causal), on a few rows drawn with
-numpy from a seed. Each is held to the card check's tolerance, 1e-4 ×
-max(1, max |ref|), against a float64 reference and against the JAX
-package's ``_mlp_block_ref`` / ``_attn_block_ref`` at full fp32 precision;
-one TF32 pass misses it at the same inputs.
+second product sums 4,096 terms), once as K5 runs it and once as K7 does (4
+chunks of 1,024 hidden units, each chunk's second product added to the
+output in chunk order), the attention half at D = 768 (ViT-B/32's vision
+tower and ViT-L/14's text tower, causal), on a few rows drawn with numpy
+from a seed. Each is held to the card check's tolerance, 1e-4 × max(1, max
+|ref|), against a float64 reference and against the JAX package's
+``_mlp_block_ref`` / ``_attn_block_ref`` at full fp32 precision (K7 against
+the JAX package's own chunked kernel, ``fused_mlp_block`` under
+``CLIP_PPO_MLP_CHUNKED=1`` in interpret mode); one TF32 pass misses it at
+the same inputs.
 """
 
 import numpy as np
@@ -35,7 +39,13 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from clip_ppo_tpu.models.clip.pallas_block import _attn_block_ref, _mlp_block_ref, _row
+from clip_ppo_tpu.models.clip.pallas_block import (
+    _attn_block_ref,
+    _mlp_block_ref,
+    _row,
+    fused_mlp_block,
+)
+from clip_ppo_tpu_torch.models.clip.block_kernels import MLP_CHUNKS
 from test_torch_tf32_split import _heads, _mm1, _mm3, tf32_trunc
 
 EPS = 1e-5
@@ -167,6 +177,48 @@ def test_mlp_half_in_3xtf32_holds_the_fp32_tolerance_where_one_pass_does_not(acc
                                  _row(_jax(g), jnp.float32), _row(_jax(b), jnp.float32), EPS)
     _hold(kernel(3), kernel(1), ref64, torch.as_tensor(np.array(ref_jax)).double(),
           f"MLP half, D={d}, {accumulate}")
+
+
+@pytest.mark.parametrize("accumulate", ["nearest", "toward_zero"])
+def test_chunked_mlp_half_in_3xtf32_holds_the_fp32_tolerance_where_one_pass_does_not(
+        accumulate, monkeypatch):
+    """K7: per chunk c of ck = 4D / MLP_CHUNKS hidden units, the fc GEMM
+    with LN2 on load over fc_w's rows of c, then the proj GEMM over proj_w's
+    columns of c (a reduction ck deep), its product added to ``out`` in
+    fp32: chunk 0 as x + (product + proj_b), each later one as out +
+    product."""
+    d, d4, rows = 1024, 4096, 6  # ViT-L/14's vision tower
+    ck = d4 // MLP_CHUNKS
+    rng = np.random.RandomState(23)
+    x = torch.as_tensor(rng.randn(1, rows, d).astype(np.float32))
+    g, b = _affine(rng, d)
+    fc_w, proj_w = _weights(rng, d4, d, fan_in=d), _weights(rng, d, d4, fan_in=d4)
+    fc_b = torch.as_tensor((0.1 * rng.randn(d4)).astype(np.float32))
+    proj_b = torch.as_tensor((0.1 * rng.randn(d)).astype(np.float32))
+
+    def kernel(passes):
+        x2 = x.view(rows, d)
+        a = _ln_on_load(x2, g, b)
+        out = None
+        for c in range(MLP_CHUNKS):
+            units = slice(c * ck, (c + 1) * ck)
+            h = gemm(a, fc_w[units], passes, accumulate) + fc_b[units]
+            h = h / (1 + torch.exp(-1.702 * h))
+            prod = gemm(h, proj_w[:, units].contiguous(), passes, accumulate)
+            out = x2 + (prod + proj_b) if c == 0 else out + prod
+        return out.view(1, rows, d)
+
+    h64 = _ln64(x, g, b) @ fc_w.double().T + fc_b.double()
+    h64 = h64 * torch.sigmoid(1.702 * h64)
+    ref64 = x.double() + h64 @ proj_w.double().T + proj_b.double()
+    monkeypatch.setenv("CLIP_PPO_MLP_CHUNKED", "1")
+    with jax.default_matmul_precision("highest"):
+        ref_jax = fused_mlp_block(
+            _jax(x), {"scale": _jax(g), "bias": _jax(b)},
+            {"fc_w": _jax(fc_w), "fc_b": _jax(fc_b), "proj_w": _jax(proj_w),
+             "proj_b": _jax(proj_b)}, EPS, interpret=True)
+    _hold(kernel(3), kernel(1), ref64, torch.as_tensor(np.array(ref_jax)).double(),
+          f"chunked MLP half, D={d}, {MLP_CHUNKS} chunks, {accumulate}")
 
 
 def _attention(qkv: torch.Tensor, heads: int, causal: bool, mm) -> torch.Tensor:

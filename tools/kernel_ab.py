@@ -2,7 +2,7 @@
 """Time the tensor-core kernels of two checkouts of the port in turns on one
 GPU: the attention kernels (K4 ``fused_qkv``, K8 ``packed_attention``) and
 the resblock halves on the shared GEMM (K2 ``attn_block``, K5
-``mlp_stream``).
+``mlp_stream``, K6 ``attn_stream``, K7 ``mlp_chunked``).
 
     python3 tools/kernel_ab.py OTHER_ROOT [--kernels all|attention|block]
 
@@ -15,10 +15,10 @@ does, after checking the kernel against its plain version with chip_smoke's
 tolerance: every timed case of ``ATTENTION_CASES``, the kernel and
 ``scaled_dot_product_attention`` by CUDA events around ``ATTENTION_CALLS``
 back-to-back calls (median of 10 runs) and the kernel's device time from a
-profiler trace; and every timed K2 and K5 case of ``BLOCK_CASES``, by CUDA
-events around one call (median of 10), on a resblock with random LayerNorm
-affines and biases. A shape the other checkout's wrapper refuses is
-recorded as refused. It prints one JSON line per run and case, the card's
+profiler trace; and every timed K2 and K5 case of ``BLOCK_CASES`` and K6 and
+K7 case of ``STREAM_CASES``, by CUDA events around one call (median of 10),
+on a resblock with random LayerNorm affines and biases. A shape the other
+checkout's wrapper refuses is recorded as refused. It prints one JSON line per run and case, the card's
 name and power limit, and last a JSON summary with each case's two runs per
 checkout.
 """
@@ -32,7 +32,7 @@ import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent.parent
-BLOCK_KERNELS = ("attn_block", "mlp_stream")
+BLOCK_KERNELS = ("attn_block", "mlp_stream", "attn_stream", "mlp_chunked")
 
 
 def _chip_smoke():
@@ -65,7 +65,7 @@ def _block(cs, root: str, gen, dev) -> None:
     import torch
 
     params = {}
-    for spec in cs.BLOCK_CASES:
+    for spec in cs.BLOCK_CASES + cs.STREAM_CASES:
         name, b, t, dm, causal, _, timed = spec
         if name not in BLOCK_KERNELS or not timed:
             continue
