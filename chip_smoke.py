@@ -10,30 +10,36 @@ non-zero at once:
    every hand-written kernel from ``clip_ppo_tpu_torch/csrc/`` with each
    kernel's registers and spills; the tensor-core instructions (HMMA,
    HGMMA) of each kernel in the libraries that run on the tensor cores
-   (``TENSOR_CORE_LIBS``: K4/K8, K2, K5, K6, K7), which must hold some and
-   spill nothing;
+   (``TENSOR_CORE_LIBS``: K4/K8, K2, K3, K5, K6, K7), which must hold some
+   and spill nothing;
 2. kernels — each kernel against its plain PyTorch version on the card, at
-   the shapes the main paths give it (``BLOCK_CASES``: K2, K3 and K5 with
-   random LayerNorm affines and biases; K2 at the text, the vision and
-   ViT-L/14's text tower's shapes, at ViT-B/16's T = 197 and at K6's
-   [256, 257, 1024]; K5 also at ViT-L/14's two widths and at a
-   ragged row count; K2 and K5 at widths whose products end in a partial
-   column tile; K4 at ViT-L/14's vision tower, at ViT-B/32's towers and at a
-   ragged batch, and once with inputs x 4; K8 fed strided views of one qkv
-   buffer), with its median time per call (CUDA events; K1, K4 and K8 over
-   back-to-back calls; K1, K2, K4, K5 and K8 beside their profiled device
-   time, the resblock halves beside the SM clock and power draw sampled
-   while they were timed), the plain
+   the shapes the main paths give it: K1 at every severity, at the shapes
+   of ``K1_CASES`` (a ragged band, one channel, bands thinner than the
+   halo, clusters of 8) and in the main path's mode, noise drawn in the
+   kernel, against the plain version fed the kernel's own normals; timed
+   with clusters of 16 and of 8 CTAs beside an empty kernel on the same
+   grid, and its device time with fewer CTAs, without drawing the noise
+   and at other tap counts. ``BLOCK_CASES``: K2, K3 and K5 with random
+   LayerNorm affines and biases; K2 at the text, the vision and ViT-L/14's
+   text tower's shapes, at ViT-B/16's T = 197 and at K6's [256, 257, 1024];
+   K5 also at ViT-L/14's two widths and at a ragged row count; K3 at a
+   ragged row count; K2, K3 and K5 at widths whose products end in a
+   partial column tile. K4 at ViT-L/14's vision tower, at ViT-B/32's towers
+   and at a ragged batch, and once with inputs x 4; K8 fed strided views of
+   one qkv buffer. Each with its median time per call (CUDA events; K1, K4
+   and K8 over back-to-back calls; K1, K2, K4, K5 and K8 beside their
+   profiled device time, the resblock halves split by kernel and beside the
+   SM clock and power draw sampled while they were timed), the plain
    version's time, the least time the card could take (for the tensor-core
    kernels, 3xTF32 work at the TF32 peak, the fp32 CUDA-core bound beside)
    and, for K4 and K8, the time of ``scaled_dot_product_attention`` on the
    same q/k/v; then K6 and K7 at ViT-L/14's shapes, at ragged ones and at
    widths whose products end in a partial column tile (``STREAM_CASES``),
    K6 timed beside K2 and beside the route it replaces, K7 beside K5 on the
-   same inputs, and both refusing a width their kernels do not take. Every
-   resblock-half case prints the device memory its wrapper allocates
-   besides the output (scratch), and K7's must not exceed one [B*T, D]
-   chunk of the hidden plus the row statistics;
+   same inputs, and K6, K7 and K3 refusing a width their kernels do not
+   take. Every resblock-half case prints the device memory its wrapper
+   allocates besides the output (scratch), and K7's must not exceed one
+   [B*T, D] chunk of the hidden plus the row statistics;
 3. text slice — the CLIP-PPO MiniGrid CLI (text modality, HARD
    disturbances) for two iterations, with every launch count read from the
    run;
@@ -71,6 +77,7 @@ for both matmuls and cuDNN, so every plain version computes in full fp32.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import re
@@ -176,12 +183,11 @@ def card_clocks(out: dict):
                    power_w=max(w for _, w in samples), samples=len(samples))
 
 
-def device_ms(fn, calls: int = 20, kernel: str = "") -> float | None:
-    """Device milliseconds per call of ``fn``: the kernels whose names hold
-    ``kernel`` (every kernel by default), summed from a torch.profiler trace
-    of ``calls`` back-to-back calls (None when the trace holds none). Unlike
-    CUDA events around host calls, it leaves out the host's launch
-    overhead."""
+def device_split(fn, calls: int = 20, kernel: str = "") -> dict:
+    """Device milliseconds per call of ``fn`` by kernel name, for the
+    kernels whose names hold ``kernel`` (every kernel by default), from a
+    torch.profiler trace of ``calls`` back-to-back calls. Unlike CUDA events
+    around host calls, it leaves out the host's launch overhead."""
     import torch
 
     fn()
@@ -190,9 +196,14 @@ def device_ms(fn, calls: int = 20, kernel: str = "") -> float | None:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    events = [e for e in _kernel_events(prof) if kernel in e.key]
-    total = sum(e.self_device_time_total for e in events)
-    return total / 1e3 / calls if total else None
+    return {e.key.removeprefix("void ").split("(")[0]: e.self_device_time_total / 1e3 / calls
+            for e in _kernel_events(prof) if kernel in e.key}
+
+
+def device_ms(fn, calls: int = 20, kernel: str = "") -> float | None:
+    """The sum of :func:`device_split` (None when the trace holds none)."""
+    total = sum(device_split(fn, calls, kernel).values())
+    return total if total else None
 
 
 def _fmt_ms(ms: float | None) -> str:
@@ -253,7 +264,8 @@ def phase_card() -> dict:
 # The libraries whose kernels run their products on the tensor cores in
 # 3xTF32: their SASS must hold tensor-core instructions, ptxas must spill
 # nothing in them, and their bounds count three TF32 passes a product.
-TENSOR_CORE_LIBS = ("fused_qkv", "attn_block", "mlp_stream", "attn_stream", "mlp_chunked")
+TENSOR_CORE_LIBS = ("fused_qkv", "attn_block", "mlp_block", "mlp_stream", "attn_stream",
+                    "mlp_chunked")
 
 
 def _kernel_name(line: str) -> str:
@@ -286,6 +298,16 @@ def _errors(got, ref) -> tuple[float, float]:
     return err, err / max(ref.abs().max().item(), 1e-30)
 
 
+# K1 at shapes its bands must get right, noise as input: (shape, severity,
+# CTAs an image)
+K1_CASES = [
+    ((3, 85, 83, 3), "HARD", 16),  # ragged: bands of 6, the 15th of 1, the 16th empty
+    ((4, 84, 84, 1), "HARD", 16),  # one channel: the channel mean
+    ((2, 9, 13, 3), "SEVERE", 16),  # bands of 1 row, thinner than the 3-row halo
+    ((8, 84, 84, 3), "SEVERE", 8),  # the portable cluster size: bands of 11
+]
+
+
 def phase_kernels(card: dict) -> list[dict]:
     import torch
 
@@ -300,19 +322,33 @@ def phase_kernels(card: dict) -> list[dict]:
     torch.backends.cudnn.allow_tf32 = False
     results = []
 
-    # -- K1 at the rollout's [8, 84, 84, 3], every severity, noise as input --
+    # -- K1 at the rollout's [8, 84, 84, 3], every severity, and at the shapes
+    # of K1_CASES, noise as input --
     x = torch.rand((8, 84, 84, 3), generator=gen, device=dev)
     worst, worst_rel = 0.0, 0.0
+
+    def k1_check(label, xc, params, d, ctas=dk.CLUSTER_CTAS):
+        nonlocal worst, worst_rel
+        err, rel = _errors(dk.disturb_batched(xc, params, d, ctas=ctas),
+                           dk.disturb_batched_plain(xc, params, d))
+        print(f"[kernels] K1 {label}: ksize {params.blur_kernel_size}, {ctas} CTAs an image, "
+              f"max_abs_err {err:.3e} max_rel_err {rel:.3e} (tolerance 1e-5 absolute on [0, 1] "
+              f"values)")
+        if not err <= 1e-5:
+            fail(f"K1 {label} disagrees with its plain version: {err} > 1e-5")
+        worst, worst_rel = max(worst, err), max(worst_rel, rel)
+
+    def noise_in(xc, params):
+        d = draw(xc, params, gen)
+        return DisturbanceDraws(torch.randn(xc.shape, generator=gen, device=dev), d.factor, d.origin)
+
     for sev in ("MILD", "MODERATE", "HARD", "SEVERE"):
         params = SEVERITY_CONFIGS[DisturbanceSeverity[sev]]
-        d = draw(x, params, gen)
-        d = DisturbanceDraws(torch.randn(x.shape, generator=gen, device=dev), d.factor, d.origin)
-        err, rel = _errors(dk.disturb_batched(x, params, d), dk.disturb_batched_plain(x, params, d))
-        print(f"[kernels] K1 {sev}: ksize {params.blur_kernel_size} max_abs_err {err:.3e} "
-              f"max_rel_err {rel:.3e} (tolerance 1e-5 absolute on [0, 1] values)")
-        if not err <= 1e-5:
-            fail(f"K1 {sev} disagrees with its plain version: {err} > 1e-5")
-        worst, worst_rel = max(worst, err), max(worst_rel, rel)
+        k1_check(f"{sev} [8,84,84,3]", x, params, noise_in(x, params))
+    for shape, sev, ctas in K1_CASES:
+        params = SEVERITY_CONFIGS[DisturbanceSeverity[sev]]
+        xc = torch.rand(shape, generator=gen, device=dev)
+        k1_check(f"{sev} [{','.join(map(str, shape))}]", xc, params, noise_in(xc, params), ctas)
     z = dk.kernel_normals(1 << 22, 12345, 0, dev)
     z1 = dk.kernel_normals(1 << 16, 12345, 1, dev)
     mean, std = z.mean().item(), z.std().item()
@@ -322,23 +358,67 @@ def phase_kernels(card: dict) -> list[dict]:
              "its streams do not differ per image")
     params = SEVERITY_CONFIGS[DisturbanceSeverity.HARD]
     d_seed = draw(x, params, gen)  # the main path's mode: noise drawn in the kernel
-    d_in = DisturbanceDraws(torch.randn(x.shape, generator=gen, device=dev), d_seed.factor, d_seed.origin)
-    k1 = lambda: dk.disturb_batched(x, params, d_seed)  # noqa: E731
-    ms = time_ms(k1, reps=20, calls=50)
-    plain_ms = time_ms(lambda: dk.disturb_batched_plain(x, params, d_in), reps=20, calls=50)
-    k1_device_ms = device_ms(k1, calls=50, kernel="disturb_kernel")  # one launch a call
+    # The plain version fed the kernel's own normals: image i's stream under
+    # the call's seed, indexed by the NHWC element as the kernel indexes it.
+    seed = int(d_seed.seed.item())
+    own = torch.stack([dk.kernel_normals(x[0].numel(), seed, i, dev).view(x.shape[1:])
+                       for i in range(x.shape[0])])
+    d_own = DisturbanceDraws(own, d_seed.factor, d_seed.origin)
+    for ctas in (dk.CLUSTER_CTAS, 8):
+        err, rel = _errors(dk.disturb_batched(x, params, d_seed, ctas=ctas),
+                           dk.disturb_batched_plain(x, params, d_own))
+        print(f"[kernels] K1 HARD [8,84,84,3], noise drawn in the kernel (seed {seed}), {ctas} "
+              f"CTAs an image, against the plain version fed the kernel's own normals: "
+              f"max_abs_err {err:.3e} max_rel_err {rel:.3e} (tolerance 1e-5)")
+        if not err <= 1e-5:
+            fail(f"K1 with in-kernel noise disagrees with its plain version: {err} > 1e-5")
+        worst, worst_rel = max(worst, err), max(worst_rel, rel)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    timed = {}
+    for ctas in (dk.CLUSTER_CTAS, 8):  # the main path's mode, and the portable cluster
+        k1 = lambda: dk.disturb_batched(x, params, d_seed, ctas=ctas)  # noqa: E731
+        empty = lambda: dk.empty_launch(x.shape[0], dev, ctas=ctas)  # noqa: E731
+        timed[ctas] = (time_ms(k1, reps=20, calls=50),
+                       device_ms(k1, calls=50, kernel="disturb_kernel"),  # one launch a call
+                       time_ms(empty, reps=20, calls=50),
+                       device_ms(empty, calls=50, kernel="empty_kernel"))
+    ms, k1_device_ms, empty_ms, empty_device_ms = timed[dk.CLUSTER_CTAS]
+    # Where K1's device time goes: fewer CTAs an image, the noise read from
+    # memory instead of drawn, no noise at all, and the blur's taps
+    # (SEVERE's 7 against MILD's 3).
+    no_noise = dataclasses.replace(params, gaussian_noise_sigma=0.0)
+    parts = [(f"{c} CTAs an image", lambda c=c: dk.disturb_batched(x, params, d_seed, ctas=c))
+             for c in (1, 2, 4)]
+    parts += [
+        ("noise read from memory", lambda: dk.disturb_batched(x, params, d_own)),
+        ("no noise (sigma 0)", lambda: dk.disturb_batched(x, no_noise, d_seed)),
+        ("MILD, 3 taps", lambda: dk.disturb_batched(
+            x, SEVERITY_CONFIGS[DisturbanceSeverity.MILD], d_seed)),
+        ("SEVERE, 7 taps", lambda: dk.disturb_batched(
+            x, SEVERITY_CONFIGS[DisturbanceSeverity.SEVERE], d_seed)),
+    ]
+    print("[kernels] K1 [8,84,84,3] torch.profiler device time per launch, HARD with the noise "
+          f"drawn in the kernel and 16 CTAs an image unless said: {_fmt_ms(k1_device_ms)}; "
+          + "; ".join(f"{label} {_fmt_ms(device_ms(call, calls=50, kernel='disturb_kernel'))}"
+                      for label, call in parts))
+    plain_ms = time_ms(lambda: dk.disturb_batched_plain(x, params, d_own), reps=20, calls=50)
     elems = x.numel()
     bound_ms, bound_by = _bound(2 * elems * 4, elems * (4 * params.blur_kernel_size + 7), card)
-    print(f"[kernels] K1 HARD [8,84,84,3]: {ms:.4f} ms per call over 50 back-to-back calls "
-          f"(torch.profiler device time {_fmt_ms(k1_device_ms)} per launch; grid of {x.shape[0]} "
-          f"blocks on {torch.cuda.get_device_properties(dev).multi_processor_count} SMs), "
-          f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+    for ctas, (t, t_dev, t_empty, t_empty_dev) in timed.items():
+        print(f"[kernels] K1 HARD [8,84,84,3], {x.shape[0]} clusters x {ctas} CTAs = "
+              f"{x.shape[0] * ctas} CTAs on {n_sm} SMs (bands of "
+              f"{-(-x.shape[1] // ctas)} rows): {t:.4f} ms per call over 50 back-to-back calls "
+              f"(torch.profiler device time {_fmt_ms(t_dev)} per launch); an empty kernel on the "
+              f"same grid and clusters {t_empty:.4f} ms (device {_fmt_ms(t_empty_dev)}); plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
     results.append({
         "name": "disturb", "route": "cuda", "source": "clip_ppo_tpu_torch/csrc/disturb.cu",
         "replaces": "clip_ppo_tpu/ops/pallas_disturb.py:76", "shape": "[8,84,84,3]",
         "path": "text", "max_abs_err": worst,
         "max_rel_err": worst_rel, "tolerance": 1e-5, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None,
+        "library_ms": None, "device_ms": k1_device_ms, "ctas": dk.CLUSTER_CTAS,
+        "empty_ms": empty_ms, "empty_device_ms": empty_device_ms,
+        "ms_8_ctas": timed[8][0], "device_ms_8_ctas": timed[8][1],
     })
 
     # -- K2, K3 and K5 at the shapes of BLOCK_CASES ---------------------
@@ -392,6 +472,8 @@ BLOCK_CASES = [  # (kernel, B, T, D, causal, path, timed); rows of no path stay 
     ("attn_block", 1024, 77, 768, True, "benchmark", True),  # ViT-L/14 text
     ("mlp_stream", 256, 257, 1024, False, "benchmark", True),  # ViT-L/14 vision
     ("mlp_stream", 1024, 77, 768, False, "benchmark", True),  # ViT-L/14 text
+    ("mlp_block", 7, 77, 512, False, None, False),  # ragged row count
+    ("mlp_block", 5, 77, 544, False, None, False),  # proj N = 544: a partial column tile
     ("mlp_stream", 7, 50, 768, False, None, False),  # ragged row count
     ("mlp_stream", 7, 50, 672, False, None, False),  # proj N = 672: a partial column tile
     ("attn_block", 64, 197, 768, False, None, False),  # ViT-B/16's length
@@ -513,8 +595,10 @@ def run_block_cases(cases, card: dict, gen, dev) -> list[dict]:
                 row["bound_fp32_ms"] = bound_ms
                 fp32 = f"; fp32 CUDA-core bound {bound_ms:.3f} ms"
                 bound_ms, bound_by = _bound_tf32x3(nbytes, nflops, card)
-                row["device_ms"] = device_ms(lambda: fn(xb, p), calls=10)
-                dev_note = f" (torch.profiler device time {_fmt_ms(row['device_ms'])} per call)"
+                split = device_split(lambda: fn(xb, p), calls=10)
+                row["device_ms"] = sum(split.values()) or None
+                dev_note = (f" (torch.profiler device time {_fmt_ms(row['device_ms'])} per call: "
+                            + ", ".join(f"{k} {v:.3f}" for k, v in split.items()) + ")")
             row["bound_ms"], row["bound_by"] = bound_ms, bound_by
             row["beside_ms"] = {label: time_ms(lambda: other_fn(xb, p), reps=10)
                                 for label, other_fn in beside or []}
@@ -564,7 +648,8 @@ def phase_stream_kernels(card: dict) -> list[dict]:
     # the heads) is refused by name, not run.
     x, blk = torch.zeros((2, 3, 200), device=dev), random_block(gen, 200, dev)
     for name, call in (("attn_stream", lambda: bk.attn_stream(x, blk["ln_1"], blk["attn"], 3)),
-                       ("mlp_chunked", lambda: bk.mlp_chunked(x, blk["ln_2"], blk["mlp"]))):
+                       ("mlp_chunked", lambda: bk.mlp_chunked(x, blk["ln_2"], blk["mlp"])),
+                       ("mlp_block", lambda: bk.mlp_block_resident(x, blk["ln_2"], blk["mlp"]))):
         try:
             call()
         except ValueError as e:
@@ -1056,7 +1141,8 @@ def main() -> None:
     order = ("name", "route", "source", "replaces", "shape", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(f"[done] every phase passed in {time.time() - t_start:.1f} s")
-    extra = ("bound_fp32_ms", "device_ms", "library_device_ms")
+    extra = ("bound_fp32_ms", "device_ms", "library_device_ms", "ctas", "empty_ms",
+             "empty_device_ms", "ms_8_ctas", "device_ms_8_ctas")
     print(json.dumps({"kernels": [{k: r[k] for k in (*order, *extra) if k in r}
                                   for r in results if r["path"]]}))
     print(card["smi"])

@@ -27,21 +27,12 @@
 // they bound the scratch: K5 (csrc/mlp_stream.cu) computes the same
 // function with the whole [B*T, 4D] hidden in device memory between its two
 // GEMMs; K7 holds one chunk's [B*T, 4D / chunks] at a time. The chunk axis
-// becomes a loop of launches on one stream, on the shared GEMM
-// (gemm_tf32x3.cuh):
-//   1. ln_stats (ln_stats.cuh): the mean and 1/std of every row of x.
-//   2. For c = 0, 1, ... in order, ck = 4D / chunks:
-//      - h[B*T, ck] = QuickGELU(LN2(x) @ fc_w[c ck : (c + 1) ck, :]^T
-//        + fc_b[c ck :]): the GEMM with LN2 on load, W the chunk's rows of
-//        fc_w (contiguous). LN2(x) never reaches device memory.
-//      - out (+)= h @ proj_w[:, c ck : (c + 1) ck]^T: W the chunk's columns
-//        of proj_w, rows 4D floats apart, a reduction ck deep. Chunk 0 adds
-//        proj_b and the residual x and writes out; each later chunk adds its
-//        product to out in place (the GEMM's kAccumulate epilogue).
-//   Stream order is the TPU grid's sequential chunk axis: chunk c + 1's fc
-//   overwrites h only after chunk c's proj has read it, and out's sum is
-//   taken in the fixed order 0, 1, ...: the same result from run to run,
-//   with no atomics and no partial sums.
+// becomes mlp_half.cuh's loop of launches on one stream, on the shared GEMM
+// (gemm_tf32x3.cuh): per chunk, the fc GEMM with LN2 on load over the
+// chunk's rows of fc_w, then the proj GEMM over the chunk's columns of
+// proj_w (a reduction ck deep), chunk 0 with proj_b and the residual, each
+// later chunk adding its product to out in place. Stream order is the TPU
+// grid's sequential chunk axis, and fixes the order of out's sum.
 //
 // Chunk count: the wrapper passes 4 (ck = D: 1,024 hidden units at
 // ViT-L/14's vision tower, 768 at its text tower), so the hidden scratch is
@@ -60,8 +51,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "gemm_tf32x3.cuh"
-#include "ln_stats.cuh"
+#include "mlp_half.cuh"
 
 extern "C" {
 
@@ -72,33 +62,8 @@ int mlp_chunked_launch(const float* x, const float* ln_g, const float* ln_b,
                        const float* w_fc, const float* b_fc, const float* w_proj,
                        const float* b_proj, float* stats, float* h, float* out, int M, int D,
                        int D4, int n_chunks, float eps, void* stream) {
-  using gemm_tf32x3::Params;
-  if (M < 1 || D < 32 || D % 32 != 0 || n_chunks < 1 || D4 < 32 * n_chunks ||
-      D4 % (32 * n_chunks) != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float2* st2 = reinterpret_cast<float2*>(stats);
-  const int ck = D4 / n_chunks;
-
-  int err = ln_stats::launch(x, st2, M, D, eps, st);
-  if (err != cudaSuccess) return err;
-
-  for (int c = 0; c < n_chunks; ++c) {
-    const size_t u0 = static_cast<size_t>(c) * ck;  // the chunk's first hidden unit
-    const Params fc{x, st2, ln_g, ln_b, w_fc + u0 * D, b_fc + u0, nullptr, h, M, ck, D};
-    err = gemm_tf32x3::launch<true, gemm_tf32x3::kBiasQuickGelu>(fc, st);
-    if (err != cudaSuccess) return err;
-    if (c == 0) {
-      const Params proj{h, nullptr, nullptr, nullptr, w_proj, b_proj, x, out, M, D, ck, D4};
-      err = gemm_tf32x3::launch<false, gemm_tf32x3::kBiasResidual>(proj, st);
-    } else {
-      const Params proj{h, nullptr, nullptr, nullptr, w_proj + u0, nullptr, out, out, M, D, ck,
-                        D4};
-      err = gemm_tf32x3::launch<false, gemm_tf32x3::kAccumulate>(proj, st);
-    }
-    if (err != cudaSuccess) return err;
-  }
-  return cudaSuccess;
+  return mlp_half::launch(x, ln_g, ln_b, w_fc, b_fc, w_proj, b_proj, stats, h, out, M, D, D4,
+                          n_chunks, eps, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -17,12 +17,10 @@
 // ms; against 2 x 269 MB of x read and out written plus 33.6 MB of weights
 // (0.17 ms at 3.35 TB/s) at ViT-L/14.
 //
-// Design: three launches on the shared tensor-core GEMM (gemm_tf32x3.cuh):
-//   1. ln_stats (ln_stats.cuh): the mean and 1/std of every row of x.
-//   2. GEMM with LN2 on load and QuickGELU in the epilogue:
-//      h[B*T, 4D] = QuickGELU(LN2(x) @ fc_w^T + fc_b). LN2(x) never reaches
-//      device memory.
-//   3. GEMM with the residual: out = x + (h @ proj_w^T + proj_b).
+// Design: mlp_half.cuh's launches with one chunk: ln_stats, the fc GEMM
+// with LN2 on load and QuickGELU in the epilogue, h[B*T, 4D] =
+// QuickGELU(LN2(x) @ fc_w^T + fc_b), then the proj GEMM with the residual,
+// out = x + (h @ proj_w^T + proj_b). LN2(x) never reaches device memory.
 // The hidden h round-trips device memory. The TPU kernel keeps it in VMEM,
 // and the first CUDA K5 kept it on the SM: one block owned 32 rows for the
 // whole launch, with their [32, D] output sum in registers, and streamed all
@@ -42,8 +40,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "gemm_tf32x3.cuh"
-#include "ln_stats.cuh"
+#include "mlp_half.cuh"
 
 extern "C" {
 
@@ -54,20 +51,8 @@ int mlp_stream_launch(const float* x, const float* ln_g, const float* ln_b,
                       const float* w_fc, const float* b_fc, const float* w_proj,
                       const float* b_proj, float* stats, float* h, float* out, int M, int D,
                       int D4, float eps, void* stream) {
-  if (M < 1 || D < 32 || D % 32 != 0 || D4 < 32 || D4 % 32 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float2* st2 = reinterpret_cast<float2*>(stats);
-
-  int err = ln_stats::launch(x, st2, M, D, eps, st);
-  if (err != cudaSuccess) return err;
-
-  gemm_tf32x3::Params g{x, st2, ln_g, ln_b, w_fc, b_fc, nullptr, h, M, D4, D};
-  err = gemm_tf32x3::launch<true, gemm_tf32x3::kBiasQuickGelu>(g, st);
-  if (err != cudaSuccess) return err;
-
-  g = gemm_tf32x3::Params{h, nullptr, nullptr, nullptr, w_proj, b_proj, x, out, M, D, D4};
-  return gemm_tf32x3::launch<false, gemm_tf32x3::kBiasResidual>(g, st);
+  return mlp_half::launch(x, ln_g, ln_b, w_fc, b_fc, w_proj, b_proj, stats, h, out, M, D, D4, 1,
+                          eps, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

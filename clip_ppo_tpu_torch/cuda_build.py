@@ -107,10 +107,11 @@ def _declare(libs: dict[str, ctypes.CDLL]) -> None:
     p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     u32 = ctypes.c_uint32
     sig = {
-        ("disturb", "disturb_launch"): [p, p, p, p, p, p, i, i, i, i, f, i, i, i, p],
+        ("disturb", "disturb_launch"): [*[p] * 7, i, i, i, i, f, i, i, i, i, p],
+        ("disturb", "disturb_empty_launch"): [i, i, p],
         ("disturb", "philox_normal_launch"): [p, u32, u32, i, p],
         ("attn_block", "attn_block_launch"): [*[p] * 11, i, i, i, i, i, f, p],
-        ("mlp_block", "mlp_block_launch"): [p, p, p, p, p, p, p, p, i, i, i, f, p],
+        ("mlp_block", "mlp_block_launch"): [*[p] * 10, i, i, i, f, p],
         ("mlp_stream", "mlp_stream_launch"): [*[p] * 10, i, i, i, f, p],
         ("fused_qkv", "fused_qkv_launch"): [p, p, i, i, i, i, p],
         ("fused_qkv", "packed_attention_launch"): [p, p, p, p, i, i, i, *[ll] * 9, p],

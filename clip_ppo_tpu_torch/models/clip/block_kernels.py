@@ -24,21 +24,23 @@ hand-written CUDA kernels, and their plain PyTorch versions.
   switches at call time: where both weight matrices fit the TPU kernel's
   12 MiB budget (:func:`uses_mlp_stream` false: the text tower's D = 512 in
   fp32) it runs :func:`mlp_block_resident`, K3, replacing
-  ``_mlp_block_kernel`` (``csrc/mlp_block.cu``, D = 512). Otherwise (the
-  vision tower's D = 768 in fp32, ViT-L/14's D = 1024 and 768):
+  ``_mlp_block_kernel`` (``csrc/mlp_block.cu``). Otherwise (the vision
+  tower's D = 768 in fp32, ViT-L/14's D = 1024 and 768):
   ``CLIP_PPO_MLP_CHUNKED=1`` runs :func:`mlp_chunked`, K7, replacing
   ``_mlp_block_chunked_kernel`` (``csrc/mlp_chunked.cu``: the hidden
   dimension cut into :data:`MLP_CHUNKS` chunks, each chunk's product added
   to the output in chunk order); else ``CLIP_PPO_MLP_STREAM`` other than "1"
   runs the plain version, as ``_mlp_block_ref``; else :func:`mlp_stream`,
-  K5, replacing ``_mlp_stream_kernel`` (``csrc/mlp_stream.cu``). K5 and K7
-  run their products on the tensor cores in 3xTF32 on the GEMM they share
-  with K2 and K6 (``csrc/gemm_tf32x3.cuh``). K5 takes D and 4D multiples of
-  32, K7 D a multiple of 32 and 4D a multiple of 32 × MLP_CHUNKS. K3 keeps
-  the [B, T, 4D] hidden out of device memory; K5 writes it once and reads it
-  once, as scratch between its two products (``csrc/mlp_stream.cu`` says
-  why); K7 does the same with one chunk's [B, T, 4D / MLP_CHUNKS] at a
-  time.
+  K5, replacing ``_mlp_stream_kernel`` (``csrc/mlp_stream.cu``). K3, K5 and
+  K7 share one sequence of launches (``csrc/mlp_half.cuh``): LN statistics,
+  the fc GEMM with LN2 applied as x loads and QuickGELU, the proj GEMM with
+  the residual, both products on the tensor cores in 3xTF32 on the GEMM
+  they share with K2 and K6 (``csrc/gemm_tf32x3.cuh``). K3 and K5 run it
+  with the whole [B, T, 4D] hidden as scratch between the two products
+  (``csrc/mlp_block.cu`` says why K3 no longer keeps it on chip), K7 once
+  per chunk with one chunk's [B, T, 4D / MLP_CHUNKS]. K3 and K5 take D and
+  4D multiples of 32, K7 D a multiple of 32 and 4D a multiple of 32 ×
+  MLP_CHUNKS.
 
 Each wrapper launches its kernel for a CUDA tensor, runs its plain version
 (which mirrors ``_attn_block_ref`` / ``_mlp_block_ref``) for a CPU tensor,
@@ -220,27 +222,12 @@ def mlp_block(x: torch.Tensor, ln2: dict, mlp: dict, eps: float = 1e-5) -> torch
 
 
 def mlp_block_resident(x: torch.Tensor, ln2: dict, mlp: dict, eps: float = 1e-5) -> torch.Tensor:
-    """K3: :func:`mlp_block` with the weights read whole by every block
-    (D = 512)."""
+    """K3: :func:`mlp_block` where the weights fit the TPU kernel's budget,
+    as two tensor-core GEMMs with the [B, T, 4D] hidden as scratch between
+    them (D and 4D multiples of 32)."""
     if x.device.type == "cpu":
         return mlp_block_plain(x, ln2, mlp, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"mlp_block: unsupported device {x.device}")
-    b, t, _ = x.shape
-    d, d4 = _check_mlp_shapes(x, ln2, mlp, "mlp_block")
-    if d != 512 or d4 % 64 != 0:
-        raise ValueError(f"mlp_block: the kernel takes D = 512 and 4D % 64 == 0, got {d}, {d4}")
-    out = torch.empty_like(x)
-    cuda_build.launch(
-        "mlp_block", "mlp_block_launch",
-        x.data_ptr(), ln2["scale"].data_ptr(), ln2["bias"].data_ptr(),
-        mlp["fc_w"].data_ptr(), mlp["fc_b"].data_ptr(),
-        mlp["proj_w"].data_ptr(), mlp["proj_b"].data_ptr(),
-        out.data_ptr(), b * t, d, d4, float(eps),
-        cuda_build.stream_handle(x.device),
-    )
-    cuda_build.LAUNCHES["mlp_block"] += 1
-    return out
+    return _mlp_half("mlp_block", x, ln2, mlp, eps)
 
 
 def mlp_stream(x: torch.Tensor, ln2: dict, mlp: dict, eps: float = 1e-5) -> torch.Tensor:
@@ -248,27 +235,39 @@ def mlp_stream(x: torch.Tensor, ln2: dict, mlp: dict, eps: float = 1e-5) -> torc
     hidden as scratch between them (D and 4D multiples of 32)."""
     if x.device.type == "cpu":
         return mlp_stream_plain(x, ln2, mlp, eps)
+    return _mlp_half("mlp_stream", x, ln2, mlp, eps)
+
+
+def _mlp_half(name: str, x: torch.Tensor, ln2: dict, mlp: dict, eps: float,
+              chunks: int = 1) -> torch.Tensor:
+    """K3, K5 or K7 (``name``) on a device tensor: the launches of
+    ``csrc/mlp_half.cuh`` through the kernel's own entry point, the hidden
+    dimension in ``chunks`` chunks, one chunk's [B*T, 4D / chunks] hidden as
+    scratch (D a multiple of 32, 4D a multiple of 32 x chunks)."""
     if x.device.type != "cuda":
-        raise ValueError(f"mlp_stream: unsupported device {x.device}")
+        raise ValueError(f"{name}: unsupported device {x.device}")
     b, t, _ = x.shape
-    d, d4 = _check_mlp_shapes(x, ln2, mlp, "mlp_stream")
+    d, d4 = _check_mlp_shapes(x, ln2, mlp, name)
     m = b * t
-    if d < 32 or d % 32 != 0 or d4 < 32 or d4 % 32 != 0 or not 1 <= m <= _INT_MAX:
-        raise ValueError(f"mlp_stream: the kernel takes D and 4D multiples of 32 and "
-                         f"1 <= B*T <= {_INT_MAX}, got D={d}, 4D={d4}, B*T={m}")
-    _check_aligned("mlp_stream", x, ln2["scale"], ln2["bias"], *mlp.values())
+    if (d < 32 or d % 32 != 0 or d4 < 32 * chunks or d4 % (32 * chunks) != 0
+            or not 1 <= m <= _INT_MAX):
+        raise ValueError(f"{name}: the kernel takes D a multiple of 32, 4D a multiple of "
+                         f"{32 * chunks} and 1 <= B*T <= {_INT_MAX}, got D={d}, 4D={d4}, "
+                         f"B*T={m}")
+    _check_aligned(name, x, ln2["scale"], ln2["bias"], *mlp.values())
     stats = torch.empty((m, 2), dtype=x.dtype, device=x.device)  # LN2 mean, 1/std
-    hidden = torch.empty((m, d4), dtype=x.dtype, device=x.device)
+    hidden = torch.empty((m, d4 // chunks), dtype=x.dtype, device=x.device)  # a chunk
     out = torch.empty_like(x)
     cuda_build.launch(
-        "mlp_stream", "mlp_stream_launch",
+        name, f"{name}_launch",
         x.data_ptr(), ln2["scale"].data_ptr(), ln2["bias"].data_ptr(),
         mlp["fc_w"].data_ptr(), mlp["fc_b"].data_ptr(),
         mlp["proj_w"].data_ptr(), mlp["proj_b"].data_ptr(),
-        stats.data_ptr(), hidden.data_ptr(), out.data_ptr(), m, d, d4, float(eps),
+        stats.data_ptr(), hidden.data_ptr(), out.data_ptr(), m, d, d4,
+        *([chunks] if name == "mlp_chunked" else []), float(eps),
         cuda_build.stream_handle(x.device),
     )
-    cuda_build.LAUNCHES["mlp_stream"] += 1
+    cuda_build.LAUNCHES[name] += 1
     return out
 
 
@@ -288,27 +287,4 @@ def mlp_chunked(x: torch.Tensor, ln2: dict, mlp: dict, eps: float = 1e-5) -> tor
     MLP_CHUNKS)."""
     if x.device.type == "cpu":
         return mlp_chunked_plain(x, ln2, mlp, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"mlp_chunked: unsupported device {x.device}")
-    b, t, _ = x.shape
-    d, d4 = _check_mlp_shapes(x, ln2, mlp, "mlp_chunked")
-    m = b * t
-    if (d < 32 or d % 32 != 0 or d4 < 32 * MLP_CHUNKS or d4 % (32 * MLP_CHUNKS) != 0
-            or not 1 <= m <= _INT_MAX):
-        raise ValueError(f"mlp_chunked: the kernel takes D a multiple of 32, 4D a multiple of "
-                         f"{32 * MLP_CHUNKS} and 1 <= B*T <= {_INT_MAX}, got D={d}, 4D={d4}, "
-                         f"B*T={m}")
-    _check_aligned("mlp_chunked", x, ln2["scale"], ln2["bias"], *mlp.values())
-    stats = torch.empty((m, 2), dtype=x.dtype, device=x.device)  # LN2 mean, 1/std
-    hidden = torch.empty((m, d4 // MLP_CHUNKS), dtype=x.dtype, device=x.device)  # a chunk
-    out = torch.empty_like(x)
-    cuda_build.launch(
-        "mlp_chunked", "mlp_chunked_launch",
-        x.data_ptr(), ln2["scale"].data_ptr(), ln2["bias"].data_ptr(),
-        mlp["fc_w"].data_ptr(), mlp["fc_b"].data_ptr(),
-        mlp["proj_w"].data_ptr(), mlp["proj_b"].data_ptr(),
-        stats.data_ptr(), hidden.data_ptr(), out.data_ptr(), m, d, d4, MLP_CHUNKS, float(eps),
-        cuda_build.stream_handle(x.device),
-    )
-    cuda_build.LAUNCHES["mlp_chunked"] += 1
-    return out
+    return _mlp_half("mlp_chunked", x, ln2, mlp, eps, MLP_CHUNKS)

@@ -62,7 +62,7 @@ def _xla_draws(key, x_shape, params):
                             torch.tensor([int(sh), int(sw)], dtype=torch.int32))
 
 
-@pytest.mark.parametrize("channels", [3, 4])
+@pytest.mark.parametrize("channels", [1, 3, 4])  # 1 and 4: the channel mean
 @pytest.mark.parametrize("severity", SEVERITIES)
 def test_plain_matches_pallas_interpret(severity, channels):
     params = SEVERITY_CONFIGS[DisturbanceSeverity[severity]]

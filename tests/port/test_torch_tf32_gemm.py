@@ -1,4 +1,4 @@
-"""The numerics of the tensor-core GEMM shared by K2, K5, K6 and K7
+"""The numerics of the tensor-core GEMM shared by K2, K3, K5, K6 and K7
 (``csrc/gemm_tf32x3.cuh``) on the CPU: both halves of a resblock computed
 with the kernels' arithmetic, held against the JAX package's references.
 
@@ -20,7 +20,9 @@ the residual; the attention runs the three-pass emulation of
 ``test_torch_tf32_split.py``.
 
 The MLP half runs at D = 1024, 4D = 4096 (ViT-L/14's vision tower: its
-second product sums 4,096 terms), once as K5 runs it and once as K7 does (4
+second product sums 4,096 terms) and at D = 512 (the ViT-B/32 text tower's,
+K3's width: 16 slices of 32 in the first product), as K3 and K5 run it
+(``csrc/mlp_half.cuh`` with one chunk), and at D = 1024 once as K7 does (4
 chunks of 1,024 hidden units, each chunk's second product added to the
 output in chunk order), the attention half at D = 768 (ViT-B/32's vision
 tower and ViT-L/14's text tower, causal), on a few rows drawn with numpy
@@ -152,9 +154,13 @@ def _hold(three, one, ref64, ref_jax, what):
                         f"{err1:.3e} <= {tol:.3e}; 3xTF32 erred by {err3:.3e}")
 
 
-@pytest.mark.parametrize("accumulate", ["nearest", "toward_zero"])
-def test_mlp_half_in_3xtf32_holds_the_fp32_tolerance_where_one_pass_does_not(accumulate):
-    d, d4, rows = 1024, 4096, 6  # ViT-L/14's vision tower
+# d: ViT-L/14's vision tower (K5; ids without the width, as before K3's
+# width was added) and the ViT-B/32 text tower (K3), 4D = 4 d.
+@pytest.mark.parametrize("d, accumulate", [
+    pytest.param(d, acc, id=acc if d == 1024 else f"{acc}-d{d}")
+    for d in (1024, 512) for acc in ("nearest", "toward_zero")])
+def test_mlp_half_in_3xtf32_holds_the_fp32_tolerance_where_one_pass_does_not(d, accumulate):
+    d4, rows = 4 * d, 6
     rng = np.random.RandomState(21)
     x = torch.as_tensor(rng.randn(1, rows, d).astype(np.float32))
     g, b = _affine(rng, d)

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Time the tensor-core kernels of two checkouts of the port in turns on one
-GPU: the attention kernels (K4 ``fused_qkv``, K8 ``packed_attention``) and
-the resblock halves on the shared GEMM (K2 ``attn_block``, K5
-``mlp_stream``, K6 ``attn_stream``, K7 ``mlp_chunked``).
+"""Time the hand-written kernels of two checkouts of the port in turns on
+one GPU: the attention kernels (K4 ``fused_qkv``, K8 ``packed_attention``),
+the resblock halves on the shared GEMM (K2 ``attn_block``, K3
+``mlp_block``, K5 ``mlp_stream``, K6 ``attn_stream``, K7 ``mlp_chunked``)
+and the disturbance (K1 ``disturb``).
 
-    python3 tools/kernel_ab.py OTHER_ROOT [--kernels all|attention|block]
+    python3 tools/kernel_ab.py OTHER_ROOT [--kernels all|attention|block|disturb]
 
 ``OTHER_ROOT`` is another checkout (for example an earlier commit unpacked
 with ``git archive``). The script runs OTHER, this checkout, this checkout,
@@ -15,10 +16,13 @@ does, after checking the kernel against its plain version with chip_smoke's
 tolerance: every timed case of ``ATTENTION_CASES``, the kernel and
 ``scaled_dot_product_attention`` by CUDA events around ``ATTENTION_CALLS``
 back-to-back calls (median of 10 runs) and the kernel's device time from a
-profiler trace; and every timed K2 and K5 case of ``BLOCK_CASES`` and K6 and
-K7 case of ``STREAM_CASES``, by CUDA events around one call (median of 10),
-on a resblock with random LayerNorm affines and biases. A shape the other
-checkout's wrapper refuses is recorded as refused. It prints one JSON line per run and case, the card's
+profiler trace; every timed K2, K3 and K5 case of ``BLOCK_CASES`` and K6
+and K7 case of ``STREAM_CASES``, by CUDA events around one call (median of
+10), on a resblock with random LayerNorm affines and biases; and K1 at HARD
+[8,84,84,3] with its noise drawn in the kernel, the rollout's mode, by CUDA
+events around 50 back-to-back calls (median of 20) and its device time per
+launch from a profiler trace of 50. A shape the other checkout's wrapper
+refuses is recorded as refused. It prints one JSON line per run and case, the card's
 name and power limit, and last a JSON summary with each case's two runs per
 checkout.
 """
@@ -32,7 +36,8 @@ import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent.parent
-BLOCK_KERNELS = ("attn_block", "mlp_stream", "attn_stream", "mlp_chunked")
+BLOCK_KERNELS = ("attn_block", "mlp_block", "mlp_stream", "attn_stream", "mlp_chunked")
+GROUPS = ("all", "attention", "block", "disturb")
 
 
 def _chip_smoke():
@@ -90,6 +95,25 @@ def _block(cs, root: str, gen, dev) -> None:
                           "ms": cs.time_ms(lambda: fn(x, p), reps=10)}), flush=True)
 
 
+def _disturb(cs, root: str, gen, dev) -> None:
+    """K1 at HARD [8,84,84,3] as the rollout calls it, the noise drawn in
+    the kernel from the call's seed."""
+    import torch
+
+    from clip_ppo_tpu_torch.ops import disturb_kernel as dk
+    from clip_ppo_tpu_torch.ops.disturbances import draw
+    from clip_ppo_tpu_torch.ops.severity import DisturbanceSeverity, SEVERITY_CONFIGS
+
+    params = SEVERITY_CONFIGS[DisturbanceSeverity.HARD]
+    x = torch.rand((8, 84, 84, 3), generator=gen, device=dev)
+    d = draw(x, params, gen)
+    k1 = lambda: dk.disturb_batched(x, params, d)  # noqa: E731
+    print(json.dumps({"root": root, "name": "disturb", "shape": "[8,84,84,3] HARD",
+                      "ms": cs.time_ms(k1, reps=20, calls=50),
+                      "device_ms": cs.device_ms(k1, calls=50, kernel="disturb_kernel")}),
+          flush=True)
+
+
 def run_one(root: str, kernels: str) -> None:
     """Time the chosen cases with the port imported from ``root``."""
     sys.path.insert(0, str(Path(root).resolve()))
@@ -111,6 +135,8 @@ def run_one(root: str, kernels: str) -> None:
             _attention(cs, root, gen)
         if kernels in ("all", "block"):
             _block(cs, root, gen, dev)
+        if kernels in ("all", "disturb"):
+            _disturb(cs, root, gen, dev)
 
 
 def main() -> None:
@@ -119,7 +145,7 @@ def main() -> None:
     if len(args) >= 2 and args[-2] == "--kernels":
         kernels = args[-1]
         args = args[:-2]
-    if kernels not in ("all", "attention", "block"):
+    if kernels not in GROUPS:
         sys.exit(__doc__)
     if len(args) == 2 and args[0] == "--one":
         run_one(args[1], kernels)
@@ -143,6 +169,8 @@ def main() -> None:
         side = "this" if r["root"] == str(HERE) else "other"
         s = summary.setdefault(key, {"this": [], "other": [], "library": []})
         s[side].append(r.get("ms", "refused"))
+        if "device_ms" in r:
+            s.setdefault(f"{side}_device", []).append(r["device_ms"])
         if "library_ms" in r:
             s["library"].append(r["library_ms"])
     print(json.dumps({"other": other, "this": str(HERE), "ms": summary}))
