@@ -52,7 +52,15 @@ non-zero at once:
    card against the plain versions on the CPU;
 6. image profile — one steady image-modality iteration by part, and the
    device's busy share and time by ported kernel;
-7. encoder benchmark — the port's ``cli/benchmark_clip.py`` at ViT-L/14 in
+7. vanilla — vanilla PPO (``cli/ppo_minigrid.py``): the view trunk against
+   the dense conv (features and gradients) and the per-image disturbance
+   against the CPU on the same draws, on the card; the per-image
+   disturbance's time per rollout step beside K1's batched call; the CLI
+   for two iterations in view mode and two under per-image HARD
+   disturbances, with no kernel launched (per-image never reaches K1), view
+   mode on and off as expected and finite losses; one steady iteration of
+   each by part, with the device's busy share;
+8. encoder benchmark — the port's ``cli/benchmark_clip.py`` at ViT-L/14 in
    float32 (K4 + K5 in the vision tower, K2 + K5 in the text tower), then at
    ViT-B/32 with ``--attention-impl pallas`` (K8 in the vision tower), with
    the launches of every call counted; then at ViT-L/14 under each of the
@@ -60,12 +68,12 @@ non-zero at once:
    ``CLIP_PPO_MLP_CHUNKED=1``: K7; both; ``CLIP_PPO_MLP_STREAM=0``: the
    plain MLP), one batch size and 2 iterations each, launches checked, and
    the image call's time under each beside the default route's;
-8. large tower — ViT-L/14's embeddings of two frames on the card, on the
+9. large tower — ViT-L/14's embeddings of two frames on the card, on the
    default route and under both switches, against the plain versions on the
    CPU, and where one batch-256 image call of each spends its device time,
    by kernel and by ported kernel.
 
-The paths of phases 3 to 7 before the switch runs run with every switch
+The paths of phases 3 to 8 before the switch runs run with every switch
 unset, and their launch checks hold K6 and K7 at 0.
 
 The last lines are the kernels' JSON summary, the card's name and power
@@ -869,7 +877,7 @@ def phase_profile(card: dict, modality: str) -> None:
     from clip_ppo_tpu_torch.models.agent import init_agent_params
     from clip_ppo_tpu_torch.ops.severity import DisturbanceSeverity, SEVERITY_CONFIGS
     from clip_ppo_tpu_torch.train.ppo import PPOConfig
-    from clip_ppo_tpu_torch.train.runner import Draws, Trainer
+    from clip_ppo_tpu_torch.train.runner import Trainer
 
     dev = torch.device("cuda", 0)
     env = TorchVectorEnv("MiniGrid-Empty-16x16-v0", 8, dev)
@@ -889,6 +897,21 @@ def phase_profile(card: dict, modality: str) -> None:
     gen = torch.Generator()
     gen.manual_seed(1)
     state = trainer.init_state(init_agent_params(gen, env.num_actions, dev), 1)
+    profile_iteration(trainer, state, f"[{modality} profile]",
+                      f"8x128, Empty-16x16, HARD, {modality} modality", card,
+                      "CLIP encode" if modality == "image" else "table gather")
+
+
+def profile_iteration(trainer, state, tag: str, what: str, card: dict,
+                      embed_part: str | None = None) -> dict:
+    """One steady iteration by part, host wall clock with a device
+    synchronize after each part, and the device's busy share from a
+    torch.profiler trace of the next iteration against the untraced wall.
+    Returns the parts in seconds, the total and the busy seconds."""
+    import torch
+
+    from clip_ppo_tpu_torch.train.runner import Draws
+
     state = trainer.iteration(state, 1)[0]  # warm-up
     torch.cuda.synchronize()
     parts = {}
@@ -900,19 +923,21 @@ def phase_profile(card: dict, modality: str) -> None:
     data = trainer._data2d(state, batch)
     torch.cuda.synchronize()
     parts["GAE"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    emb = trainer.embed(batch, data)
-    torch.cuda.synchronize()
-    parts["CLIP encode" if modality == "image" else "table gather"] = time.perf_counter() - t0
+    emb = None
+    if embed_part is not None:
+        t0 = time.perf_counter()
+        emb = trainer.embed(batch, data)
+        torch.cuda.synchronize()
+        parts[embed_part] = time.perf_counter() - t0
     t0 = time.perf_counter()
     state, _ = trainer._update(state, data, 2, emb, Draws())
     torch.cuda.synchronize()
     parts["update"] = time.perf_counter() - t0
     total = sum(parts.values())
-    tag = f"[{modality} profile]"
-    print(f"{tag} one iteration (8x128, Empty-16x16, HARD, {modality} modality), host wall: "
+    steps = trainer.cfg.num_envs * trainer.cfg.num_steps
+    print(f"{tag} one iteration ({what}), host wall: "
           + ", ".join(f"{k} {v * 1e3:.1f} ms ({100 * v / total:.1f}%)" for k, v in parts.items())
-          + f"; total {total * 1e3:.1f} ms = {1024 / total:.0f} env-steps/s on {card['smi']}")
+          + f"; total {total * 1e3:.1f} ms = {steps / total:.0f} env-steps/s on {card['smi']}")
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     t0 = time.perf_counter()
     with torch.profiler.profile(activities=acts) as prof:
@@ -921,19 +946,167 @@ def phase_profile(card: dict, modality: str) -> None:
     wall = time.perf_counter() - t0
     events = _kernel_events(prof)
     busy = sum(e.self_device_time_total for e in events) / 1e6
+    out = {"parts": parts, "total": total, "busy": busy if busy > 0 else None}
     if busy <= 0:
         print(f"{tag} device busy share: not measured (the trace holds no device time)")
-        return
+        return out
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
     # The tracer itself slows the host many times over, so the busy share is
     # taken against the untraced iteration's wall time above.
     print(f"{tag} device busy {busy * 1e3:.1f} ms per iteration = {100 * busy / total:.1f}% of "
           f"the untraced {total * 1e3:.1f} ms (idle {100 * (1 - busy / total):.1f}%; traced wall "
-          f"{wall * 1e3:.0f} ms); top kernels: "
+          f"{wall * 1e3:.0f} ms, {sum(e.count for e in events)} kernel launches); top kernels: "
           + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.1f} ms x{e.count}" for e in top))
     print(f"{tag} device time by ported kernel (the device side of the profiler range "
           "around each entry point's call, first kernel's start to last kernel's end): "
           + _fmt_ported(by_ported_kernel(prof)))
+    return out
+
+
+# The vanilla CLI's two runs: the view fast path, and per-image HARD
+# disturbances. Neither reaches a kernel of the port: per-image
+# disturbances are plain PyTorch, never K1, which computes the batched
+# function.
+VANILLA_RUNS = [("view mode", [], True),
+                ("per-image HARD", ["--apply-disturbances", "--disturbance-severity", "HARD"],
+                 False)]
+# The per-image tolerance of tests/port/test_torch_disturb_per_image.py: one
+# uint8 level at most, and at most 2 in 10,000 elements a level apart.
+PER_IMAGE_LEVEL_TOL, PER_IMAGE_MAX_SHARE_OFF = 1 / 255 + 1e-6, 2e-4
+
+
+def phase_vanilla(card: dict) -> None:
+    """Vanilla PPO on MiniGrid (``cli/ppo_minigrid.py``): the view trunk
+    against the dense conv and the per-image disturbance against the CPU on
+    the card, the per-image disturbance's time per rollout step beside K1's
+    batched call, the CLI for two iterations in view mode and two under
+    per-image HARD disturbances (no kernel launched, view mode on and off as
+    expected, losses finite), and one steady iteration of each by part."""
+    import math
+
+    import torch
+
+    from clip_ppo_tpu_torch import cuda_build
+    from clip_ppo_tpu_torch.cli import ppo_minigrid as cli
+    from clip_ppo_tpu_torch.envs.vector import TorchVectorEnv
+    from clip_ppo_tpu_torch.models import agent as agent_mod
+    from clip_ppo_tpu_torch.models import nature_cnn as cnn
+    from clip_ppo_tpu_torch.ops import disturbances as D
+    from clip_ppo_tpu_torch.ops.resize import upscale_nearest
+    from clip_ppo_tpu_torch.ops.severity import DisturbanceSeverity, SEVERITY_CONFIGS
+    from clip_ppo_tpu_torch.train.ppo import PPOConfig
+    from clip_ppo_tpu_torch.train.runner import Trainer
+    from clip_ppo_tpu_torch.utils import flags
+    from clip_ppo_tpu_torch.utils.tree import tree_map
+
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+
+    # -- the view trunk against the dense conv on the card: the rollout's
+    # batch of 8 and the update's minibatch of 256, features and gradients.
+    # The biases are drawn at random: at their init of 0 a conv1 unit whose
+    # inputs cancel sits at 0 within round-off, where the two formulations'
+    # ReLUs may pass its gradient in one and not in the other --
+    pgen = torch.Generator()
+    pgen.manual_seed(11)
+    params = agent_mod.init_agent_params(pgen, 7, dev)
+    for layer in params["trunk"].values():
+        layer["b"] = 0.1 * torch.randn(layer["b"].shape, generator=gen, device=dev)
+    for b in (8, 256):
+        view = torch.randint(0, 11, (b, 7, 7, 3), generator=gen, device=dev, dtype=torch.uint8)
+        weights = torch.randn(b, 512, generator=gen, device=dev)
+        trunk = tree_map(lambda t: t.detach().clone().requires_grad_(True), params["trunk"])
+        leaves = [trunk[k][n] for k in trunk for n in ("w", "b")]
+        got = cnn.nature_cnn_view(trunk, view.float(), 12, v_scale=1.0 / 255.0)
+        g_got = torch.autograd.grad((got * weights).sum(), leaves)
+        ref = cnn.nature_cnn(trunk, upscale_nearest(view, 12).float() / 255.0)
+        g_ref = torch.autograd.grad((ref * weights).sum(), leaves)
+        fixed = agent_mod.make_view_features(12).fixed(params)(params, view)
+        worst = max(_errors(got, ref)[1], _errors(fixed, ref.detach())[1],
+                    *(_errors(a, r)[1] for a, r in zip(g_got, g_ref)))
+        print(f"[vanilla] view trunk vs the dense conv on the ×12 upscale, [{b},7,7,3], TF32 "
+              f"off: largest error relative to max |ref| over the features (autograd and "
+              f"rollout pre-sum) and the 8 weight gradients {worst:.3e} (tolerance 1e-5)")
+        if not worst <= 1e-5:
+            fail(f"the view trunk disagrees with the dense conv at batch {b}: {worst}")
+
+    # -- the per-image disturbance on the card against the CPU, same draws --
+    x = torch.randint(0, 256, (8, 84, 84, 3), generator=gen, device=dev).float() / 255.0
+    for sev in ("MILD", "MODERATE", "HARD", "SEVERE"):
+        p = SEVERITY_CONFIGS[DisturbanceSeverity[sev]]
+        d = D.draw(x, p, gen, "per_image")
+        got = D.disturb(x, p, d, "per_image").cpu()
+        ref = D.disturb(x.cpu(), p, D.DisturbanceDraws(*(t.cpu() for t in d[:3])), "per_image")
+        diff = (got - ref).abs()
+        off = (diff > 1e-6).float().mean().item()
+        print(f"[vanilla] per-image {sev} [8,84,84,3] on the card vs the CPU on the same draws: "
+              f"max {diff.max().item() * 255:.3f} levels, {off:.2e} of the elements a level "
+              f"apart (tolerance 1 level, {PER_IMAGE_MAX_SHARE_OFF:.0e})")
+        if not (diff.max().item() <= PER_IMAGE_LEVEL_TOL and off <= PER_IMAGE_MAX_SHARE_OFF):
+            fail(f"the per-image disturbance on the card disagrees with the CPU at {sev}")
+
+    # -- time per rollout step at [8, 84, 84, 3]: the per-image pipeline with
+    # its draws (what a vanilla rollout step runs) and on given draws, beside
+    # K1's batched call with its draws (what a CLIP rollout step runs) --
+    hard = SEVERITY_CONFIGS[DisturbanceSeverity.HARD]
+    d_pi = D.draw(x, hard, gen, "per_image")
+    calls = {
+        "per-image with its draws": lambda: D.disturb_auto(x, hard, gen, semantics="per_image"),
+        "per-image on given draws": lambda: D.disturb(x, hard, d_pi, "per_image"),
+        "K1 batched with its draws": lambda: D.disturb_auto(x, hard, gen),
+    }
+    timed = {k: (time_ms(f, reps=20, calls=50), device_ms(f, calls=50)) for k, f in calls.items()}
+    print("[vanilla] disturbance per rollout step, HARD [8,84,84,3], CUDA events over 50 "
+          "back-to-back calls (torch.profiler device time of all its kernels): "
+          + "; ".join(f"{k} {t:.4f} ms ({_fmt_ms(dt)})" for k, (t, dt) in timed.items())
+          + f" on {card['smi']}")
+
+    # -- the CLI, two iterations each way; no kernel of the port launches --
+    for label, extra, view_mode in VANILLA_RUNS:
+        args = flags.parse(cli.Args, ["--total-timesteps", "2048", "--no-capture-video",
+                                      "--seed", "1", *extra])
+        cwd = os.getcwd()
+        with tempfile.TemporaryDirectory() as tmp:
+            os.chdir(tmp)
+            try:
+                args.model_path = os.path.join(tmp, "checkpoints")
+                cuda_build.reset_launches()
+                t0 = time.time()
+                summary = cli.train(args, run_name="chip_smoke_vanilla")
+                torch.cuda.synchronize()
+                wall = time.time() - t0
+                launches = dict(cuda_build.LAUNCHES)
+                ckpts = os.listdir(args.model_path)
+            finally:
+                os.chdir(cwd)
+        print(f"[vanilla {label}] {args.num_iterations} iterations of {args.num_envs}x"
+              f"{args.num_steps} on {args.env_id} in {wall:.2f} s wall; view mode "
+              f"{summary['view_mode']}; launches {launches}; steady SPS {summary['sps']:.1f}; "
+              f"losses " + ", ".join(f"{k} {float(summary['last_scalars'][k]):.5f}"
+                                     for k in ("policy_loss", "value_loss", "entropy")))
+        if any(launches.values()):
+            fail(f"the vanilla path ({label}) launched kernels of the port: {launches}")
+        if summary["view_mode"] is not view_mode:
+            fail(f"view mode is {summary['view_mode']} on the vanilla path ({label})")
+        for key, v in summary["last_scalars"].items():
+            if not math.isfinite(float(v)) and key != "explained_variance":
+                fail(f"non-finite {key} = {v} on the vanilla path ({label})")
+        if not any(c.endswith("_final.ckpt") for c in ckpts):
+            fail(f"no final checkpoint among {ckpts}")
+
+    # -- one steady iteration of each by part --
+    for label, disturbance in (("view mode", None), ("per-image HARD", hard)):
+        env = TorchVectorEnv("MiniGrid-Empty-16x16-v0", 8, dev)
+        trainer = Trainer(PPOConfig(), env, 2, disturbance=disturbance,
+                          disturbance_semantics="per_image")
+        pgen = torch.Generator()
+        pgen.manual_seed(1)
+        state = trainer.init_state(agent_mod.init_agent_params(pgen, env.num_actions, dev), 1)
+        profile_iteration(trainer, state, f"[vanilla {label} profile]",
+                          f"8x128, Empty-16x16, vanilla PPO, {label}", card)
 
 
 # The encoder benchmark's two runs, and the launches each call must make.
@@ -1128,6 +1301,7 @@ def main() -> None:
         if modality == "image":
             phase_image_encode(card)
         phase_profile(card, modality)
+    phase_vanilla(card)
     default = phase_benchmark(results, card, "benchmark", BENCH_L14, BENCH_L14_PER_CALL)
     phase_benchmark(results, card, "pallas", BENCH_PALLAS, BENCH_PALLAS_PER_CALL)
     image = {"default route": next(r for r in default if r[0] == 256)[1]}

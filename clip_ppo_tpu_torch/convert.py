@@ -13,7 +13,8 @@ jax. Outputs are the port's tensors on ``device``:
 * :func:`env_state` / :func:`vec_state` — MiniGrid ``EnvState`` /
   ``VecState`` (batched over envs). The JAX state's PRNG key and the
   mission fields of other families have no counterpart here and are
-  dropped.
+  dropped. In a JAX checkpoint's pickle these classes are read as the
+  stand-ins of :data:`JAX_STATE_CLASSES`.
 
 And back, for the checkpoints both packages read (``io/checkpoint.py``):
 
@@ -64,6 +65,23 @@ OPTAX_CLASSES = {
     EmptyState: ("optax._src.base", "EmptyState"),
     ScaleByAdamState: ("optax._src.transform", "ScaleByAdamState"),
     InjectStatefulHyperparamsState: ("optax.schedules._inject", "InjectStatefulHyperparamsState"),
+}
+
+
+class JaxEnvState:
+    """Stand-in of the JAX package's ``envs.minigrid.core.EnvState`` in a
+    pickle: its fields become attributes."""
+
+
+class JaxVecState:
+    """Stand-in of the JAX package's ``envs.vector.VecState`` in a pickle."""
+
+
+# The JAX package's classes a checkpoint of its vanilla CLI pickles (its
+# ``loop_state``), by module and name, and the stand-in each is read as.
+JAX_STATE_CLASSES = {
+    ("clip_ppo_tpu.envs.vector", "VecState"): JaxVecState,
+    ("clip_ppo_tpu.envs.minigrid.core", "EnvState"): JaxEnvState,
 }
 
 

@@ -53,7 +53,21 @@ class TorchVectorEnv:
     def observe_fn(self, state: VecState) -> torch.Tensor:
         """[N, obs, obs, 3] uint8: nearest ×12 upscale of the 7×7 view
         (gymnasium ResizeObservation INTER_AREA at integer zoom)."""
-        return upscale_nearest(minigrid_core.observe(self.params, state.env), self._upscale)
+        return upscale_nearest(self.observe_view_fn(state), self._upscale)
+
+    def observe_view_fn(self, state: VecState) -> torch.Tensor:
+        """[N, 7, 7, 3] uint8 raw symbolic views, the pre-upscale form of
+        :meth:`observe_fn` (the Trainer's view fast path consumes it)."""
+        return minigrid_core.observe(self.params, state.env)
+
+    @property
+    def supports_view_obs(self) -> bool:
+        """True when observations are exact integer nearest-upscales of the view."""
+        return self.obs_size % minigrid_core.VIEW_SIZE == 0
+
+    @property
+    def view_upscale(self) -> int:
+        return self._upscale
 
     def reset_fn(self, gen: torch.Generator) -> tuple[VecState, torch.Tensor]:
         env = minigrid_core.reset(self.params, self.num_envs, gen, self.device)
@@ -64,9 +78,11 @@ class TorchVectorEnv:
         )
         return state, self.observe_fn(state)
 
-    def step_fn(self, state: VecState, actions: torch.Tensor, gen: torch.Generator):
+    def step_fn(self, state: VecState, actions: torch.Tensor, gen: torch.Generator,
+                small_obs: bool = False):
         """Returns (state, obs, reward, terminated, truncated, info) with
-        ``info`` holding done_mask / episode_return / episode_length."""
+        ``info`` holding done_mask / episode_return / episode_length; with
+        ``small_obs`` the obs are the raw [N, 7, 7, 3] views."""
         env, reward, terminated, truncated = minigrid_core.step(self.params, state.env, actions)
         done = terminated | truncated
         ep_return = state.episode_return + reward
@@ -85,7 +101,8 @@ class TorchVectorEnv:
             "episode_return": torch.where(done, ep_return, zero_f),
             "episode_length": torch.where(done, ep_length, zero_i),
         }
-        return new_state, self.observe_fn(new_state), reward, terminated, truncated, info
+        obs = self.observe_view_fn(new_state) if small_obs else self.observe_fn(new_state)
+        return new_state, obs, reward, terminated, truncated, info
 
     def render_env0(self, state: VecState) -> torch.Tensor:
         """RGB render of env 0 for video capture ([H, W, 3] uint8)."""

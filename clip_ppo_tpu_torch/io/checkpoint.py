@@ -15,6 +15,13 @@ optax's ``chain(clip_by_global_norm, inject_hyperparams(adam))`` state
 optax classes are written under optax's own names, so ``pickle`` gives
 optax's classes where optax is installed, and read back as
 ``convert``'s stand-ins here, which never imports optax.
+
+Extra payloads follow the JAX schema: ``extra_models={name: tree}`` is
+stored as ``{name}_state`` (numpy leaves), and ``extra_templates`` restores
+each stored name onto its template. A JAX vanilla checkpoint's
+``loop_state`` pickles the JAX package's ``VecState`` and ``EnvState``;
+they are read as ``convert``'s stand-ins, so loading never imports the JAX
+package, and any other class of that package is refused by name.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from enum import Enum
 from typing import Any, Optional
 
 import numpy as np
+import torch
 
 from clip_ppo_tpu_torch import convert
 from clip_ppo_tpu_torch.utils.tree import tree_map
@@ -49,16 +57,26 @@ class _Pickler(pickle._Pickler):
 
 
 class _Unpickler(pickle.Unpickler):
-    """Reads optax's state classes as ``convert``'s stand-ins."""
+    """Reads optax's state classes and the JAX package's env-state classes
+    as ``convert``'s stand-ins."""
 
     def find_class(self, module, name):
-        if module.split(".")[0] != "optax":
-            return super().find_class(module, name)
-        if name not in _STANDINS:
-            raise pickle.UnpicklingError(
-                f"{module}.{name}: not part of the optimizer state this package reads "
-                f"(one of {', '.join(_STANDINS)})")
-        return _STANDINS[name]
+        top = module.split(".")[0]
+        if top == "optax":
+            if name not in _STANDINS:
+                raise pickle.UnpicklingError(
+                    f"{module}.{name}: not part of the optimizer state this package reads "
+                    f"(one of {', '.join(_STANDINS)})")
+            return _STANDINS[name]
+        if top == "clip_ppo_tpu":
+            standin = convert.JAX_STATE_CLASSES.get((module, name))
+            if standin is None:
+                known = ", ".join(f"{m}.{n}" for m, n in convert.JAX_STATE_CLASSES)
+                raise pickle.UnpicklingError(
+                    f"{module}.{name}: a class of the JAX package that this package does not "
+                    f"read (it reads {known})")
+            return standin
+        return super().find_class(module, name)
 
 
 def _dump(checkpoint: dict, filename: str) -> None:
@@ -92,9 +110,11 @@ def _ext() -> str:
 
 def save_checkpoint(prefix: str, params: dict, opt_state: Any, iteration: int,
                     global_step: int, args: Any, b_returns: Optional[np.ndarray] = None,
-                    final: bool = False, *, learning_rate: float) -> str:
+                    final: bool = False, *, learning_rate: float,
+                    extra_models: Optional[dict] = None) -> str:
     """Write the checkpoint; ``learning_rate`` is that of the last update,
-    which the JAX package's optimizer state records."""
+    which the JAX package's optimizer state records. ``extra_models``:
+    optional ``{name: tree of tensors}``, each stored as ``{name}_state``."""
     checkpoint = {
         "iteration": int(iteration),
         "global_step": int(global_step),
@@ -104,6 +124,9 @@ def save_checkpoint(prefix: str, params: dict, opt_state: Any, iteration: int,
         "returns": np.asarray(b_returns) if b_returns is not None else None,
         "training_complete": bool(final),
     }
+    for name, tree in (extra_models or {}).items():
+        if tree is not None:
+            checkpoint[f"{name}_state"] = tree_map(lambda t: t.detach().cpu().numpy(), tree)
     ext = _ext()
     if final:
         filename = f"{prefix}_final{ext}"
@@ -116,18 +139,29 @@ def save_checkpoint(prefix: str, params: dict, opt_state: Any, iteration: int,
     return filename
 
 
-def load_checkpoint(path: str, params_template: dict, opt_state_template: Any, device
-                    ) -> tuple[dict, Any, int, int, dict]:
+def load_checkpoint(path: str, params_template: dict, opt_state_template: Any, device,
+                    extra_templates: Optional[dict] = None) -> tuple[dict, Any, int, int, dict]:
     """Restore (params, opt_state, iteration, global_step, raw_checkpoint)
     onto the templates' structure on ``device``, from a checkpoint of this
     package or of the JAX package. Loads a pickle: only open checkpoints
-    these programs wrote."""
+    these programs wrote.
+
+    ``extra_templates``: optional ``{name: tree of tensors}``; each stored
+    ``{name}_state`` is restored onto its template's structure, shapes,
+    dtypes and devices into ``raw_checkpoint["extras"][name]``. Names the
+    checkpoint lacks are skipped."""
     print(f"Loading checkpoint from {path}")
     with open(path, "rb") as f:
         checkpoint = _Unpickler(f).load()
     params = _onto(params_template, convert.agent_params(checkpoint["agent_state"], device))
     opt_state = _onto(opt_state_template,
                       convert.adam_state(checkpoint["optimizer_state"], device))
+    for name, template in (extra_templates or {}).items():
+        stored = checkpoint.get(f"{name}_state")
+        if stored is not None:
+            tensors = tree_map(lambda t, a: torch.as_tensor(np.array(a), dtype=t.dtype,
+                                                            device=t.device), template, stored)
+            checkpoint.setdefault("extras", {})[name] = _onto(template, tensors)
     iteration, global_step = checkpoint["iteration"], checkpoint["global_step"]
     print(f"Checkpoint loaded: iteration {iteration}, global_step {global_step}")
     if checkpoint.get("training_complete", False):

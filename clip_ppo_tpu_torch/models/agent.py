@@ -53,6 +53,43 @@ def cnn_features(params: dict, obs: torch.Tensor, frozen=None) -> torch.Tensor:
     return cnn.nature_cnn(params["trunk"], obs.float() / 255.0)
 
 
+class ViewFeatures:
+    """FeatureFn over raw [B, 7, 7, 3] uint8 MiniGrid views
+    (:func:`make_view_features`)."""
+
+    def __init__(self, upscale: int):
+        self.upscale = upscale
+
+    def __call__(self, params: dict, view: torch.Tensor, frozen=None) -> torch.Tensor:
+        del frozen
+        # Raw integer codes go into the per-step contraction; the /255 is
+        # folded into conv1's weight pre-sum, which stays inside autograd.
+        return cnn.nature_cnn_view(params["trunk"], view.float(), self.upscale,
+                                   v_scale=1.0 / 255.0)
+
+    def fixed(self, params: dict) -> FeatureFn:
+        """This FeatureFn for ``params`` held fixed (a rollout's): conv1's
+        weight pre-sum is computed once here instead of at every step. The
+        returned function must be called with these same params."""
+        with torch.no_grad():
+            w2 = cnn.view_conv1_weights(params["trunk"], self.upscale, 1.0 / 255.0)
+
+        def view_features(p: dict, view: torch.Tensor, frozen=None) -> torch.Tensor:
+            del frozen
+            return cnn.nature_cnn_view(p["trunk"], view.float(), self.upscale, w2=w2)
+
+        return view_features
+
+
+def make_view_features(upscale: int) -> ViewFeatures:
+    """FeatureFn over raw [B, 7, 7, 3] uint8 MiniGrid views: equal to
+    :func:`cnn_features` on the ×``upscale`` nearest-upscaled 84×84 obs (see
+    ``nature_cnn.nature_cnn_view``), with the same trunk parameters — the
+    Trainer's view fast path swaps it in when observations are exact tile
+    upscales (no disturbances, no image-CLIP consumer)."""
+    return ViewFeatures(upscale)
+
+
 def heads(params: dict, hidden: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Actor logits and critic value as one [hidden, A+1] product."""
     w = torch.cat([params["actor"]["w"], params["critic"]["w"]], dim=1)

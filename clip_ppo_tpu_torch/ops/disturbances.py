@@ -1,15 +1,24 @@
-"""Visual disturbances with the batched semantics the CLIP-PPO scripts train
-with (`shared/disturbances_gpu.py:66-73`): Gaussian noise clamped to [0,1],
-contrast jitter blending toward the per-image gray mean with one factor per
-call, separable Gaussian blur with BORDER_REFLECT_101 padding, and one
-cutout rectangle shared by the batch.
+"""Visual disturbances (noise → contrast → blur → cutout), port of
+``clip_ppo_tpu/ops/disturbances.py``, in the reference's two semantics:
+
+* **batched** — the path the CLIP-PPO scripts train with
+  (`shared/disturbances_gpu.py:66-73`): Gaussian noise clamped to [0,1],
+  contrast jitter blending toward the per-image gray mean with one factor
+  per call, separable Gaussian blur with BORDER_REFLECT_101 padding, and
+  one cutout rectangle shared by the batch. On a CUDA tensor the whole
+  chain is one launch of the K1 kernel
+  (:mod:`clip_ppo_tpu_torch.ops.disturb_kernel`).
+* **per_image** — the path the vanilla MiniGrid script uses
+  (`shared/disturbances.py:45-67`): a multiplicative contrast factor and a
+  cutout origin per image, with uint8 quantization between stages. Plain
+  PyTorch on any device; it never reaches K1, which computes the batched
+  function.
 
 Images are ``[B, H, W, C]`` float tensors in [0, 1] (NHWC, the JAX
 package's layout). Every random quantity is an explicit input of the stage
 functions; :func:`disturb_auto` draws them from a ``torch.Generator`` unless
 the caller hands them over (:class:`DisturbanceDraws`), so a test can feed
-two implementations the same draws. The whole chain runs as one kernel on a
-CUDA tensor (:mod:`clip_ppo_tpu_torch.ops.disturb_kernel`).
+two implementations the same draws.
 """
 
 from __future__ import annotations
@@ -43,13 +52,17 @@ def _cutout_patch_hw(h: int, w: int, ratio: float) -> tuple[int, int]:
     return patch_h, patch_w
 
 
-class DisturbanceDraws(NamedTuple):
-    """The random inputs of one batched disturbance call.
+SEMANTICS = ("batched", "per_image")
 
-    ``noise``: [B, H, W, C] standard normals (None: the CUDA kernel draws
-    them itself from ``seed``); ``factor``: 0-d contrast factor;
-    ``origin``: int32 [2] cutout (row, col); ``seed``: int32 [1] seed of the
-    in-kernel noise. All live on the images' device."""
+
+class DisturbanceDraws(NamedTuple):
+    """The random inputs of one disturbance call, on the images' device.
+
+    ``noise``: [B, H, W, C] standard normals (batched only: None lets the
+    CUDA kernel draw them itself from ``seed``); ``factor``: the contrast
+    factor, 0-d (batched) or [B] (per_image); ``origin``: int32 cutout
+    (row, col), [2] (batched) or [B, 2] (per_image); ``seed``: int32 [1]
+    seed of the in-kernel noise."""
 
     noise: Optional[torch.Tensor]
     factor: torch.Tensor
@@ -76,6 +89,12 @@ def apply_contrast_blend(x: torch.Tensor, factor: torch.Tensor) -> torch.Tensor:
     else:
         mean = x.mean(dim=(1, 2, 3)).reshape(-1, 1, 1, 1)
     return torch.clamp(factor * x + (1.0 - factor) * mean, 0.0, 1.0)
+
+
+def apply_contrast_scale(x: torch.Tensor, factor: torch.Tensor) -> torch.Tensor:
+    """Plain multiplicative contrast with one factor per image ([B]) — the
+    per-image path's math (`shared/disturbances.py:94-96`)."""
+    return torch.clamp(factor.reshape(-1, 1, 1, 1) * x, 0.0, 1.0)
 
 
 def _reflect101_index(n: int, ksize: int, device) -> torch.Tensor:
@@ -109,25 +128,78 @@ def apply_cutout_shared(x: torch.Tensor, origin: torch.Tensor, ratio: float) -> 
     return torch.where(inside, torch.zeros_like(x), x)
 
 
+def apply_cutout_per_image(x: torch.Tensor, origin: torch.Tensor, ratio: float) -> torch.Tensor:
+    """Zero one rectangle per image at ``origin[b]`` = (row, col)
+    (`shared/disturbances.py:135-145`)."""
+    b, h, w, _ = x.shape
+    ph, pw = _cutout_patch_hw(h, w, ratio)
+    r0 = origin[:, 0].reshape(b, 1, 1, 1)
+    c0 = origin[:, 1].reshape(b, 1, 1, 1)
+    rows = torch.arange(h, device=x.device).reshape(1, h, 1, 1)
+    cols = torch.arange(w, device=x.device).reshape(1, 1, w, 1)
+    inside = (rows >= r0) & (rows < r0 + ph) & (cols >= c0) & (cols < c0 + pw)
+    return torch.where(inside, torch.zeros_like(x), x)
+
+
+def cutout_origin_high(h: int, w: int, ratio: float, semantics: str) -> tuple[int, int]:
+    """Exclusive upper bounds of the cutout origin's (row, col): the batched
+    path draws from ``[0, h - ph]``, the per-image path keeps the
+    reference's ``randint(0, max(1, h - ph))`` and never reaches the last
+    row or column a patch fits at."""
+    ph, pw = _cutout_patch_hw(h, w, ratio)
+    extra = 1 if semantics == "batched" else 0
+    return max(1, h - ph + extra), max(1, w - pw + extra)
+
+
+def _quantize_floor(x: torch.Tensor) -> torch.Tensor:
+    """uint8 quantization by truncation (``ndarray.astype``), back on [0,1]."""
+    return torch.floor(torch.clamp(x, 0.0, 1.0) * 255.0) / 255.0
+
+
+def disturb_per_image(x: torch.Tensor, params: DisturbanceParams,
+                      draws: DisturbanceDraws) -> torch.Tensor:
+    """The per-image pipeline in plain PyTorch: noise, floor-quantize,
+    per-image contrast, floor-quantize, blur, round-quantize (cv2 rounds its
+    blurred uint8 results), per-image cutout."""
+    x = _quantize_floor(apply_gaussian_noise(x, draws.noise, params.gaussian_noise_sigma))
+    x = _quantize_floor(apply_contrast_scale(x, draws.factor))
+    x = apply_gaussian_blur(x, params.gaussian_blur_sigma, params.blur_kernel_size)
+    x = torch.round(torch.clamp(x, 0.0, 1.0) * 255.0) / 255.0
+    return apply_cutout_per_image(x, draws.origin, params.cutout_ratio)
+
+
 # ---------------------------------------------------------------------------
 # Draws and the full pipeline
 # ---------------------------------------------------------------------------
 
 
-def draw(x: torch.Tensor, params: DisturbanceParams,
-         generator: torch.Generator) -> DisturbanceDraws:
-    """Draw one call's random inputs on ``x``'s device: the noise itself on
-    the CPU, a seed for the kernel's own generator on CUDA."""
-    _, h, w, _ = x.shape
+def check_semantics(semantics: str) -> None:
+    """Raise unless ``semantics`` is one this port runs."""
+    if semantics == "stack_frames":
+        raise NotImplementedError("the stack_frames semantics (Atari frame stacks) is not "
+                                  "ported yet: it comes with the Atari slice of the port")
+    if semantics not in SEMANTICS:
+        raise ValueError(f"unknown semantics: {semantics!r}")
+
+
+def draw(x: torch.Tensor, params: DisturbanceParams, generator: torch.Generator,
+         semantics: str = "batched") -> DisturbanceDraws:
+    """Draw one call's random inputs on ``x``'s device. Batched: the noise
+    itself on the CPU, a seed for the kernel's own generator on CUDA.
+    Per-image: the noise, a factor and an origin per image."""
+    check_semantics(semantics)
+    b, h, w, _ = x.shape
     lo, hi = params.contrast_range
     dev = x.device
-    factor = torch.rand((), generator=generator, device=dev) * (hi - lo) + lo
-    ph, pw = _cutout_patch_hw(h, w, params.cutout_ratio)
+    per_image = semantics == "per_image"
+    shape = (b,) if per_image else ()
+    factor = torch.rand(shape, generator=generator, device=dev) * (hi - lo) + lo
+    high_r, high_c = cutout_origin_high(h, w, params.cutout_ratio, semantics)
     origin = torch.stack([
-        torch.randint(0, max(1, h - ph + 1), (), generator=generator, device=dev),
-        torch.randint(0, max(1, w - pw + 1), (), generator=generator, device=dev),
-    ]).to(torch.int32)
-    if dev.type == "cuda":
+        torch.randint(0, high_r, shape, generator=generator, device=dev),
+        torch.randint(0, high_c, shape, generator=generator, device=dev),
+    ], dim=-1).to(torch.int32)
+    if dev.type == "cuda" and not per_image:
         seed = torch.randint(0, 2**31 - 1, (1,), generator=generator, device=dev,
                              dtype=torch.int32)
         return DisturbanceDraws(None, factor, origin, seed)
@@ -135,18 +207,41 @@ def draw(x: torch.Tensor, params: DisturbanceParams,
     return DisturbanceDraws(noise, factor, origin)
 
 
+def disturb(x: torch.Tensor, params: DisturbanceParams, draws: DisturbanceDraws,
+            semantics: str = "batched") -> torch.Tensor:
+    """The full pipeline on ``[B,H,W,C]`` floats in [0,1] with the given
+    draws. ``"batched"`` is one launch of K1 on a CUDA tensor and its plain
+    version on a CPU tensor; ``"per_image"`` is plain PyTorch everywhere.
+    ``"stack_frames"`` is refused (the Atari slice)."""
+    check_semantics(semantics)
+    if semantics == "per_image":
+        return disturb_per_image(x, params, draws)
+    from clip_ppo_tpu_torch.ops.disturb_kernel import disturb_batched
+
+    return disturb_batched(x, params, draws)
+
+
 def disturb_auto(
     x: torch.Tensor,
     params: DisturbanceParams,
     generator: Optional[torch.Generator] = None,
     draws: Optional[DisturbanceDraws] = None,
+    semantics: str = "batched",
 ) -> torch.Tensor:
-    """Batched-semantics noise → contrast → blur → cutout on ``[B,H,W,C]``
-    floats in [0,1]. ``draws`` (else drawn from ``generator``) supplies
-    every random input. On a CUDA tensor this is one launch of the K1
-    kernel; on a CPU tensor its plain version."""
-    from clip_ppo_tpu_torch.ops.disturb_kernel import disturb_batched
-
+    """:func:`disturb` with ``draws`` (else drawn from ``generator``)
+    supplying every random input."""
     if draws is None:
-        draws = draw(x, params, generator)
-    return disturb_batched(x, params, draws)
+        draws = draw(x, params, generator, semantics)
+    return disturb(x, params, draws, semantics)
+
+
+def disturb_uint8(
+    x: torch.Tensor,
+    params: DisturbanceParams,
+    generator: Optional[torch.Generator] = None,
+    draws: Optional[DisturbanceDraws] = None,
+    semantics: str = "batched",
+) -> torch.Tensor:
+    """Convenience wrapper: uint8 ``[B, H, W, C]`` in, uint8 out."""
+    y = disturb_auto(x.float() / 255.0, params, generator, draws, semantics)
+    return (torch.clamp(y, 0.0, 1.0) * 255.0).to(torch.uint8)

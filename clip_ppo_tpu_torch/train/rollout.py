@@ -10,6 +10,11 @@ The random draws are explicit: the whole rollout's categorical noise is one
 [T, N, A] Gumbel batch, and each step's disturbance takes its
 :class:`~clip_ppo_tpu_torch.ops.disturbances.DisturbanceDraws`. Both are
 drawn from the run's generator unless the caller passes them.
+
+A feature trunk may offer ``fixed(params)``, a copy of itself for params
+that do not change; the rollout calls it once, so the view fast path's
+conv1 weight pre-sum (``agent.ViewFeatures``) is computed once a rollout
+and not at each of its steps.
 """
 
 from __future__ import annotations
@@ -26,7 +31,8 @@ from clip_ppo_tpu_torch.ops.severity import DisturbanceParams
 class RolloutBatch(NamedTuple):
     """Per-step storage, leading axes [num_steps, num_envs]."""
 
-    obs: torch.Tensor             # uint8 [T, N, H, W, C] (disturbed)
+    obs: torch.Tensor             # uint8 [T, N, H, W, C] (disturbed), or the
+                                  # raw [T, N, 7, 7, 3] views with small_obs
     actions: torch.Tensor         # int64 [T, N]
     logprobs: torch.Tensor        # f32 [T, N]
     rewards: torch.Tensor         # f32 [T, N]
@@ -48,16 +54,29 @@ def collect_rollout(
     gen: torch.Generator,
     num_steps: int,
     disturbance: Optional[DisturbanceParams] = None,
+    disturbance_semantics: str = "batched",
     features_fn: agent_mod.FeatureFn = agent_mod.cnn_features,
     capture_video: bool = False,
     frozen=None,
     collect_desc: bool = True,
     gumbels: Optional[torch.Tensor] = None,
     disturb_draws: Optional[Sequence[DisturbanceDraws]] = None,
+    small_obs: bool = False,
 ):
     """Run ``num_steps`` env steps. Returns (vec_state, obs, next_done,
     RolloutBatch). ``gumbels`` [T, N, A] and ``disturb_draws`` (one per
-    step) default to draws from ``gen``."""
+    step) default to draws from ``gen``.
+
+    ``small_obs``: the view fast path — ``obs`` (carry and storage) are the
+    raw [N, 7, 7, 3] views instead of their ×12 upscale, and
+    ``features_fn`` must be the matching view trunk
+    (``agent.make_view_features``). A disturbed 84×84 image is no longer a
+    tile replication, so it excludes ``disturbance``."""
+    if small_obs and disturbance is not None:
+        raise ValueError("the view fast path cannot apply image-space disturbances")
+    fixed = getattr(features_fn, "fixed", None)
+    if fixed is not None:
+        features_fn = fixed(params)
     device = obs.device
     n = obs.shape[0]
     if gumbels is None:
@@ -71,7 +90,8 @@ def collect_rollout(
             if disturbance is not None:
                 x = obs.float() / 255.0
                 x = disturb_auto(x, disturbance, gen,
-                                 None if disturb_draws is None else disturb_draws[t])
+                                 None if disturb_draws is None else disturb_draws[t],
+                                 disturbance_semantics)
                 obs = (torch.clamp(x, 0.0, 1.0) * 255.0).to(torch.uint8)
             action, logprob, value = agent_mod.get_action_and_value_gumbel(
                 params, obs, gumbels[t], features_fn, frozen)
@@ -81,7 +101,8 @@ def collect_rollout(
                 desc["agent_dir"].append(snap["agent_dir"])
             if capture_video:
                 video.append(env.render_env0(vec_state))
-            new_state, new_obs, reward, term, trunc, info = env.step_fn(vec_state, action, gen)
+            new_state, new_obs, reward, term, trunc, info = env.step_fn(
+                vec_state, action, gen, small_obs=small_obs)
             obs_t[t] = obs
             packed[t] = torch.stack([
                 action.float(), logprob, reward.float(), next_done.float(), value,

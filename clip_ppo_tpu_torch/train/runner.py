@@ -1,11 +1,12 @@
 """Training runner: rollout → GAE → PPO update per iteration, on one device.
 
 Port of ``clip_ppo_tpu/train/runner.py``'s ``Trainer`` for the paths the
-port runs: the feed-forward agent with the Nature-CNN trunk, optional
-batched disturbances, the text modality through a precomputed
-description-embedding table (``embed_desc_fn``), and the image modality,
-which encodes the iteration's stored observations with the CLIP vision
-tower (``embed_images_fn``). Nothing in an iteration waits for the host;
+port runs: the feed-forward agent with the Nature-CNN trunk (on the raw
+7×7 views when nothing needs the 84×84 image, the view fast path),
+optional batched or per-image disturbances, the text modality through a
+precomputed description-embedding table (``embed_desc_fn``), and the image
+modality, which encodes the iteration's stored observations with the CLIP
+vision tower (``embed_images_fn``). Nothing in an iteration waits for the host;
 logs are packed on the device and fetched one chunk behind
 (:class:`LogPipeline`), so the fetch of chunk *k* overlaps the queued work
 of chunk *k+1*.
@@ -25,7 +26,7 @@ import torch
 
 from clip_ppo_tpu_torch.models import agent as agent_mod
 from clip_ppo_tpu_torch.models.clip_utils import get_clip_lambda_with_warmup
-from clip_ppo_tpu_torch.ops.disturbances import DisturbanceDraws
+from clip_ppo_tpu_torch.ops.disturbances import DisturbanceDraws, check_semantics
 from clip_ppo_tpu_torch.ops.severity import DisturbanceParams
 from clip_ppo_tpu_torch.train import gae as gae_mod
 from clip_ppo_tpu_torch.train import ppo as ppo_mod
@@ -67,8 +68,16 @@ class Trainer:
         cfg: PPO hyperparameters.
         env: TorchVectorEnv.
         num_iterations: total iterations (LR anneal, λ warmup).
-        disturbance: optional DisturbanceParams applied each rollout step
-            (batched semantics).
+        disturbance: optional DisturbanceParams applied each rollout step.
+        disturbance_semantics: ``"batched"`` (the CLIP scripts', K1 on the
+            GPU) or ``"per_image"`` (the vanilla script's).
+        features_fn: the agent's feature trunk. With the default
+            ``cnn_features``, no disturbance, no ``embed_images_fn`` and an
+            env whose observations are exact tile upscales of its views,
+            the Trainer takes the view fast path (``view_mode``): the
+            rollout stores raw [N, 7, 7, 3] views and the trunk is
+            ``agent.make_view_features``, the JAX package's rule
+            (`runner.py:204-211`).
         embed_images_fn: optional ``(obs_uint8 [T·N, H, W, 3], frozen) ->
             [T·N, D]`` image-embedding function
             (``clip_utils.make_encode_images_fn``), applied to the rollout's
@@ -89,6 +98,8 @@ class Trainer:
         env,
         num_iterations: int,
         disturbance: Optional[DisturbanceParams] = None,
+        disturbance_semantics: str = "batched",
+        features_fn: agent_mod.FeatureFn = agent_mod.cnn_features,
         embed_images_fn: Optional[Callable] = None,
         embed_desc_fn: Optional[Callable] = None,
         clip_lambda: float = 0.0,
@@ -115,7 +126,17 @@ class Trainer:
         self.env = env
         self.num_iterations = num_iterations
         self.disturbance = disturbance
-        self.features_fn = agent_mod.cnn_features
+        check_semantics(disturbance_semantics)
+        self.disturbance_semantics = disturbance_semantics
+        self.view_mode = (
+            disturbance is None
+            and embed_images_fn is None
+            and features_fn is agent_mod.cnn_features
+            and getattr(env, "supports_view_obs", False)
+        )
+        if self.view_mode:
+            features_fn = agent_mod.make_view_features(env.view_upscale)
+        self.features_fn = features_fn
         self.embed_images_fn = embed_images_fn
         self.embed_desc_fn = embed_desc_fn
         self.clip_lambda = clip_lambda
@@ -129,6 +150,8 @@ class Trainer:
         gen = torch.Generator(device=self.env.device)
         gen.manual_seed(seed)
         vec_state, obs = self.env.reset_fn(gen)
+        if self.view_mode:
+            obs = self.env.observe_view_fn(vec_state)
         return TrainState(
             params=params,
             opt_state=ppo_mod.init_adam_state(params),
@@ -148,9 +171,9 @@ class Trainer:
     def _rollout(self, state: TrainState, draws: Draws):
         vec_state, obs, next_done, batch = rollout_mod.collect_rollout(
             state.params, self.env, state.vec_state, state.obs, state.next_done, state.gen,
-            self.cfg.num_steps, self.disturbance, self.features_fn, self.capture_env0,
-            self.frozen_params, collect_desc=self.embed_desc_fn is not None,
-            gumbels=draws.gumbels, disturb_draws=draws.disturb,
+            self.cfg.num_steps, self.disturbance, self.disturbance_semantics, self.features_fn,
+            self.capture_env0, self.frozen_params, collect_desc=self.embed_desc_fn is not None,
+            gumbels=draws.gumbels, disturb_draws=draws.disturb, small_obs=self.view_mode,
         )
         state = dataclasses.replace(state, vec_state=vec_state, obs=obs, next_done=next_done)
         return state, batch
