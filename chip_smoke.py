@@ -39,7 +39,12 @@ non-zero at once:
    same inputs, and K6, K7 and K3 refusing a width their kernels do not
    take. Every resblock-half case prints the device memory its wrapper
    allocates besides the output (scratch), and K7's must not exceed one
-   [B*T, D] chunk of the hidden plus the row statistics;
+   [B*T, D] chunk of the hidden plus the row statistics. Then K2 and K3 in
+   bfloat16 (their bf16 entry points) against their plain bf16 versions at
+   the FROZEN_CLIP trunk's, the bf16 encoder benchmark's and odd shapes
+   (``BF16_CASES``, tolerance (1/64) x max(1, max |ref|)), timed beside
+   their device time, the plain (cuBLAS bf16) route and the float32 kernel
+   on the same values, against the dense bf16 peak;
 3. text slice — the CLIP-PPO MiniGrid CLI (text modality, HARD
    disturbances) for two iterations, with every launch count read from the
    run;
@@ -71,10 +76,21 @@ non-zero at once:
 9. large tower — ViT-L/14's embeddings of two frames on the card, on the
    default route and under both switches, against the plain versions on the
    CPU, and where one batch-256 image call of each spends its device time,
-   by kernel and by ported kernel.
+   by kernel and by ported kernel;
+10. ablations — the CLIP-PPO CLI with ``--clip-config.ablation-mode
+    FROZEN_CLIP`` (the bf16 ViT-B/32 vision tower as the trunk) and
+    ``RANDOM_ENCODER`` (λ = 1e-5), HARD disturbances, two iterations each,
+    every launch count derived from the configuration (FROZEN_CLIP: K2 and
+    K3 in bf16 once a layer for every rollout step, the bootstrap value and
+    every minibatch; RANDOM_ENCODER: no tower kernel), finite losses; the
+    bf16 tower's features of a few frames on the card against the plain
+    bf16 route on the CPU; one steady FROZEN_CLIP iteration by part with the
+    device's busy share; and ``benchmark_clip`` at its default bf16 at
+    ViT-B/32 (both towers on K2 and K3 in bf16), launches of every call
+    checked.
 
-The paths of phases 3 to 8 before the switch runs run with every switch
-unset, and their launch checks hold K6 and K7 at 0.
+The paths of phases 3 to 8 before the switch runs, and of phase 10, run
+with every switch unset, and their launch checks hold K6 and K7 at 0.
 
 The last lines are the kernels' JSON summary, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device the
@@ -99,6 +115,7 @@ import time
 # device-memory bandwidth.
 FP32_FLOPS = 67e12
 TF32_FLOPS = 495e12
+BF16_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -139,6 +156,7 @@ ENTRY_POINTS = {
     "mlp_block_launch": "K3 mlp_block", "fused_qkv_launch": "K4 fused_qkv",
     "mlp_stream_launch": "K5 mlp_stream", "attn_stream_launch": "K6 attn_stream",
     "mlp_chunked_launch": "K7 mlp_chunked", "packed_attention_launch": "K8 packed_attention",
+    "attn_block_bf16_launch": "K2 attn_block bf16", "mlp_block_bf16_launch": "K3 mlp_block bf16",
 }
 
 
@@ -264,9 +282,15 @@ def phase_card() -> dict:
               f"in {cuda_build.BUILD_DIR.name}/{lib}.sass): {per_kernel}")
         if not per_kernel:
             fail(f"{lib} has no tensor-core instruction in its SASS")
+        for kernel, op in BF16_TENSOR_CORE.get(lib, ()):
+            n = sum(count for k, count in per_kernel.items() if k.startswith(kernel))
+            print(f"[card] bf16 {lib} {kernel}: {n} {op} instructions")
+            if not n:
+                fail(f"{lib}'s bf16 {kernel} holds no {op} instruction")
     if spills:
         fail(f"ptxas spills registers in the tensor-core kernels: {spills}")
-    return {"smi": smi, "name": name, "flops": flops, "tf32_flops": TF32_FLOPS, "bw": bw}
+    return {"smi": smi, "name": name, "flops": flops, "tf32_flops": TF32_FLOPS,
+            "bf16_flops": BF16_FLOPS, "bw": bw}
 
 
 # The libraries whose kernels run their products on the tensor cores in
@@ -276,16 +300,33 @@ TENSOR_CORE_LIBS = ("fused_qkv", "attn_block", "mlp_block", "mlp_stream", "attn_
                     "mlp_chunked")
 
 
+# The bf16 instantiations of K2 and K3 (their bf16 entry points): each must
+# hold tensor-core instructions of its kind, wgmma (HGMMA) in the GEMM and
+# mma.sync (HMMA) in the attention tile.
+BF16_TENSOR_CORE = {
+    "attn_block": (("gemm_bf16_kernel", "HGMMA"), ("attention_bf16_kernel", "HMMA")),
+    "mlp_block": (("gemm_bf16_kernel", "HGMMA"),),
+}
+
+
 def _kernel_name(line: str) -> str:
     """A readable kernel name from a mangled one in ptxas's or cuobjdump's
     output: ..._17mlp_stream_kernelILi768EEvPKf... -> mlp_stream_kernel<768>,
-    ...11gemm_kernelILb1ELi1EEEvNS_6ParamsE -> gemm_kernel<true,1>."""
-    m = re.search(r"([a-z_]+_kernel)(I(?:L[a-z]+\d+E)+E)?", line)
-    if not m:
-        return ""
+    ...11gemm_kernelILb1ELi1EEEvNS_6ParamsE -> gemm_kernel<true,1>,
+    ...16gemm_bf16_kernelILb1ELi0EE... -> gemm_bf16_kernel<true,0>: the first
+    length-prefixed name that ends in _kernel."""
+    for m in re.finditer(r"(?=(\d+))", line):
+        start = m.start() + len(m[1])
+        name = line[start:start + int(m[1])]
+        if name.endswith("_kernel") and re.fullmatch(r"[A-Za-z_]\w*", name):
+            break
+    else:  # an extern "C" kernel's name is not mangled
+        m = re.search(r"\b([A-Za-z_]\w*_kernel)\b", line)
+        return m[1] if m else ""
+    t_args = re.match(r"I((?:L[a-z]+\d+E)+)E", line[start + len(name):])
     args = [("true" if v == "1" else "false") if t == "b" else v
-            for t, v in re.findall(r"L([a-z]+)(\d+)E", m[2] or "")]
-    return m[1] + (f"<{','.join(args)}>" if args else "")
+            for t, v in re.findall(r"L([a-z]+)(\d+)E", t_args[1] if t_args else "")]
+    return name + (f"<{','.join(args)}>" if args else "")
 
 
 def _bound(nbytes: float, nflops: float, card: dict) -> tuple[float, str]:
@@ -670,6 +711,126 @@ def phase_stream_kernels(card: dict) -> list[dict]:
     return results
 
 
+# K2 and K3 in bf16 (their bf16 entry points), checked and timed in
+# phase_bf16_kernels: (kernel, B, T, D, causal, path, timed). The FROZEN_CLIP
+# trunk runs [8, 50, 768] in the rollout and the bootstrap value, [256, 50,
+# 768] in the update; benchmark_clip's bf16 run [1024, 50, 768] and the
+# text tower's [1024, 77, 512] causal.
+BF16_CASES = [
+    ("attn_block", 8, 50, 768, False, "frozen", True),
+    ("mlp_block", 8, 50, 768, False, "frozen", True),
+    ("attn_block", 256, 50, 768, False, "frozen", True),
+    ("mlp_block", 256, 50, 768, False, "frozen", True),
+    ("attn_block", 1024, 50, 768, False, "bench_bf16", True),
+    ("mlp_block", 1024, 50, 768, False, "bench_bf16", True),
+    ("attn_block", 1024, 77, 512, True, "bench_bf16", True),
+    ("mlp_block", 1024, 77, 512, False, "bench_bf16", True),
+    ("attn_block", 3, 197, 768, False, None, False),  # an odd T: 3 query tiles, a ragged key tile
+    ("mlp_block", 3, 197, 768, False, None, False),  # ragged row count
+    ("attn_block", 4, 77, 832, True, None, False),  # 13 heads: N = 2496 and 832, partial tiles
+]
+BF16_CALLS = 20  # back-to-back calls between one pair of CUDA events
+
+
+def _bound_bf16(nbytes: float, nflops: float, card: dict) -> tuple[float, str]:
+    """The bound of a bf16 tensor-core kernel: the bytes, or the flops at the
+    dense bf16 peak."""
+    t_bytes, t_ops = nbytes / card["bw"] * 1e3, nflops / card["bf16_flops"] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_bf16_kernels(card: dict) -> list[dict]:
+    """K2 and K3 in bf16 against their plain versions in bf16 on the card
+    (the same rounding steps, every product a cuBLAS bf16 matmul) at the
+    shapes of ``BF16_CASES``, tolerance (1/64) x max(1, max |ref|) compared in
+    float32: about three bf16 ulps of the largest value, since the two round
+    in other places (the plain version rounds the scores to bf16 before the
+    softmax, as ``_attn_block_ref`` does; the kernel keeps them fp32, as the
+    TPU kernel does). Timed by CUDA events over ``BF16_CALLS`` back-to-back
+    calls beside their device time, the plain (cuBLAS bf16) route and the
+    float32 kernel on the same values, against the larger of the bytes and
+    the flops at the dense bf16 peak."""
+    import torch
+
+    from clip_ppo_tpu_torch.models.clip import block_kernels as bk
+    from clip_ppo_tpu_torch.models.clip.model import cast_tower
+
+    t0 = time.time()
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    blocks, results = {}, []
+    with torch.no_grad():
+        for name, b, t, dm, causal, path, timed in BF16_CASES:
+            if dm not in blocks:
+                p32 = random_block(gen, dm, dev)
+                blocks[dm] = (p32, cast_tower(p32, torch.bfloat16))
+            p32, p = blocks[dm]
+            heads = dm // 64
+            x = torch.randn((b, t, dm), generator=gen, device=dev).to(torch.bfloat16)
+            if name == "attn_block":
+                fn = lambda x=x, p=p: bk.attn_block(x, p["ln_1"], p["attn"], heads, causal)  # noqa: E731
+                plain = lambda x=x, p=p: bk.attn_block_plain(x, p["ln_1"], p["attn"], heads,  # noqa: E731
+                                                             causal)
+                pairs = t * (t + 1) // 2 if causal else t * t
+                nflops = 2 * b * t * dm * 4 * dm + 2 * 2 * b * pairs * dm
+                wbytes = (4 * dm * dm + 6 * dm) * 2
+            else:
+                fn = lambda x=x, p=p: bk.mlp_block_resident(x, p["ln_2"], p["mlp"])  # noqa: E731
+                plain = lambda x=x, p=p: bk.mlp_block_plain(x, p["ln_2"], p["mlp"])  # noqa: E731
+                nflops = 2 * 2 * b * t * dm * 4 * dm
+                wbytes = (8 * dm * dm + 7 * dm) * 2
+            got, ref = fn(), plain()
+            torch.cuda.synchronize()
+            if got.dtype != torch.bfloat16 or got.shape != x.shape:
+                fail(f"{name} bf16 returned {got.dtype} {tuple(got.shape)}")
+            err, rel = _errors(got.float(), ref.float())
+            scale = ref.float().abs().max().item()
+            tol = max(1.0, scale) / 64
+            shape = f"[{b},{t},{dm}]" + (" causal" if causal else "") + " bf16"
+            print(f"[bf16 kernels] {name} {shape}: max_abs_err {err:.3e} max_rel_err {rel:.3e} "
+                  f"(max |ref| {scale:.3f}; tolerance (1/64) x max(1, max |ref|) = {tol:.2e})")
+            if not err <= tol:
+                fail(f"{name} {shape} disagrees with its plain bf16 version: {err} > {tol}")
+            if not timed:
+                continue
+            x32 = x.float()
+            if name == "attn_block":
+                f32 = lambda: bk.attn_block(x32, p32["ln_1"], p32["attn"], heads, causal)  # noqa: E731
+            else:
+                f32 = lambda: bk.mlp_block(x32, p32["ln_2"], p32["mlp"])  # noqa: E731
+            n = BF16_CALLS
+            ms = time_ms(fn, reps=10, calls=n)
+            plain_ms = time_ms(plain, reps=10, calls=n)
+            f32_ms = time_ms(f32, reps=10, calls=n)
+            split = device_split(fn, calls=n)
+            dev_ms = sum(split.values()) or None
+            nbytes = 2 * x.numel() * 2 + wbytes
+            bound_ms, bound_by = _bound_bf16(nbytes, nflops, card)
+            print(f"[bf16 kernels] {name} {shape}: {ms:.4f} ms per call over {n} back-to-back "
+                  f"calls (torch.profiler device time {_fmt_ms(dev_ms)} per call: "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+                  + f"), plain (cuBLAS bf16) {plain_ms:.4f} ms, the float32 kernel on the same "
+                  f"values {f32_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+                  f"{nflops / 1e9:.2f} GFLOP at {BF16_FLOPS / 1e12:.0f} TFLOP/s bf16, "
+                  f"{nbytes / 1e6:.1f} MB; {ms / bound_ms:.2f}x it), "
+                  f"{nflops / ms / 1e9:.2f} TFLOP/s on {card['smi']}")
+            del x32
+            results.append({
+                "name": f"{name}_bf16", "route": "cuda", "source": _source(name)[0],
+                "replaces": _source(name)[1], "shape": shape, "path": path,
+                "max_abs_err": err, "max_rel_err": rel, "tolerance": tol, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": None, "device_ms": dev_ms, "f32_kernel_ms": f32_ms,
+            })
+    del blocks
+    torch.cuda.empty_cache()
+    print(f"[bf16 kernels] phase took {time.time() - t0:.1f} s")
+    return results
+
+
 ATTENTION_CASES = [  # (kernel, path, (B, T, heads), causal, timed, input scale)
     ("fused_qkv", "benchmark", (256, 257, 16), False, True, 1),  # ViT-L/14 vision
     ("fused_qkv", None, (1024, 50, 12), False, True, 1),  # ViT-B/32 vision, impl="fused"
@@ -780,9 +941,11 @@ def phase_attention(card: dict) -> list[dict]:
 SLICES = {
     # modality: launches expected on the CLI's main path, per iteration
     "text": {"attn_block": 0, "mlp_block": 0, "mlp_stream": 0, "fused_qkv": 0,
-             "packed_attention": 0, "attn_stream": 0, "mlp_chunked": 0, "disturb": 128},
+             "packed_attention": 0, "attn_stream": 0, "mlp_chunked": 0, "disturb": 128,
+             "attn_block_bf16": 0, "mlp_block_bf16": 0},
     "image": {"attn_block": 12, "mlp_block": 0, "mlp_stream": 12, "fused_qkv": 0,
-              "packed_attention": 0, "attn_stream": 0, "mlp_chunked": 0, "disturb": 128},
+              "packed_attention": 0, "attn_stream": 0, "mlp_chunked": 0, "disturb": 128,
+              "attn_block_bf16": 0, "mlp_block_bf16": 0},
 }
 STARTUP = {"text": {"attn_block": 12, "mlp_block": 12}, "image": {}}  # the text table
 
@@ -963,6 +1126,173 @@ def profile_iteration(trainer, state, tag: str, what: str, card: dict,
     return out
 
 
+# The CLIP-PPO CLI's ablation runs (HARD disturbances, 2 iterations of
+# 8 x 128 on Empty-16x16 at ViT-B/32): FROZEN_CLIP's trunk is the bf16 vision
+# tower, RANDOM_ENCODER aligns with Gaussian embeddings (λ = 1e-5).
+ABLATIONS = {
+    "FROZEN_CLIP": [],
+    "RANDOM_ENCODER": ["--clip-config.clip-lambda", "1e-5"],
+}
+
+
+def ablation_launches(args, mode: str) -> dict:
+    """Each kernel's launches per iteration of the CLI under ``mode``, from
+    its configuration: K1 once a rollout step; under FROZEN_CLIP K2 and K3
+    in bf16 once a vision layer for every tower call (each rollout step, the
+    bootstrap value, each minibatch of the update); nothing else."""
+    from clip_ppo_tpu_torch import cuda_build
+    from clip_ppo_tpu_torch.models.clip.config import CLIP_CONFIGS
+
+    per = {k: 0 for k in cuda_build.LAUNCHES}
+    per["disturb"] = args.num_steps
+    if mode == "FROZEN_CLIP":
+        calls = args.num_steps + 1 + args.update_epochs * args.num_minibatches
+        layers = CLIP_CONFIGS[args.clip_config.clip_model].vision_layers
+        per["attn_block_bf16"] = per["mlp_block_bf16"] = layers * calls
+    return per
+
+
+def phase_ablation(results: list[dict], card: dict, mode: str) -> None:
+    """The CLIP-PPO MiniGrid CLI under ``mode`` for two iterations, through
+    its ``train()``: every kernel's launches against
+    :func:`ablation_launches`, finite losses, the CLIP loss off (FROZEN_CLIP)
+    or on (RANDOM_ENCODER), view mode off (HARD disturbances), the TensorBoard
+    events and the final checkpoint."""
+    import math
+
+    import torch
+
+    from clip_ppo_tpu_torch import cuda_build
+    from clip_ppo_tpu_torch.cli import clip_ppo_minigrid as cli
+    from clip_ppo_tpu_torch.utils import flags
+
+    t_phase = time.time()
+    argv = [
+        "--clip-config.ablation-mode", mode, *ABLATIONS[mode],
+        "--clip-config.apply-disturbances", "--clip-config.disturbance-severity", "HARD",
+        "--total-timesteps", "2048", "--no-capture-video", "--seed", "1",
+    ]
+    args = flags.parse(cli.Args, argv)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            args.model_path = os.path.join(tmp, "checkpoints")
+            cuda_build.reset_launches()
+            t0 = time.time()
+            summary = cli.train(args, run_name="chip_smoke")
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            launches = dict(cuda_build.LAUNCHES)
+            events = [f for _, _, fs in os.walk(os.path.join(tmp, "runs")) for f in fs
+                      if "tfevents" in f]
+            ckpts = os.listdir(args.model_path)
+        finally:
+            os.chdir(cwd)
+    iters = args.num_iterations
+    per = ablation_launches(args, mode)
+    tag = f"[{mode}]"
+    scalars = summary["last_scalars"]
+    print(f"{tag} python -m clip_ppo_tpu_torch.cli.clip_ppo_minigrid {' '.join(argv)}: {iters} "
+          f"iterations of {args.num_envs}x{args.num_steps} on {args.env_id} at "
+          f"{args.clip_config.clip_model} in {wall:.2f} s wall; view mode {summary['view_mode']}; "
+          f"launches {launches} (expected per iteration {per}); steady SPS {summary['sps']:.1f}; "
+          + ", ".join(f"{k} {float(scalars[k]):.6f}"
+                      for k in ("policy_loss", "value_loss", "entropy", "first_clip_loss"))
+          + f" on {card['smi']}")
+    for name, n in per.items():
+        if launches[name] != n * iters:
+            fail(f"{name} launched {launches[name]} times under {mode}, expected {n * iters}")
+    for key, v in scalars.items():
+        if not math.isfinite(float(v)) and key != "explained_variance":
+            fail(f"non-finite {key} = {v} under {mode}")
+    clip_on = float(scalars["first_clip_loss"]) > 0.0
+    if clip_on != (mode == "RANDOM_ENCODER"):
+        fail(f"{mode}: the CLIP loss {'ran' if clip_on else 'did not run'} "
+             f"(first_clip_loss {float(scalars['first_clip_loss'])})")
+    if summary["view_mode"]:
+        fail(f"{mode} took the view fast path under HARD disturbances")
+    if not events:
+        fail(f"no TensorBoard event file written under {mode}")
+    if not any(c.endswith("_final.ckpt") for c in ckpts):
+        fail(f"no final checkpoint among {ckpts}")
+    if mode == "FROZEN_CLIP":
+        for r in results:
+            if r["path"] == "frozen":
+                r["launches"] = launches[r["name"]]
+    print(f"{tag} phase took {time.time() - t_phase:.1f} s")
+
+
+def phase_frozen_profile(card: dict) -> None:
+    """One steady FROZEN_CLIP iteration (8 x 128, Empty-16x16, HARD,
+    ViT-B/32 in bf16) by part, with the device's busy share and its time by
+    ported kernel."""
+    import torch
+
+    from clip_ppo_tpu_torch.envs.vector import TorchVectorEnv
+    from clip_ppo_tpu_torch.models import clip_utils
+    from clip_ppo_tpu_torch.models.agent import init_agent_params
+    from clip_ppo_tpu_torch.models.clip.model import cast_tower
+    from clip_ppo_tpu_torch.ops.severity import DisturbanceSeverity, SEVERITY_CONFIGS
+    from clip_ppo_tpu_torch.train.ppo import PPOConfig
+    from clip_ppo_tpu_torch.train.runner import Trainer
+
+    t0 = time.time()
+    dev = torch.device("cuda", 0)
+    env = TorchVectorEnv("MiniGrid-Empty-16x16-v0", 8, dev)
+    clip_params, clip_cfg = clip_utils.load_clip_model("ViT-B/32", dev)
+    trainer = Trainer(PPOConfig(), env, 2, disturbance=SEVERITY_CONFIGS[DisturbanceSeverity.HARD],
+                      features_fn=clip_utils.make_frozen_clip_features_fn(clip_cfg),
+                      frozen_params={"clip": cast_tower(clip_params, torch.bfloat16)})
+    del clip_params
+    gen = torch.Generator()
+    gen.manual_seed(1)
+    state = trainer.init_state(init_agent_params(gen, env.num_actions, dev), 1)
+    profile_iteration(trainer, state, "[FROZEN_CLIP profile]",
+                      "8x128, Empty-16x16, HARD, FROZEN_CLIP, ViT-B/32 in bf16", card)
+    print(f"[FROZEN_CLIP profile] phase took {time.time() - t0:.1f} s")
+
+
+def phase_frozen_encode(card: dict) -> None:
+    """The FROZEN_CLIP trunk's features of a few frames: the bf16 ViT-B/32
+    vision tower through K2 and K3 in bf16 on the card against the plain bf16
+    route on the CPU with the same weights, L2-normalized, 2e-2 absolute
+    (the bound ``tests/test_clip.py`` puts on bf16 against float32)."""
+    import torch
+
+    from clip_ppo_tpu_torch import cuda_build
+    from clip_ppo_tpu_torch.models import clip_utils
+    from clip_ppo_tpu_torch.models.clip.model import cast_tower
+    from clip_ppo_tpu_torch.utils.tree import tree_map
+
+    t0 = time.time()
+    dev = torch.device("cuda", 0)
+    params, cfg = clip_utils.load_clip_model("ViT-B/32", dev)
+    visual = cast_tower({"visual": params["visual"]}, torch.bfloat16)
+    del params
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    frames = torch.randint(0, 256, (4, 84, 84, 3), generator=gen, device=dev, dtype=torch.uint8)
+    cuda_build.reset_launches()
+    got = clip_utils.get_frozen_clip_features(visual, cfg, frames.float() / 255.0)
+    launches = _launch_delta({k: 0 for k in cuda_build.LAUNCHES}, cuda_build.LAUNCHES)
+    got = clip_utils.l2_normalize(got).cpu()
+    t_cpu = time.time()
+    ref = clip_utils.l2_normalize(clip_utils.get_frozen_clip_features(
+        tree_map(lambda t: t.cpu(), visual), cfg, frames.cpu().float() / 255.0))
+    t_cpu = time.time() - t_cpu
+    err = (got - ref).abs().max().item()
+    want = {"attn_block_bf16": cfg.vision_layers, "mlp_block_bf16": cfg.vision_layers}
+    print(f"[frozen encode] 4 frames through the bf16 ViT-B/32 vision tower (launches {launches}) "
+          f"vs the plain bf16 route on the CPU ({t_cpu:.1f} s): shape {tuple(got.shape)}, "
+          f"max_abs_err {err:.3e} on unit vectors (tolerance 2e-2)")
+    if launches != want:
+        fail(f"the bf16 vision tower launched {launches}, expected {want}")
+    if got.shape != (4, cfg.embed_dim) or not torch.isfinite(got).all() or not err <= 2e-2:
+        fail(f"bf16 tower features on the card disagree with the CPU: {err}")
+    print(f"[frozen encode] phase took {time.time() - t0:.1f} s")
+
+
 # The vanilla CLI's two runs: the view fast path, and per-image HARD
 # disturbances. Neither reaches a kernel of the port: per-image
 # disturbances are plain PyTorch, never K1, which computes the batched
@@ -1114,6 +1444,12 @@ BENCH_L14 = ["--model", "ViT-L/14", "--dtype", "float32", "--batch-sizes", "64",
              "--text-batch", "1024", "--iterations", "3"]
 BENCH_L14_PER_CALL = {"image": {"fused_qkv": 24, "mlp_stream": 24},
                       "text": {"attn_block": 12, "mlp_stream": 12}}
+# The encoder benchmark at its default dtype, bf16, at ViT-B/32: both towers
+# run K2 and K3 in bf16 (the text tower is 512 wide).
+BENCH_BF16 = ["--model", "ViT-B/32", "--batch-sizes", "64", "256", "1024", "--text-batch",
+              "1024", "--iterations", "3"]
+BENCH_BF16_PER_CALL = {"image": {"attn_block_bf16": 12, "mlp_block_bf16": 12},
+                       "text": {"attn_block_bf16": 12, "mlp_block_bf16": 12}}
 BENCH_PALLAS = ["--model", "ViT-B/32", "--dtype", "float32", "--attention-impl", "pallas",
                 "--batch-sizes", "64", "--iterations", "2"]
 BENCH_PALLAS_PER_CALL = {"image": {"packed_attention": 12},
@@ -1295,7 +1631,8 @@ def main() -> None:
     for k in SWITCH_VARS:  # the earlier paths run with every switch unset
         os.environ.pop(k, None)
     card = phase_card()
-    results = phase_kernels(card) + phase_attention(card) + phase_stream_kernels(card)
+    results = (phase_kernels(card) + phase_attention(card) + phase_stream_kernels(card)
+               + phase_bf16_kernels(card))
     for modality in ("text", "image"):
         phase_slice(results, card, modality)
         if modality == "image":
@@ -1312,11 +1649,18 @@ def main() -> None:
         f"{k} {v * 1e3:.2f} ms/batch, {256 / v:.1f} frames/s" for k, v in image.items())
         + f" on {card['smi']}")
     phase_large_tower(card)
+    for mode in ABLATIONS:
+        phase_ablation(results, card, mode)
+    phase_frozen_encode(card)
+    phase_frozen_profile(card)
+    t0 = time.time()
+    phase_benchmark(results, card, "bench_bf16", BENCH_BF16, BENCH_BF16_PER_CALL)
+    print(f"[benchmark bench_bf16] phase took {time.time() - t0:.1f} s")
     order = ("name", "route", "source", "replaces", "shape", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(f"[done] every phase passed in {time.time() - t_start:.1f} s")
     extra = ("bound_fp32_ms", "device_ms", "library_device_ms", "ctas", "empty_ms",
-             "empty_device_ms", "ms_8_ctas", "device_ms_8_ctas")
+             "empty_device_ms", "ms_8_ctas", "device_ms_8_ctas", "f32_kernel_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in (*order, *extra) if k in r}
                                   for r in results if r["path"]]}))
     print(card["smi"])

@@ -14,9 +14,11 @@ with ``--no-cuda`` (the kernels' plain versions). ``--attention-impl``
 routes the towers as ``models/clip/model.py`` describes: at ViT-L/14 "auto"
 runs K4 and K5 in the vision tower and K2 and K5 in the text tower; "pallas"
 runs K8 in the vision tower. As in the JAX tool, the text half always runs
-"auto". Float32 only: ``--dtype bfloat16`` (the JAX tool's default),
-``--tp``/``--num-devices`` above 1 and ViT-B/16 on the GPU are rejected,
-each naming the slice of ``ROADMAP.md`` that brings it.
+"auto". ``--dtype bfloat16``, the JAX tool's default, casts the towers once
+(``model.cast_tower``) and runs them in bf16: at ViT-B/32 both towers take
+K2 and K3 in bf16. Rejected, each naming the slice of ``ROADMAP.md`` that
+brings it: bfloat16 at ViT-L/14 (K4 and K5 in bf16), ``--tp``/
+``--num-devices`` above 1, and ViT-B/16 on the GPU.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ import torch
 from clip_ppo_tpu_torch.device import resolve_device
 from clip_ppo_tpu_torch.models.clip.config import CLIP_CONFIGS
 from clip_ppo_tpu_torch.models.clip.loader import load_clip_model
-from clip_ppo_tpu_torch.models.clip.model import encode_image, encode_text
+from clip_ppo_tpu_torch.models.clip.model import cast_tower, encode_image, encode_text
 from clip_ppo_tpu_torch.ops.resize import preprocess_for_clip
 from clip_ppo_tpu_torch.utils import flags
 
@@ -48,7 +50,7 @@ class ClipBenchArgs:
     source_size: int = 84
     """input frame size before the fused resize (the rollout frame size)"""
     dtype: str = "bfloat16"
-    """compute dtype: bfloat16 | float32 (the port runs float32 only so far)"""
+    """compute dtype: bfloat16 | float32"""
     attention_impl: str = "auto"
     """attention implementation: auto | fused | block | xla | packed2 |
     packed4 | pallas (see models/clip/model.py)"""
@@ -63,24 +65,32 @@ class ClipBenchArgs:
 
 
 _IMPLS = ("auto", "fused", "block", "xla", "pallas")
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def _reject_unported(args: ClipBenchArgs, device: torch.device) -> None:
     """Options that need later slices of the port, by name, before any tower
     is built."""
-    if args.dtype != "float32":
+    if args.dtype not in _DTYPES:
+        raise SystemExit(f"--dtype {args.dtype}: one of {', '.join(_DTYPES)}")
+    if args.dtype == "bfloat16" and args.model == "ViT-L/14":
         raise SystemExit(
-            f"--dtype {args.dtype}: the port runs float32 only so far; bfloat16 (the JAX "
-            "tool's default) comes with the FROZEN_CLIP/bf16 slice (ROADMAP.md Queue 1 "
-            "item 3). Pass --dtype float32.")
+            "--model ViT-L/14 --dtype bfloat16 needs K4 and K5 in bf16, which come with the "
+            "ViT-L/14 bf16 slice (ROADMAP.md Queue 1 item 3); pass --dtype float32.")
+    if args.dtype == "bfloat16" and args.attention_impl in ("fused", "pallas") \
+            and device.type == "cuda":
+        raise SystemExit(
+            f"--attention-impl {args.attention_impl} --dtype bfloat16 on the GPU needs K4/K8 in "
+            "bf16, which come with the ViT-L/14 bf16 slice (ROADMAP.md Queue 1 item 3); pass "
+            "--dtype float32.")
     if args.tp > 1 or args.num_devices > 1:
         raise SystemExit(
             f"--tp {args.tp} --num-devices {args.num_devices}: multi-GPU runs come with "
             "the multi-GPU slice (ROADMAP.md Queue 1 item 9); the port runs on one device.")
     if args.model == "ViT-B/16" and device.type == "cuda":
         raise SystemExit(
-            "--model ViT-B/16 on the GPU needs K2 at T = 197 tokens, which comes with the "
-            "ViT-B/16 slice (ROADMAP.md Queue 1 item 4); run it with --no-cuda.")
+            "--model ViT-B/16 on the GPU is not yet driven and timed on the card: it comes "
+            "with the ViT-B/16 slice (ROADMAP.md Queue 1 item 4); run it with --no-cuda.")
     if args.model not in CLIP_CONFIGS:
         raise SystemExit(f"--model {args.model}: one of {', '.join(CLIP_CONFIGS)}")
     impl = args.attention_impl
@@ -107,12 +117,14 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     device = resolve_device(args.cuda)
     _reject_unported(args, device)
     params, cfg = load_clip_model(args.model, device, pretrained="auto", seed=args.seed)
+    dtype = _DTYPES[args.dtype]
+    params = cast_tower(params, dtype)
     kind = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     print(f"model={args.model} dtype={args.dtype} device={device.type} ({kind})")
 
     def image_fwd(frames: torch.Tensor) -> torch.Tensor:
         x = preprocess_for_clip(frames.float() / 255.0, cfg.image_size)
-        return encode_image(params, cfg, x, attention_impl=args.attention_impl)
+        return encode_image(params, cfg, x, dtype, attention_impl=args.attention_impl)
 
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
@@ -130,8 +142,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         toks[:, -1] = cfg.vocab_size - 1
         # The perturbation lifts the last token to vocab_size; the JAX tool's
         # gather clamps such an index, so the port clamps it explicitly.
-        t = _bench(lambda z: encode_text(params, cfg, z.clamp(max=cfg.vocab_size - 1)), toks,
-                   args.iterations)
+        t = _bench(lambda z: encode_text(params, cfg, z.clamp(max=cfg.vocab_size - 1), dtype),
+                   toks, args.iterations)
     print(f"text  batch={args.text_batch}: {t * 1e3:.2f} ms/batch "
           f"({args.text_batch / t:.0f} seqs/s/chip)")
 

@@ -17,6 +17,13 @@ stored or acted on (`clip_ppo_minigrid.py:381-388`). Embeddings enter the
 update as data and latents are detached, so the CLIP loss is a monitor that
 never perturbs the policy gradient.
 
+The ablations (``--clip-config.ablation-mode``): FROZEN_CLIP makes the
+frozen CLIP vision tower, cast once to bfloat16, the agent's trunk (K2 and
+K3 in bf16 on the GPU, in every rollout step, the bootstrap value and every
+minibatch of the update), with no CLIP loss; RANDOM_ENCODER aligns the
+latent with fresh normalized Gaussian embeddings drawn each iteration
+instead of CLIP's (λ > 0), and launches no tower kernel.
+
 TensorBoard tags (including ``config/disturbance_severity``), checkpoint
 payload and naming, derived batch sizes and the CLI surface match the
 reference. Options that need later slices of the port are rejected with an
@@ -44,8 +51,14 @@ from clip_ppo_tpu_torch.io.tb_writer import SummaryWriter, hyperparameters_table
 from clip_ppo_tpu_torch.io.tracking import ProfilerWindow, maybe_init_wandb
 from clip_ppo_tpu_torch.io.video import VideoRecorder
 from clip_ppo_tpu_torch.models import clip_utils
-from clip_ppo_tpu_torch.models.agent import LATENT_DIM, AblationMode, init_agent_params
+from clip_ppo_tpu_torch.models.agent import (
+    LATENT_DIM,
+    AblationMode,
+    cnn_features,
+    init_agent_params,
+)
 from clip_ppo_tpu_torch.models.clip.config import CLIP_CONFIGS
+from clip_ppo_tpu_torch.models.clip.model import cast_tower
 from clip_ppo_tpu_torch.ops.severity import DisturbanceSeverity, resolve_params
 from clip_ppo_tpu_torch.train.ppo import PPOConfig
 from clip_ppo_tpu_torch.train.runner import LogPipeline, Trainer, chunk_length
@@ -70,7 +83,7 @@ class MiniGridClipPPOConfig(clip_utils.ClipPPOConfig):
     """moderate disturbances work well for MiniGrid"""
     structured_frozen_init: bool = False
     """no reference equivalent: distill the CLIP visual tower to pixel-PCA
-    features before training (comes with the FROZEN_CLIP slice)"""
+    features before training (comes with the distillation slice)"""
 
 
 @dataclass
@@ -178,21 +191,20 @@ class Args:
 
 def _reject_later_slices(args: Args, compute_clip: bool, device: torch.device) -> None:
     cc = args.clip_config
-    image = compute_clip and cc.clip_modality == "image"
+    random_mode = cc.ablation_mode == AblationMode.RANDOM_ENCODER
+    frozen_mode = cc.ablation_mode == AblationMode.FROZEN_CLIP
+    image = (compute_clip and cc.clip_modality == "image" and not random_mode) or frozen_mode
     later = [
         (args.num_devices > 1 or args.tp > 1 or args.distributed,
          "--num-devices/--tp > 1 and --distributed", "the multi-GPU slice"),
-        (cc.ablation_mode == AblationMode.FROZEN_CLIP, "FROZEN_CLIP",
-         "the FROZEN_CLIP slice"),
-        (cc.ablation_mode == AblationMode.RANDOM_ENCODER, "RANDOM_ENCODER",
-         "the FROZEN_CLIP slice"),
         (cc.structured_frozen_init, "--clip-config.structured-frozen-init",
          "the distillation slice (gradients through the CLIP towers)"),
         (image and cc.clip_model == "ViT-B/16" and device.type == "cuda",
-         "The image modality at ViT-B/16 on the GPU (K2 at its 197 tokens)",
+         "The vision tower at ViT-B/16 on the GPU (not yet driven and timed on the card)",
          "the ViT-B/16 slice"),
         (args.mission_conditioning, "--mission-conditioning", "the extensions slice"),
-        (compute_clip and not args.text_embed_table and cc.clip_modality == "text",
+        (compute_clip and not random_mode and not args.text_embed_table
+         and cc.clip_modality == "text",
          "--no-text-embed-table", "a later slice (the per-step host tokenization path)"),
     ]
     for requested, what, slice_name in later:
@@ -201,8 +213,10 @@ def _reject_later_slices(args: Args, compute_clip: bool, device: torch.device) -
                              "the PyTorch/CUDA port")
     if compute_clip and cc.clip_modality not in ("image", "text"):
         raise SystemExit(f"Invalid modality: {cc.clip_modality}. Must be 'image' or 'text'")
-    if compute_clip:
-        # The JAX package raises this at the loss; here before any tower runs.
+    if (compute_clip and not random_mode) or frozen_mode:
+        # The JAX package raises this at the loss (or, FROZEN_CLIP, at the
+        # heads' product); here before any tower runs. RANDOM_ENCODER's
+        # embeddings are 512 wide whatever the tower.
         clip_utils.check_embedding_width(LATENT_DIM, CLIP_CONFIGS[cc.clip_model].embed_dim)
 
 
@@ -240,15 +254,26 @@ def train(args: Args, run_name: Optional[str] = None) -> dict:
     else:
         print("Disturbances disabled")
 
-    # Image modality: the CLIP weights stay in frozen["clip"] and the vision
-    # tower encodes each iteration's observations. Text modality:
-    # descriptions are f(agent_x, agent_y, dir) + a suffix that is the static
-    # border wall on these layouts (checked over 16 resets), so the W·H·4
-    # description table is encoded once.
+    # The tower is needed when the alignment loss is active or the trunk is
+    # frozen CLIP (`clip_ppo_minigrid.py:321-326`). FROZEN_CLIP: the tower,
+    # cast once to bf16, in frozen["clip"] is the agent's trunk. Image
+    # modality: the CLIP weights stay in frozen["clip"] and the vision tower
+    # encodes each iteration's observations. Text modality: descriptions are
+    # f(agent_x, agent_y, dir) + a suffix that is the static border wall on
+    # these layouts (checked over 16 resets), so the W·H·4 description table
+    # is encoded once. RANDOM_ENCODER: fresh normalized Gaussians each
+    # iteration take the place of both.
     frozen_params, embed_images_fn, embed_desc_fn, table_seconds = None, None, None, 0.0
-    if compute_clip:
+    embed_random_fn, features_fn = None, cnn_features
+    frozen_mode = cc.ablation_mode == AblationMode.FROZEN_CLIP
+    if compute_clip or frozen_mode:
         clip_params, clip_cfg = clip_utils.load_clip_model(cc.clip_model, device)
-    if compute_clip and cc.clip_modality == "image":
+    if frozen_mode:
+        frozen_params = {"clip": cast_tower(clip_params, torch.bfloat16)}
+        features_fn = clip_utils.make_frozen_clip_features_fn(clip_cfg)
+    elif compute_clip and cc.ablation_mode == AblationMode.RANDOM_ENCODER:
+        embed_random_fn = clip_utils.make_random_embed_fn(args.batch_size)
+    elif compute_clip and cc.clip_modality == "image":
         frozen_params = {"clip": clip_params}
         embed_images_fn = clip_utils.make_encode_images_fn(clip_cfg)
     elif compute_clip:
@@ -280,7 +305,8 @@ def train(args: Args, run_name: Optional[str] = None) -> dict:
     )
     trainer = Trainer(
         cfg, env, num_iterations=args.num_iterations, disturbance=disturbance,
-        embed_images_fn=embed_images_fn, embed_desc_fn=embed_desc_fn, clip_lambda=cc.clip_lambda,
+        features_fn=features_fn, embed_images_fn=embed_images_fn, embed_desc_fn=embed_desc_fn,
+        embed_random_fn=embed_random_fn, clip_lambda=cc.clip_lambda,
         capture_env0=args.capture_video, frozen_params=frozen_params,
     )
     param_gen = torch.Generator()
@@ -343,6 +369,7 @@ def train(args: Args, run_name: Optional[str] = None) -> dict:
         "recent_returns": logger.last_returns[-100:],
         "run_name": run_name,
         "table_seconds": table_seconds,
+        "view_mode": trainer.view_mode,
         "last_scalars": last_scalars,
     }
 

@@ -70,11 +70,18 @@
 //   (causal) past the warp's last row. The warp still takes its part in the
 //   copies and barriers.
 //
-// The element type of q, k, v and the output is a template parameter; only
-// float is instantiated (a bf16 one takes m16n8k16 and its own fragments).
+// The element type of q, k, v and the output is a template parameter:
+// attention_kernel takes float. bfloat16 (the attention stage of K2 in
+// bf16, attn_half.cuh) takes attention_bf16_kernel below, which launch()
+// picks by the element type: one bf16 pass a product on mma.sync.m16n8k16
+// with fp32 accumulators, as the TPU kernel computes it
+// (pallas_attention.py::rows_pair_attention with bf16 q, k, v): the scores
+// and the softmax in fp32, P rounded to bf16 before P . V, the output
+// rounded to bf16.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -360,7 +367,242 @@ __global__ void __launch_bounds__(kMaxRows / kWarpRows * 32, kMinBlocks) attenti
   }
 }
 
-// Sizes the query tile by T and launches. Returns a cudaError_t.
+// Sizes the query tile by T and launches attention_kernel (float) or
+// attention_bf16_kernel (bfloat16, below). Returns a cudaError_t.
+template <typename scalar_t>
+int launch(Args<scalar_t> a, int B, cudaStream_t st);
+
+// -- bfloat16 ------------------------------------------------------------
+//
+// attention_bf16_kernel: the same blocks, warps, key tiles, online softmax
+// and edges as attention_kernel, with one bf16 mma.sync.m16n8k16 a product:
+// * Scores. A warp's q rows stay in registers as A fragments for the whole
+//   key walk (16 registers). A sum over the head dimension does not care
+//   which k-position takes which dimension, as long as q and k agree: in
+//   k-step kk, k-positions 2t, 2t + 1 take dimensions 16 t + 4 kk + {0, 1}
+//   and 2t + 8, 2t + 9 take 16 t + 4 kk + {2, 3}, so every lane reads its q
+//   rows and its key row (key 8 j + lane / 4 of n-tile j) as two 16-byte
+//   vectors each, for all four k-steps at once.
+// * P . V. The scores' C fragments of n-tiles 2 s and 2 s + 1, rounded to
+//   bf16, are P's A fragment of k-step s as they lie (keys 16 s + 2t, + 1
+//   and + 8, + 9). V's B fragments come from the row-major [key, dim] tile
+//   by ldmatrix.x4.trans: four 8 x 8 blocks (keys 16 s + {0, 8} by dims
+//   16 np + {0, 8}) give two n-tiles' B fragments.
+// * Shared memory. k and v tiles of 64 keys x 64 dims, rows 144 bytes apart
+//   (16 bytes of padding), so that neither the 16-byte key reads of 8 lanes
+//   nor ldmatrix's 8 row reads meet in a bank; two stages, 36 KB.
+// * The scale 1/8 is exact in either type: it is applied to the fp32 scores
+//   inside the exponent's FMA.
+
+constexpr int kStride16 = 72;  // row stride (bf16 elements) of the k and v tiles
+constexpr int kTileBytes16 = kKeys * kStride16 * 2;
+constexpr int kSmemBytes16 = 2 * 2 * kTileBytes16;  // two stages of k and v
+
+// d += a * b on the tensor cores in bf16: a 16 x 16 (row), b 16 x 8 (col),
+// d 16 x 8 in fp32.
+__device__ __forceinline__ void mma16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                      uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats rounded to bf16, lo in the low half (the lower k- or n-index).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Four 8 x 8 blocks of 16-bit elements, transposed: lane L gives the row
+// address of row L % 8 of block L / 8; register i gets block i's element
+// pairs (rows 2 (lane % 4), + 1; column lane / 4).
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+template <typename scalar_t>
+__global__ void __launch_bounds__(kMaxRows / kWarpRows * 32, kMinBlocks)
+    attention_bf16_kernel(const Args<scalar_t> a) {
+  static_assert(sizeof(scalar_t) == 2, "bfloat16 elements");
+  extern __shared__ __align__(16) unsigned char smem16[];
+  const uint32_t smem_addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem16));
+
+  const int T = a.T;
+  const int tile = blockIdx.x % a.q_tiles;
+  const int bh = blockIdx.x / a.q_tiles;
+  const int h = bh % a.H, b = bh / a.H;
+  const int q0 = tile * a.rows;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int row0 = q0 + (tid >> 5) * kWarpRows;  // the warp's rows: row0 .. row0 + 15
+
+  const scalar_t* qg = a.q + b * a.qb + h * a.qh;
+  const scalar_t* kg = a.k + b * a.kb + h * a.kh;
+  const scalar_t* vg = a.v + b * a.vb + h * a.vh;
+  scalar_t* og = a.o + b * a.ob + h * a.oh;
+
+  const int last_row = min(q0 + a.rows, T) - 1;
+  const int key_end = a.causal ? last_row + 1 : T;
+  const int n_tiles = (key_end + kKeys - 1) / kKeys;
+
+  // Tile i of k and v into stage i % 2: 8 copies of 16 bytes per row.
+  auto load_tile = [&](int i) {
+    unsigned char* ks = smem16 + (i & 1) * 2 * kTileBytes16;
+    const int k0 = i * kKeys;
+    for (int e = tid; e < 2 * kKeys * (kHeadDim / 8); e += nthreads) {
+      const int is_v = e >= kKeys * (kHeadDim / 8);
+      const int r = (e >> 3) & (kKeys - 1), c = (e & 7) * 8;
+      const int key = k0 + r < T ? k0 + r : 0;
+      const scalar_t* src = is_v ? vg + key * a.vt : kg + key * a.kt;
+      cp_async16(reinterpret_cast<float*>(ks + is_v * kTileBytes16 + (r * kStride16 + c) * 2),
+                 reinterpret_cast<const float*>(src + c), k0 + r < T ? 16 : 0);
+    }
+  };
+  load_tile(0);
+  cp_async_commit();
+
+  // q as A fragments: qf[kk][half] = dims 16 t + 4 kk + {0, 1} of row
+  // g + 8 half (a0, a1), qf[kk][2 + half] = dims 16 t + 4 kk + {2, 3} (a2, a3).
+  uint32_t qf[4][4];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row0 + g + 8 * half;
+    uint4 lo = make_uint4(0, 0, 0, 0), hi = make_uint4(0, 0, 0, 0);
+    if (row < T) {
+      lo = __ldg(reinterpret_cast<const uint4*>(qg + row * a.qt + 16 * t));
+      hi = __ldg(reinterpret_cast<const uint4*>(qg + row * a.qt + 16 * t + 8));
+    }
+    const uint32_t w[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      qf[kk][half] = w[2 * kk];
+      qf[kk][2 + half] = w[2 * kk + 1];
+    }
+  }
+
+  // o[n]: output columns 8 n + 2 t (c0, c2) and + 1 (c1, c3) of rows g (c0,
+  // c1) and g + 8 (c2, c3). m in log2 units of the scaled scores; l per lane.
+  constexpr float kScaleLog2e = kScale * kLog2e;
+  float o[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+
+  for (int i = 0; i < n_tiles; ++i) {
+    if (i + 1 < n_tiles) load_tile(i + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // tile i has landed (this thread's copies) ...
+    __syncthreads();     // ... and everyone's
+    const int k0 = i * kKeys;
+    // Warp-uniform: rows past T, or (causal) rows that see no key of the tile.
+    const bool active = row0 < T && !(a.causal && k0 > row0 + kWarpRows - 1);
+    if (active) {
+      const unsigned char* ks = smem16 + (i & 1) * 2 * kTileBytes16;
+      const uint32_t vs_addr = smem_addr + static_cast<uint32_t>(ks - smem16) + kTileBytes16;
+      int kn = min(kKeys, key_end - k0);  // keys of the tile that a row of the warp may see
+      if (a.causal) kn = min(kn, row0 + kWarpRows - k0);
+      const int jn = (kn + 7) >> 3;  // groups of 8 keys with work
+
+      // -- s[j] = q . k for keys k0 + 8 j + 2 t + {0, 1} ----------------------
+      float s[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+        if (j < jn) {
+          const unsigned char* kr = ks + ((8 * j + g) * kStride16 + 16 * t) * 2;
+          const uint4 k_lo = *reinterpret_cast<const uint4*>(kr);
+          const uint4 k_hi = *reinterpret_cast<const uint4*>(kr + 16);
+          const uint32_t kw[8] = {k_lo.x, k_lo.y, k_lo.z, k_lo.w, k_hi.x, k_hi.y, k_hi.z, k_hi.w};
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) mma16(s[j], qf[kk], kw[2 * kk], kw[2 * kk + 1]);
+        }
+      }
+
+      // -- mask, row max over the quad, rescale ----------------------------
+      if (k0 + kKeys > T || (a.causal && k0 + kKeys - 1 > row0)) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) if (j < jn) {
+            const int key = k0 + 8 * j + 2 * t + (e & 1);
+            const int row = row0 + g + 8 * (e >> 1);
+            if (key >= T || (a.causal && key > row)) s[j][e] = -INFINITY;
+          }
+      }
+      float m_new[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (j < jn) mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        // Finite from the first tile on: key 0 is seen by every row.
+        m_new[r] = fmaxf(m[r], mx * kScaleLog2e);
+        const float alpha = ex2(m[r] - m_new[r]);
+        m[r] = m_new[r];
+        l[r] *= alpha;
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          o[n][2 * r] *= alpha;
+          o[n][2 * r + 1] *= alpha;
+        }
+      }
+
+      // -- p = exp(s / 8 - m) in place; 0 for groups without work ----------
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float pr = j < jn ? ex2(fmaf(s[j][e], kScaleLog2e, -m_new[e >> 1])) : 0.0f;
+          l[e >> 1] += pr;
+          s[j][e] = pr;
+        }
+
+      // -- o += p . v, k-step ks over keys 16 ks .. 16 ks + 15 of the tile --
+#pragma unroll
+      for (int ks16 = 0; ks16 < 4; ++ks16) {
+        if (2 * ks16 < jn) {
+          const uint32_t pa[4] = {pack_bf16(s[2 * ks16][0], s[2 * ks16][1]),
+                                  pack_bf16(s[2 * ks16][2], s[2 * ks16][3]),
+                                  pack_bf16(s[2 * ks16 + 1][0], s[2 * ks16 + 1][1]),
+                                  pack_bf16(s[2 * ks16 + 1][2], s[2 * ks16 + 1][3])};
+          const int key = 16 * ks16 + 8 * ((lane >> 3) & 1) + (lane & 7);
+#pragma unroll
+          for (int np = 0; np < 4; ++np) {
+            const int dim = 16 * np + 8 * (lane >> 4);
+            uint32_t vb[4];
+            ldmatrix_x4_trans(vb, vs_addr + (key * kStride16 + dim) * 2);
+            mma16(o[2 * np], pa, vb[0], vb[1]);
+            mma16(o[2 * np + 1], pa, vb[2], vb[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // stage i % 2 is consumed before tile i + 2 is copied into it
+  }
+
+  if (row0 >= T) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = row0 + g + 8 * r;
+    if (row >= T) continue;
+    const float inv = 1.0f / l[r];
+    scalar_t* out = og + row * a.ot + 2 * t;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      *reinterpret_cast<uint32_t*>(out + 8 * n) =
+          pack_bf16(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
+  }
+}
+
 template <typename scalar_t>
 int launch(Args<scalar_t> a, int B, cudaStream_t st) {
   if (B == 0 || a.T == 0) return static_cast<int>(cudaSuccess);
@@ -369,11 +611,18 @@ int launch(Args<scalar_t> a, int B, cudaStream_t st) {
   a.rows = kWarpRows * ((a.T + per_tile - 1) / per_tile);
   const long long blocks = static_cast<long long>(B) * a.H * a.q_tiles;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = kSmemFloats * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_kernel<scalar_t>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  void (*kernel)(const Args<scalar_t>);
+  int smem;
+  if constexpr (sizeof(scalar_t) == 2) {
+    kernel = attention_bf16_kernel<scalar_t>;
+    smem = kSmemBytes16;
+  } else {
+    kernel = attention_kernel<scalar_t>;
+    smem = kSmemFloats * static_cast<int>(sizeof(float));
+  }
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  attention_kernel<scalar_t><<<static_cast<unsigned>(blocks), a.rows / kWarpRows * 32, smem, st>>>(a);
+  kernel<<<static_cast<unsigned>(blocks), a.rows / kWarpRows * 32, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -33,6 +33,19 @@
 // the 2.31 ms bound of the products: the price of products whose M is the
 // whole B*T. T is not bounded.
 
+// bf16 (attn_block_bf16_launch): the FROZEN_CLIP trunk and benchmark_clip's
+// default dtype run the tower in bfloat16, where the TPU routing sends
+// ViT-B/32's D = 768 blocks here too. The same four launches in bf16
+// (attn_half.cuh): every product one bf16 pass on the tensor cores (wgmma
+// m64n128k16 in gemm_bf16.cuh, mma.sync m16n8k16 in the attention tile)
+// with fp32 accumulators and LN statistics. Bound: 2 * B*T * D * 4D +
+// 2 * 2 * B * T^2 * D flops at the dense bf16 peak, 989 TFLOP/s: at the
+// FROZEN_CLIP update's [256, 50, 768], 62.4 GFLOP, 0.063 ms, against 2 x
+// 19.7 MB of x read and out written plus 4.7 MB of weights, 0.013 ms at
+// 3.35 TB/s; at the rollout's [8, 50, 768] the launches cost more than
+// either. Scratch: 4 B*T*D bf16.
+
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "attn_half.cuh"
@@ -46,6 +59,17 @@ int attn_block_launch(const float* x, const float* ln_g, const float* ln_b,
                       const float* w_qkv, const float* b_qkv, const float* w_out,
                       const float* b_out, float* stats, float* qkv, float* attn, float* out,
                       int B, int T, int D, int heads, int causal, float eps, void* stream) {
+  return attn_half::launch(x, ln_g, ln_b, w_qkv, b_qkv, w_out, b_out, stats, qkv, attn, out, B,
+                           T, D, heads, causal, eps, static_cast<cudaStream_t>(stream));
+}
+
+// As attn_block_launch, every tensor but stats bfloat16; stats fp32.
+int attn_block_bf16_launch(const __nv_bfloat16* x, const __nv_bfloat16* ln_g,
+                           const __nv_bfloat16* ln_b, const __nv_bfloat16* w_qkv,
+                           const __nv_bfloat16* b_qkv, const __nv_bfloat16* w_out,
+                           const __nv_bfloat16* b_out, float* stats, __nv_bfloat16* qkv,
+                           __nv_bfloat16* attn, __nv_bfloat16* out, int B, int T, int D,
+                           int heads, int causal, float eps, void* stream) {
   return attn_half::launch(x, ln_g, ln_b, w_qkv, b_qkv, w_out, b_out, stats, qkv, attn, out, B,
                            T, D, heads, causal, eps, static_cast<cudaStream_t>(stream));
 }

@@ -32,6 +32,20 @@
 // Widths: D and 4D multiples of 32 (the GEMM's reduction slice); any B*T
 // that fits an int.
 
+// bf16 (mlp_block_bf16_launch): in bfloat16 both weight matrices of
+// ViT-B/32's vision tower, 2 * 768 * 3,072 * 2 bytes = 9.4 MB, fit the TPU
+// kernel's budget, so the FROZEN_CLIP trunk and benchmark_clip's default
+// dtype run their D = 768 MLP halves here. The same three launches in bf16
+// (mlp_half.cuh): both products one bf16 pass on the tensor cores (wgmma
+// m64n128k16, gemm_bf16.cuh), fp32 accumulators and LN statistics. Bound:
+// 2 * 2 * B*T * D * 4D flops at the dense bf16 peak, 989 TFLOP/s: at the
+// FROZEN_CLIP update's [256, 50, 768], 121 GFLOP, 0.122 ms, against 2 x
+// 19.7 MB of x and out plus 9.4 MB of weights, 0.015 ms at 3.35 TB/s; at
+// the rollout's [8, 50, 768], 3.8 GFLOP, 0.004 ms, and 9.4 MB of weights,
+// 0.003 ms, below the cost of its launches. Widths: D and 4D multiples of
+// 64 (the bf16 reduction slice); scratch: the [B*T, 4D] bf16 hidden.
+
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -46,6 +60,17 @@ int mlp_block_launch(const float* x, const float* ln_g, const float* ln_b,
                      const float* w_fc, const float* b_fc, const float* w_proj,
                      const float* b_proj, float* stats, float* h, float* out, int M, int D,
                      int D4, float eps, void* stream) {
+  return mlp_half::launch(x, ln_g, ln_b, w_fc, b_fc, w_proj, b_proj, stats, h, out, M, D, D4, 1,
+                          eps, static_cast<cudaStream_t>(stream));
+}
+
+// As mlp_block_launch, every tensor but stats bfloat16; stats fp32; D and D4
+// multiples of 64.
+int mlp_block_bf16_launch(const __nv_bfloat16* x, const __nv_bfloat16* ln_g,
+                          const __nv_bfloat16* ln_b, const __nv_bfloat16* w_fc,
+                          const __nv_bfloat16* b_fc, const __nv_bfloat16* w_proj,
+                          const __nv_bfloat16* b_proj, float* stats, __nv_bfloat16* h,
+                          __nv_bfloat16* out, int M, int D, int D4, float eps, void* stream) {
   return mlp_half::launch(x, ln_g, ln_b, w_fc, b_fc, w_proj, b_proj, stats, h, out, M, D, D4, 1,
                           eps, static_cast<cudaStream_t>(stream));
 }

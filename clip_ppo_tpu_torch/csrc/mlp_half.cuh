@@ -24,50 +24,72 @@
 //
 // Widths: D a multiple of 32 (the GEMM's reduction slice), 4D a multiple of
 // 32 x n_chunks; any B*T that fits an int; every pointer 16-byte aligned.
+//
+// In bfloat16 (K3's bf16 entry point) the same launches run ln_stats on bf16
+// rows and the bf16 GEMM (gemm_bf16.cuh), one bf16 pass a product, one chunk only,
+// rounding where the TPU kernel rounds: LN2(x) to bf16 before fc, the hidden
+// to bf16 after QuickGELU in fp32, the projection to bf16 before the
+// residual add. Its reduction slice is 64 deep, so D and 4D are multiples of
+// 64 there.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "gemm_bf16.cuh"
 #include "gemm_tf32x3.cuh"
 #include "ln_stats.cuh"
 
 namespace mlp_half {
 
 // x, out: [M, D]; w_fc: [D4, D]; b_fc: [D4]; w_proj: [D, D4]; b_proj, ln_g,
-// ln_b: [D]; stats: [M, 2] and h: [M, D4 / n_chunks] scratch. Returns a
-// cudaError_t.
-inline int launch(const float* x, const float* ln_g, const float* ln_b, const float* w_fc,
-                  const float* b_fc, const float* w_proj, const float* b_proj, float* stats,
-                  float* h, float* out, int M, int D, int D4, int n_chunks, float eps,
-                  cudaStream_t st) {
-  using gemm_tf32x3::Params;
-  if (M < 1 || D < 32 || D % 32 != 0 || n_chunks < 1 || D4 < 32 * n_chunks ||
-      D4 % (32 * n_chunks) != 0)
+// ln_b: [D]; stats: [M, 2] fp32 and h: [M, D4 / n_chunks] scratch; Elem is
+// float or __nv_bfloat16 (then n_chunks == 1), every tensor but stats of
+// that type. Returns a cudaError_t.
+template <typename Elem>
+int launch(const Elem* x, const Elem* ln_g, const Elem* ln_b, const Elem* w_fc,
+           const Elem* b_fc, const Elem* w_proj, const Elem* b_proj, float* stats, Elem* h,
+           Elem* out, int M, int D, int D4, int n_chunks, float eps, cudaStream_t st) {
+  constexpr bool kF32 = std::is_same<Elem, float>::value;
+  static_assert(kF32 || std::is_same<Elem, __nv_bfloat16>::value, "float or bfloat16");
+  const int slice = kF32 ? gemm_tf32x3::kBK : gemm_bf16::kBK;
+  if (M < 1 || D < slice || D % slice != 0 || n_chunks < 1 || (!kF32 && n_chunks != 1) ||
+      D4 < slice * n_chunks || D4 % (slice * n_chunks) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   float2* st2 = reinterpret_cast<float2*>(stats);
   const int ck = D4 / n_chunks;
 
   int err = ln_stats::launch(x, st2, M, D, eps, st);
   if (err != cudaSuccess) return err;
-
-  for (int c = 0; c < n_chunks; ++c) {
-    const size_t u0 = static_cast<size_t>(c) * ck;  // the chunk's first hidden unit
-    const Params fc{x, st2, ln_g, ln_b, w_fc + u0 * D, b_fc + u0, nullptr, h, M, ck, D};
-    err = gemm_tf32x3::launch<true, gemm_tf32x3::kBiasQuickGelu>(fc, st);
+  if constexpr (!kF32) {
+    using gemm_bf16::Params;
+    const Params fc{x, st2, ln_g, ln_b, w_fc, b_fc, nullptr, h, M, D4, D};
+    err = gemm_bf16::launch<true, gemm_bf16::kBiasQuickGelu>(fc, st);
     if (err != cudaSuccess) return err;
-    if (c == 0) {
-      const Params proj{h, nullptr, nullptr, nullptr, w_proj, b_proj, x, out, M, D, ck, D4};
-      err = gemm_tf32x3::launch<false, gemm_tf32x3::kBiasResidual>(proj, st);
-    } else {
-      const Params proj{h, nullptr, nullptr, nullptr, w_proj + u0, nullptr, out, out, M, D, ck,
-                        D4};
-      err = gemm_tf32x3::launch<false, gemm_tf32x3::kAccumulate>(proj, st);
+    const Params proj{h, nullptr, nullptr, nullptr, w_proj, b_proj, x, out, M, D, D4};
+    return gemm_bf16::launch<false, gemm_bf16::kBiasResidual>(proj, st);
+  } else {
+    using gemm_tf32x3::Params;
+    for (int c = 0; c < n_chunks; ++c) {
+      const size_t u0 = static_cast<size_t>(c) * ck;  // the chunk's first hidden unit
+      const Params fc{x, st2, ln_g, ln_b, w_fc + u0 * D, b_fc + u0, nullptr, h, M, ck, D};
+      err = gemm_tf32x3::launch<true, gemm_tf32x3::kBiasQuickGelu>(fc, st);
+      if (err != cudaSuccess) return err;
+      if (c == 0) {
+        const Params proj{h, nullptr, nullptr, nullptr, w_proj, b_proj, x, out, M, D, ck, D4};
+        err = gemm_tf32x3::launch<false, gemm_tf32x3::kBiasResidual>(proj, st);
+      } else {
+        const Params proj{h, nullptr, nullptr, nullptr, w_proj + u0, nullptr, out, out, M, D, ck,
+                          D4};
+        err = gemm_tf32x3::launch<false, gemm_tf32x3::kAccumulate>(proj, st);
+      }
+      if (err != cudaSuccess) return err;
     }
-    if (err != cudaSuccess) return err;
+    return cudaSuccess;
   }
-  return cudaSuccess;
 }
 
 }  // namespace mlp_half

@@ -40,8 +40,11 @@ NVCC_FLAGS = [
 
 # Launches of each kernel since the last reset_launches(); each wrapper adds
 # one where it launches its kernel and nowhere else. fused_qkv.cu has two
-# entry points, K4 ("fused_qkv") and K8 ("packed_attention"), counted apart.
-LAUNCHES: dict[str, int] = {name: 0 for name in [*SOURCES, "packed_attention"]}
+# entry points, K4 ("fused_qkv") and K8 ("packed_attention"), counted apart;
+# so do K2's and K3's bfloat16 entry points ("attn_block_bf16",
+# "mlp_block_bf16") beside their float32 ones.
+LAUNCHES: dict[str, int] = {
+    name: 0 for name in [*SOURCES, "packed_attention", "attn_block_bf16", "mlp_block_bf16"]}
 
 
 def reset_launches() -> None:
@@ -111,7 +114,9 @@ def _declare(libs: dict[str, ctypes.CDLL]) -> None:
         ("disturb", "disturb_empty_launch"): [i, i, p],
         ("disturb", "philox_normal_launch"): [p, u32, u32, i, p],
         ("attn_block", "attn_block_launch"): [*[p] * 11, i, i, i, i, i, f, p],
+        ("attn_block", "attn_block_bf16_launch"): [*[p] * 11, i, i, i, i, i, f, p],
         ("mlp_block", "mlp_block_launch"): [*[p] * 10, i, i, i, f, p],
+        ("mlp_block", "mlp_block_bf16_launch"): [*[p] * 10, i, i, i, f, p],
         ("mlp_stream", "mlp_stream_launch"): [*[p] * 10, i, i, i, f, p],
         ("fused_qkv", "fused_qkv_launch"): [p, p, i, i, i, i, p],
         ("fused_qkv", "packed_attention_launch"): [p, p, p, p, i, i, i, *[ll] * 9, p],

@@ -21,8 +21,9 @@ head per block (16 a warp), keys in tiles of 64 staged by ``cp.async`` with
 an online softmax, both products on the tensor cores as three TF32 passes
 per fp32 product, so the result stays within the fp32 tolerance of the
 plain versions. They take Dh = 64 — every CLIP tower's head width — any T
-and any batch; the wrappers raise for any other Dh on the GPU. The plain
-versions take any Dh.
+and any batch; the wrappers raise for any other Dh on the GPU, and for
+bfloat16, which comes with the ViT-L/14 bf16 slice. The plain versions take
+any Dh.
 
 The TPU tiling arguments have no counterpart and are not carried over:
 ``block_batches`` and ``group`` (batches and heads per VMEM block and per
@@ -68,6 +69,9 @@ def packed_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) ->
 
 def _check_rows(t: torch.Tensor, strides: tuple[int, ...], name: str, what: str) -> None:
     """The kernel reads 16-byte vectors along each 64-wide row."""
+    if t.dtype == torch.bfloat16:
+        raise ValueError(f"{name}: the kernel takes float32 only; bfloat16 comes with the "
+                         "ViT-L/14 bf16 slice (ROADMAP.md Queue 1 item 3)")
     if t.dtype != torch.float32 or t.stride(-1) != 1:
         raise ValueError(f"{name}: {what} must be float32 with a contiguous last dimension")
     if t.data_ptr() % 16 or any(s % 4 for s in strides):

@@ -43,8 +43,18 @@ hand-written CUDA kernels, and their plain PyTorch versions.
   MLP_CHUNKS.
 
 Each wrapper launches its kernel for a CUDA tensor, runs its plain version
-(which mirrors ``_attn_block_ref`` / ``_mlp_block_ref``) for a CPU tensor,
-and raises for any other device and for shapes its kernel does not take.
+(which mirrors ``_attn_block_ref`` / ``_mlp_block_ref``, in float32 or in
+bfloat16 with the weights cast to x's dtype) for a CPU tensor, and raises
+for any other device and for shapes its kernel does not take.
+
+Dtypes on the GPU. Every tensor of one call has x's dtype (cast a tower
+once with ``model.cast_tower``); the LayerNorm statistics the wrappers
+allocate as scratch are float32 whatever x is. K2 and K3 take float32 and
+bfloat16: their bf16 entry points (``attn_block_bf16``, ``mlp_block_bf16``,
+counted apart) run every product as one bf16 pass on the tensor cores with
+fp32 accumulators, rounding where the TPU kernels round (``csrc/
+gemm_bf16.cuh``), and K3 then takes D and 4D multiples of 64. K5, K6 and K7
+take float32 only: their bf16 comes with the ViT-L/14 bf16 slice.
 Forward only: the towers run under ``torch.no_grad()``. The primitives the
 plain versions are built from (``layer_norm``, ``quick_gelu``,
 ``attention``) are the model's own; ``attention`` computes its scores
@@ -72,6 +82,9 @@ WEIGHT_BUDGET_BYTES = 12 << 20
 MLP_CHUNKS = 4
 # The largest row count (B*T) the C entry points take: an int.
 _INT_MAX = 2**31 - 1
+# The kernels with a bfloat16 entry point; the others take float32 only.
+BF16_KERNELS = ("attn_block", "mlp_block")
+_BF16_LATER = "the ViT-L/14 bf16 slice (ROADMAP.md Queue 1 item 3)"
 
 
 def uses_mlp_stream(width: int, hidden: int, itemsize: int) -> bool:
@@ -117,9 +130,10 @@ def attn_block_plain(x: torch.Tensor, ln1: dict, attn: dict, heads: int,
 
 def mlp_block_plain(x: torch.Tensor, ln2: dict, mlp: dict,
                     eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
     h = layer_norm(ln2, x, eps)
-    h = quick_gelu(h @ mlp["fc_w"].T + mlp["fc_b"])
-    return x + (h @ mlp["proj_w"].T + mlp["proj_b"])
+    h = quick_gelu(h @ mlp["fc_w"].to(dt).T + mlp["fc_b"].to(dt))
+    return x + (h @ mlp["proj_w"].to(dt).T + mlp["proj_b"].to(dt))
 
 
 # K5 and K7 compute K3's function, and K6 computes K2's: one plain version
@@ -130,11 +144,17 @@ attn_stream_plain = attn_block_plain
 
 
 def _check(x: torch.Tensor, weights: dict, name: str) -> None:
-    if x.dtype != torch.float32 or x.dim() != 3 or not x.is_contiguous():
-        raise ValueError(f"{name}: x must be a contiguous float32 [B, T, D] tensor")
+    if x.dtype == torch.bfloat16 and name not in BF16_KERNELS:
+        raise ValueError(f"{name}: the kernel takes float32 only; bfloat16 comes with "
+                         f"{_BF16_LATER}")
+    if x.dtype not in (torch.float32, torch.bfloat16) or x.dim() != 3 or not x.is_contiguous():
+        kinds = "float32 or bfloat16" if name in BF16_KERNELS else "float32"
+        raise ValueError(f"{name}: x must be a contiguous {kinds} [B, T, D] tensor")
     for key, w in weights.items():
-        if w.device != x.device or w.dtype != torch.float32 or not w.is_contiguous():
-            raise ValueError(f"{name}: {key} must be a contiguous float32 tensor on {x.device}")
+        if w.device != x.device or w.dtype != x.dtype or not w.is_contiguous():
+            raise ValueError(f"{name}: {key} must be a contiguous {x.dtype} tensor on "
+                             f"{x.device}, as x is: every tensor of one call has x's dtype "
+                             "(model.cast_tower casts a tower once)")
 
 
 def _check_shapes(x: torch.Tensor, got: dict, want: dict, name: str) -> None:
@@ -190,20 +210,52 @@ def _attn_half(name: str, x: torch.Tensor, ln1: dict, attn: dict, heads: int, ca
                          f"{_INT_MAX} (any T, causal or not), got D={d}, heads={heads}, "
                          f"B={b}, T={t}")
     _check_aligned(name, x, ln1["scale"], ln1["bias"], *attn.values())
-    stats = torch.empty((b * t, 2), dtype=x.dtype, device=x.device)  # LN1 mean, 1/std
-    qkv = torch.empty((b, t, 3 * d), dtype=x.dtype, device=x.device)
-    scratch = torch.empty_like(x)  # attention output, before out_proj
-    out = torch.empty_like(x)
+    buf = attn_scratch(x)
+    entry = _entry(name, x)
     cuda_build.launch(
-        name, f"{name}_launch",
+        name, f"{entry}_launch",
         x.data_ptr(), ln1["scale"].data_ptr(), ln1["bias"].data_ptr(),
         attn["in_proj_w"].data_ptr(), attn["in_proj_b"].data_ptr(),
         attn["out_proj_w"].data_ptr(), attn["out_proj_b"].data_ptr(),
-        stats.data_ptr(), qkv.data_ptr(), scratch.data_ptr(), out.data_ptr(),
-        b, t, d, heads, int(causal), float(eps), cuda_build.stream_handle(x.device),
+        buf["stats"].data_ptr(), buf["qkv"].data_ptr(), buf["attn"].data_ptr(),
+        buf["out"].data_ptr(), b, t, d, heads, int(causal), float(eps),
+        cuda_build.stream_handle(x.device),
     )
-    cuda_build.LAUNCHES[name] += 1
-    return out
+    cuda_build.LAUNCHES[entry] += 1
+    return buf["out"]
+
+
+def _entry(name: str, x: torch.Tensor) -> str:
+    """The kernel's entry point (and launch counter) for x's dtype."""
+    return f"{name}_bf16" if x.dtype == torch.bfloat16 else name
+
+
+def _stats(x: torch.Tensor, rows: int) -> torch.Tensor:
+    """[rows, 2] LayerNorm (mean, 1/std), float32 whatever x's dtype: the
+    TPU kernels take fp32 statistics, and a bf16 mean would round away the
+    row's offset."""
+    return torch.empty((rows, 2), dtype=torch.float32, device=x.device)
+
+
+def attn_scratch(x: torch.Tensor) -> dict:
+    """The buffers K2 and K6 launch on for [B, T, D] x: the fp32 LN1
+    statistics, the [B, T, 3D] qkv and the [B, T, D] attention output
+    (scratch, in x's dtype) and the output."""
+    b, t, d = x.shape
+    return {"stats": _stats(x, b * t),
+            "qkv": torch.empty((b, t, 3 * d), dtype=x.dtype, device=x.device),
+            "attn": torch.empty_like(x),  # before out_proj
+            "out": torch.empty_like(x)}
+
+
+def mlp_scratch(x: torch.Tensor, d4: int, chunks: int = 1) -> dict:
+    """The buffers K3, K5 and K7 launch on for [B, T, D] x: the fp32 LN2
+    statistics, one chunk's [B*T, 4D / chunks] hidden in x's dtype, and the
+    output."""
+    m = x.shape[0] * x.shape[1]
+    return {"stats": _stats(x, m),
+            "hidden": torch.empty((m, d4 // chunks), dtype=x.dtype, device=x.device),
+            "out": torch.empty_like(x)}
 
 
 def mlp_block(x: torch.Tensor, ln2: dict, mlp: dict, eps: float = 1e-5) -> torch.Tensor:
@@ -224,7 +276,7 @@ def mlp_block(x: torch.Tensor, ln2: dict, mlp: dict, eps: float = 1e-5) -> torch
 def mlp_block_resident(x: torch.Tensor, ln2: dict, mlp: dict, eps: float = 1e-5) -> torch.Tensor:
     """K3: :func:`mlp_block` where the weights fit the TPU kernel's budget,
     as two tensor-core GEMMs with the [B, T, 4D] hidden as scratch between
-    them (D and 4D multiples of 32)."""
+    them (D and 4D multiples of 32; of 64 in bfloat16)."""
     if x.device.type == "cpu":
         return mlp_block_plain(x, ln2, mlp, eps)
     return _mlp_half("mlp_block", x, ln2, mlp, eps)
@@ -249,26 +301,26 @@ def _mlp_half(name: str, x: torch.Tensor, ln2: dict, mlp: dict, eps: float,
     b, t, _ = x.shape
     d, d4 = _check_mlp_shapes(x, ln2, mlp, name)
     m = b * t
-    if (d < 32 or d % 32 != 0 or d4 < 32 * chunks or d4 % (32 * chunks) != 0
+    slice_ = 64 if x.dtype == torch.bfloat16 else 32  # the GEMM's reduction slice
+    if (d < slice_ or d % slice_ != 0 or d4 < slice_ * chunks or d4 % (slice_ * chunks) != 0
             or not 1 <= m <= _INT_MAX):
-        raise ValueError(f"{name}: the kernel takes D a multiple of 32, 4D a multiple of "
-                         f"{32 * chunks} and 1 <= B*T <= {_INT_MAX}, got D={d}, 4D={d4}, "
-                         f"B*T={m}")
+        raise ValueError(f"{name}: the kernel takes D a multiple of {slice_}, 4D a multiple of "
+                         f"{slice_ * chunks} and 1 <= B*T <= {_INT_MAX} in {x.dtype}, got "
+                         f"D={d}, 4D={d4}, B*T={m}")
     _check_aligned(name, x, ln2["scale"], ln2["bias"], *mlp.values())
-    stats = torch.empty((m, 2), dtype=x.dtype, device=x.device)  # LN2 mean, 1/std
-    hidden = torch.empty((m, d4 // chunks), dtype=x.dtype, device=x.device)  # a chunk
-    out = torch.empty_like(x)
+    buf = mlp_scratch(x, d4, chunks)
+    entry = _entry(name, x)
     cuda_build.launch(
-        name, f"{name}_launch",
+        name, f"{entry}_launch",
         x.data_ptr(), ln2["scale"].data_ptr(), ln2["bias"].data_ptr(),
         mlp["fc_w"].data_ptr(), mlp["fc_b"].data_ptr(),
         mlp["proj_w"].data_ptr(), mlp["proj_b"].data_ptr(),
-        stats.data_ptr(), hidden.data_ptr(), out.data_ptr(), m, d, d4,
+        buf["stats"].data_ptr(), buf["hidden"].data_ptr(), buf["out"].data_ptr(), m, d, d4,
         *([chunks] if name == "mlp_chunked" else []), float(eps),
         cuda_build.stream_handle(x.device),
     )
-    cuda_build.LAUNCHES[name] += 1
-    return out
+    cuda_build.LAUNCHES[entry] += 1
+    return buf["out"]
 
 
 def attn_stream(x: torch.Tensor, ln1: dict, attn: dict, heads: int,

@@ -131,37 +131,69 @@ def transformer(p: dict, x: torch.Tensor, heads: int, causal: bool = False,
 
 
 def encode_text(params: dict, cfg: CLIPConfig, tokens: torch.Tensor,
+                compute_dtype: torch.dtype = torch.float32,
                 attention_impl: str = "auto") -> torch.Tensor:
     """[B, 77] integer token ids → [B, embed_dim] float32 features, pooled at
-    each sequence's argmax token id (the EOT token) as OpenAI CLIP does."""
+    each sequence's argmax token id (the EOT token) as OpenAI CLIP does. The
+    tower runs in ``compute_dtype`` (its resblocks' weights must already be
+    of that dtype on the GPU: :func:`cast_tower`); LayerNorm statistics stay
+    float32."""
     t = params["text"]
     tokens = tokens.long()
-    x = t["token_embedding"][tokens]
-    x = (x + t["positional_embedding"][: tokens.shape[1]]).contiguous()
+    x = t["token_embedding"][tokens].to(compute_dtype)
+    x = (x + t["positional_embedding"][: tokens.shape[1]].to(compute_dtype)).contiguous()
     x = transformer(t["transformer"], x, cfg.text_heads, causal=True, impl=attention_impl)
     x = layer_norm(t["ln_final"], x)
     eot = tokens.argmax(dim=-1)
     pooled = x[torch.arange(x.shape[0], device=x.device), eot]
-    return pooled @ t["text_projection"]
+    return (pooled @ t["text_projection"].to(compute_dtype)).float()
 
 
 def encode_image(params: dict, cfg: CLIPConfig, images: torch.Tensor,
+                 compute_dtype: torch.dtype = torch.float32,
                  attention_impl: str = "auto") -> torch.Tensor:
     """[B, image_size, image_size, 3] normalized float32 images (NHWC) →
     [B, embed_dim] float32 features; feed with
-    ``ops.resize.preprocess_for_clip``."""
+    ``ops.resize.preprocess_for_clip``. The tower runs in ``compute_dtype``
+    step for step as the JAX package's ``encode_image`` does: the patch
+    embed and the class and positional embeddings in that dtype, LayerNorm
+    with float32 statistics, the projection in that dtype, cast to float32
+    at the end. On the GPU its resblocks' weights must already be of that
+    dtype (:func:`cast_tower`)."""
     v = params["visual"]
     b = images.shape[0]
     ps, g = cfg.patch_size, cfg.grid_size
     # Patch embed as one product: [B, g, ps, g, ps, 3] → [B, g·g, ps·ps·3].
-    x = images.float().reshape(b, g, ps, g, ps, 3).permute(0, 1, 3, 2, 4, 5)
-    x = x.reshape(b, g * g, ps * ps * 3) @ v["patch_embed_w"]  # [B, P, width], no bias
-    cls = v["class_embedding"].expand(b, 1, cfg.vision_width)
-    x = torch.cat([cls, x], dim=1) + v["positional_embedding"]
+    x = images.to(compute_dtype).reshape(b, g, ps, g, ps, 3).permute(0, 1, 3, 2, 4, 5)
+    x = x.reshape(b, g * g, ps * ps * 3) @ v["patch_embed_w"].to(compute_dtype)  # no bias
+    cls = v["class_embedding"].to(compute_dtype).expand(b, 1, cfg.vision_width)
+    x = torch.cat([cls, x], dim=1) + v["positional_embedding"].to(compute_dtype)
     x = layer_norm(v["ln_pre"], x).contiguous()
     x = transformer(v["transformer"], x, cfg.vision_heads, impl=attention_impl)
     x = layer_norm(v["ln_post"], x[:, 0, :])
-    return x @ v["proj"]
+    return (x @ v["proj"].to(compute_dtype)).float()
+
+
+# The towers' outer LayerNorms: the JAX package reads their parameters in
+# float32 whatever the compute dtype (``layer_norm``), so cast_tower leaves
+# them as they are.
+_F32_KEYS = ("ln_pre", "ln_post", "ln_final")
+
+
+def cast_tower(params: dict, dtype: torch.dtype) -> dict:
+    """The CLIP parameters (both towers, or one tower's subtree) with every
+    floating tensor in ``dtype``, once: the JAX package casts each weight
+    inside the jitted encode (``.astype(compute_dtype)``), which eager
+    PyTorch would repeat at every call. The outer LayerNorms stay float32;
+    tensors already of ``dtype`` are shared, not copied."""
+    def cast(tree):
+        if isinstance(tree, dict):
+            return {k: tree[k] if k in _F32_KEYS else cast(tree[k]) for k in tree}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(cast(item) for item in tree)
+        return tree.to(dtype) if tree.is_floating_point() else tree
+
+    return cast(params)
 
 
 # ---------------------------------------------------------------------------

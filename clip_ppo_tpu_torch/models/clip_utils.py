@@ -2,9 +2,9 @@
 description-embedding table and the per-iteration image embeddings.
 
 Port of the parts of ``clip_ppo_tpu/models/clip_utils.py`` the text and
-image modalities run (reference `shared/clip_ppo_utils.py:13-240`).
-FROZEN_CLIP trunks and the RANDOM_ENCODER embeddings come with later
-slices.
+image modalities and the FROZEN_CLIP and RANDOM_ENCODER ablations run on
+MiniGrid (reference `shared/clip_ppo_utils.py:13-240`). The Atari
+multi-frame features come with a later slice.
 """
 
 from __future__ import annotations
@@ -119,6 +119,49 @@ def make_encode_images_fn(cfg: CLIPConfig):
 
     def embed(obs: torch.Tensor, frozen: dict) -> torch.Tensor:
         return encode_images(frozen["clip"], cfg, obs)
+
+    return embed
+
+
+def get_frozen_clip_features(clip_params: dict, cfg: CLIPConfig, x: torch.Tensor,
+                             compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Frozen-CLIP visual features (`clip_ppo_utils.py:185-217`): [B, H, W, 3]
+    float in [0, 1] → resize to ``cfg.image_size`` + CLIP normalization →
+    the vision tower in ``compute_dtype`` (bfloat16 by default: K2 and K3 in
+    bf16 on the GPU at ViT-B/32) → float32 features, not normalized. Under
+    ``torch.no_grad()``, the counterpart of the JAX package's
+    ``stop_gradient``: no gradient reaches the tower."""
+    with torch.no_grad():
+        x = preprocess_for_clip(x, cfg.image_size)
+        return clip_model_mod.encode_image(clip_params, cfg, x, compute_dtype)
+
+
+def make_frozen_clip_features_fn(cfg: CLIPConfig, compute_dtype: torch.dtype = torch.bfloat16):
+    """FeatureFn of the FROZEN_CLIP ablation on RGB observations: the
+    agent's trunk becomes the frozen vision tower
+    (`clip_ppo_minigrid.py:219-227`), whose weights arrive in
+    ``frozen["clip"]`` (cast once with ``model.cast_tower``); the agent's own
+    conv trunk goes unused and keeps its initial values."""
+
+    def features(params: dict, obs: torch.Tensor, frozen: dict) -> torch.Tensor:
+        del params  # the trunk is the frozen CLIP tower
+        return get_frozen_clip_features(frozen["clip"], cfg, obs.float() / 255.0, compute_dtype)
+
+    return features
+
+
+def make_random_embed_fn(batch_size: int, embed_dim: int = 512, frames: int = 1):
+    """RANDOM_ENCODER embeddings (`clip_ppo_utils.py:126-129`):
+    ``(gen, normals=None) -> [batch_size, frames·embed_dim]`` standard
+    normals, each frame's L2-normalized, then concatenated (the Atari
+    multi-frame layout). ``normals`` ([batch_size·frames, embed_dim]) are
+    drawn from ``gen`` unless given."""
+
+    def embed(gen: torch.Generator, normals: torch.Tensor | None = None) -> torch.Tensor:
+        if normals is None:
+            normals = torch.randn((batch_size * frames, embed_dim), generator=gen,
+                                  device=gen.device)
+        return l2_normalize(normals).reshape(batch_size, frames * embed_dim)
 
     return embed
 

@@ -221,7 +221,11 @@ def update_epochs(
             with torch.enable_grad():
                 loss, aux = ppo_loss(live_params, mb, cfg, features_fn,
                                      mb.get("clip_embeddings"), clip_lambda_eff, use_clip, frozen)
-                grads = torch.autograd.grad(loss, live)
+                # A parameter the loss does not reach (the conv trunk under
+                # FROZEN_CLIP) gets a zero gradient, as jax.grad gives it;
+                # Adam then leaves it and its moments at rest.
+                grads = torch.autograd.grad(loss, live, allow_unused=True,
+                                            materialize_grads=True)
             aux = {k: v.detach() for k, v in aux.items()}
             grads_tree = tree_unflatten(params, list(grads))
             aux["grad_norm"] = global_norm(grads_tree)

@@ -2,11 +2,14 @@
 
 Port of ``clip_ppo_tpu/train/runner.py``'s ``Trainer`` for the paths the
 port runs: the feed-forward agent with the Nature-CNN trunk (on the raw
-7×7 views when nothing needs the 84×84 image, the view fast path),
-optional batched or per-image disturbances, the text modality through a
-precomputed description-embedding table (``embed_desc_fn``), and the image
-modality, which encodes the iteration's stored observations with the CLIP
-vision tower (``embed_images_fn``). Nothing in an iteration waits for the host;
+7×7 views when nothing needs the 84×84 image, the view fast path) or with
+the frozen CLIP vision tower as its trunk (FROZEN_CLIP, a ``features_fn``
+reading ``frozen["clip"]``), optional batched or per-image disturbances, the
+text modality through a precomputed description-embedding table
+(``embed_desc_fn``), the image modality, which encodes the iteration's
+stored observations with the CLIP vision tower (``embed_images_fn``), and
+RANDOM_ENCODER's fresh Gaussian embeddings each iteration
+(``embed_random_fn``). Nothing in an iteration waits for the host;
 logs are packed on the device and fetched one chunk behind
 (:class:`LogPipeline`), so the fetch of chunk *k* overlaps the queued work
 of chunk *k+1*.
@@ -53,12 +56,15 @@ class TrainState:
 
 class Draws(NamedTuple):
     """One iteration's random inputs, all optional: the rollout's [T, N, A]
-    Gumbel batch, one DisturbanceDraws per step, and the update's
-    [update_epochs, batch_size] permutations."""
+    Gumbel batch, one DisturbanceDraws per step, the update's
+    [update_epochs, batch_size] permutations, and RANDOM_ENCODER's
+    [batch_size, embed_dim] standard normals (drawn after the rollout and
+    before the permutations, as the JAX package splits its key)."""
 
     gumbels: Optional[torch.Tensor] = None
     disturb: Optional[Sequence[DisturbanceDraws]] = None
     permutations: Optional[torch.Tensor] = None
+    random_embeddings: Optional[torch.Tensor] = None
 
 
 class Trainer:
@@ -86,6 +92,10 @@ class Trainer:
         embed_desc_fn: optional ``(rollout_desc, frozen) -> [T·N, D]``
             text-embedding function (the MiniGrid description table,
             ``clip_utils.make_text_table_embed_fn``).
+        embed_random_fn: optional ``(gen, normals) -> [T·N, D]``
+            RANDOM_ENCODER embeddings (``clip_utils.make_random_embed_fn``),
+            drawn once per iteration before the update; used where neither
+            of the two above is given, as in the JAX package.
         clip_lambda: target λ of the alignment loss (linear warmup over
             ``clip_warmup_fraction`` of the iterations).
         frozen_params: non-optimized tensors the embedding fn reads
@@ -102,6 +112,7 @@ class Trainer:
         features_fn: agent_mod.FeatureFn = agent_mod.cnn_features,
         embed_images_fn: Optional[Callable] = None,
         embed_desc_fn: Optional[Callable] = None,
+        embed_random_fn: Optional[Callable] = None,
         clip_lambda: float = 0.0,
         clip_warmup_fraction: float = 0.2,
         capture_env0: bool = False,
@@ -139,6 +150,7 @@ class Trainer:
         self.features_fn = features_fn
         self.embed_images_fn = embed_images_fn
         self.embed_desc_fn = embed_desc_fn
+        self.embed_random_fn = embed_random_fn
         self.clip_lambda = clip_lambda
         self.clip_warmup_fraction = clip_warmup_fraction
         self.capture_env0 = capture_env0
@@ -227,14 +239,20 @@ class Trainer:
         }
         return state, scalars
 
-    def embed(self, batch: rollout_mod.RolloutBatch, data: dict) -> Optional[torch.Tensor]:
-        """The iteration's CLIP embeddings, [T·N, D] t-major, or None."""
+    def embed(self, batch: rollout_mod.RolloutBatch, data: dict,
+              gen: Optional[torch.Generator] = None,
+              random_normals: Optional[torch.Tensor] = None) -> Optional[torch.Tensor]:
+        """The iteration's CLIP embeddings, [T·N, D] t-major, or None.
+        RANDOM_ENCODER's draw their normals from ``gen`` unless
+        ``random_normals`` are given."""
         if self.embed_images_fn is not None:
             obs = data["obs"]
             return self.embed_images_fn(obs.reshape((-1,) + tuple(obs.shape[2:])),
                                         self.frozen_params)
         if self.embed_desc_fn is not None:
             return self.embed_desc_fn(batch.desc, self.frozen_params)
+        if self.embed_random_fn is not None:
+            return self.embed_random_fn(gen, random_normals)
         return None
 
     def iteration(self, state: TrainState, iteration: int, draws: Draws = Draws()):
@@ -243,7 +261,7 @@ class Trainer:
         rollout layout [T, N, ...]."""
         state, batch = self._rollout(state, draws)
         data = self._data2d(state, batch)
-        clip_embeddings = self.embed(batch, data)
+        clip_embeddings = self.embed(batch, data, state.gen, draws.random_embeddings)
         state, scalars = self._update(state, data, iteration, clip_embeddings, draws)
         stats = {
             "done_mask": batch.done_mask,

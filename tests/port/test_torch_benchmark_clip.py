@@ -60,7 +60,7 @@ def test_main_runs_on_cpu(monkeypatch, capsys, impl, kernel):
 
 
 @pytest.mark.parametrize("argv,match", [
-    ([], "FROZEN_CLIP/bf16 slice"),  # the JAX tool's default dtype, bfloat16
+    (["--model", "ViT-L/14"], "ViT-L/14 bf16 slice"),  # the default dtype, bfloat16
     (["--dtype", "float32", "--tp", "2"], "multi-GPU slice"),
     (["--dtype", "float32", "--num-devices", "2"], "multi-GPU slice"),
     (["--dtype", "float32", "--model", "ViT-B/16"], "ViT-B/16 slice"),

@@ -229,7 +229,7 @@ def test_cli_cuda_flag_needs_a_gpu(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("argv,match", [
     (["--num-devices", "2"], "multi-GPU"),
-    (["--clip-config.ablation-mode", "FROZEN_CLIP"], "FROZEN_CLIP"),
+    (["--clip-config.structured-frozen-init"], "structured-frozen-init"),
     (["--clip-config.clip-lambda", "1e-5", "--clip-config.clip-modality", "image",
       "--clip-config.structured-frozen-init"], "structured-frozen-init"),
     (["--mission-conditioning"], "extensions"),
