@@ -11,7 +11,8 @@ non-zero at once:
    kernel's registers and spills; the tensor-core instructions (HMMA,
    HGMMA) of each kernel in the libraries that run on the tensor cores
    (``TENSOR_CORE_LIBS``: K4/K8, K2, K3, K5, K6, K7), which must hold some
-   and spill nothing;
+   and spill nothing, each bf16 instantiation (``BF16_TENSOR_CORE``) its
+   own;
 2. kernels — each kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it: K1 at every severity, at the shapes
    of ``K1_CASES`` (a ragged band, one channel, bands thinner than the
@@ -39,11 +40,11 @@ non-zero at once:
    same inputs, and K6, K7 and K3 refusing a width their kernels do not
    take. Every resblock-half case prints the device memory its wrapper
    allocates besides the output (scratch), and K7's must not exceed one
-   [B*T, D] chunk of the hidden plus the row statistics. Then K2 and K3 in
-   bfloat16 (their bf16 entry points) against their plain bf16 versions at
-   the FROZEN_CLIP trunk's, the bf16 encoder benchmark's and odd shapes
+   [B*T, D] chunk of the hidden plus the row statistics. Then every kernel
+   but K1 in bfloat16 (its bf16 entry point) against its plain bf16 version
+   at the FROZEN_CLIP trunk's, the bf16 encoder benchmarks' and odd shapes
    (``BF16_CASES``, tolerance (1/64) x max(1, max |ref|)), timed beside
-   their device time, the plain (cuBLAS bf16) route and the float32 kernel
+   its device time, the plain (cuBLAS bf16) route and the float32 kernel
    on the same values, against the dense bf16 peak;
 3. text slice — the CLIP-PPO MiniGrid CLI (text modality, HARD
    disturbances) for two iterations, with every launch count read from the
@@ -88,6 +89,20 @@ non-zero at once:
     device's busy share; and ``benchmark_clip`` at its default bf16 at
     ViT-B/32 (both towers on K2 and K3 in bf16), launches of every call
     checked.
+
+Besides, phase 2 holds K4–K8 in bf16 (their bf16 entry points) against
+their plain bf16 versions (``BF16_CASES``), K4 and K8 timed beside
+``scaled_dot_product_attention`` in bf16 and K7 beside K5; phase 5 also runs
+the image modality at ViT-B/16 (T = 197) with its launch counts and checks
+that tower's embeddings against the CPU; phase 8 also runs
+``benchmark_clip`` at ViT-L/14 at its default bf16 (K4 + K5 in bf16 in the
+vision tower, K2 + K3 in bf16 in the text tower), under each switch in bf16
+(K6, K7), at ViT-B/32 in bf16 under ``fused`` (K4) and ``pallas`` (K8), and
+at ViT-B/16 in bf16 and float32, launches of every call checked; phase 9
+also checks ViT-L/14's bf16 features against the plain bf16 route on the
+CPU on the default route and under both switches, and profiles one
+batch-256 bf16 image call of each. Every kernel of the ``kernels`` line
+must have been launched on its path.
 
 The paths of phases 3 to 8 before the switch runs, and of phase 10, run
 with every switch unset, and their launch checks hold K6 and K7 at 0.
@@ -157,6 +172,10 @@ ENTRY_POINTS = {
     "mlp_stream_launch": "K5 mlp_stream", "attn_stream_launch": "K6 attn_stream",
     "mlp_chunked_launch": "K7 mlp_chunked", "packed_attention_launch": "K8 packed_attention",
     "attn_block_bf16_launch": "K2 attn_block bf16", "mlp_block_bf16_launch": "K3 mlp_block bf16",
+    "fused_qkv_bf16_launch": "K4 fused_qkv bf16", "mlp_stream_bf16_launch": "K5 mlp_stream bf16",
+    "attn_stream_bf16_launch": "K6 attn_stream bf16",
+    "mlp_chunked_bf16_launch": "K7 mlp_chunked bf16",
+    "packed_attention_bf16_launch": "K8 packed_attention bf16",
 }
 
 
@@ -300,12 +319,17 @@ TENSOR_CORE_LIBS = ("fused_qkv", "attn_block", "mlp_block", "mlp_stream", "attn_
                     "mlp_chunked")
 
 
-# The bf16 instantiations of K2 and K3 (their bf16 entry points): each must
-# hold tensor-core instructions of its kind, wgmma (HGMMA) in the GEMM and
-# mma.sync (HMMA) in the attention tile.
+# The bf16 instantiations of every kernel's bf16 entry point: each must hold
+# tensor-core instructions of its kind, wgmma (HGMMA) in the GEMM and
+# mma.sync (HMMA) in the attention tile; K7's fp32-sum epilogue
+# (gemm_bf16_kernel<false,3>, kAccumulate) among them.
 BF16_TENSOR_CORE = {
     "attn_block": (("gemm_bf16_kernel", "HGMMA"), ("attention_bf16_kernel", "HMMA")),
     "mlp_block": (("gemm_bf16_kernel", "HGMMA"),),
+    "fused_qkv": (("attention_bf16_kernel", "HMMA"),),
+    "mlp_stream": (("gemm_bf16_kernel", "HGMMA"),),
+    "attn_stream": (("gemm_bf16_kernel", "HGMMA"), ("attention_bf16_kernel", "HMMA")),
+    "mlp_chunked": (("gemm_bf16_kernel", "HGMMA"), ("gemm_bf16_kernel<false,3>", "HGMMA")),
 }
 
 
@@ -711,11 +735,16 @@ def phase_stream_kernels(card: dict) -> list[dict]:
     return results
 
 
-# K2 and K3 in bf16 (their bf16 entry points), checked and timed in
-# phase_bf16_kernels: (kernel, B, T, D, causal, path, timed). The FROZEN_CLIP
-# trunk runs [8, 50, 768] in the rollout and the bootstrap value, [256, 50,
-# 768] in the update; benchmark_clip's bf16 run [1024, 50, 768] and the
-# text tower's [1024, 77, 512] causal.
+# Every kernel in bf16 (its bf16 entry point), checked and timed in
+# phase_bf16_kernels: (kernel, B, T, D, causal, path, timed); the attention
+# kernels take [B, T, 3D] qkv (K8 its q, k, v as strided [B, T, D / 64, 64]
+# views of it). The FROZEN_CLIP trunk runs K2 and K3 at [8, 50, 768] in the
+# rollout and the bootstrap value, [256, 50, 768] in the update;
+# benchmark_clip's bf16 runs ViT-B/32 at [1024, 50, 768] and its text tower
+# at [1024, 77, 512] causal, ViT-L/14's vision tower (K4 and K5; K6 and K7
+# under the switches) at [256, 257, 1024] and its text tower (K2 and K3) at
+# [1024, 77, 768] causal, and ViT-B/32's vision tower under --attention-impl
+# fused (K4) at [1024, 50, 768] and pallas (K8) at [64, 50, 768].
 BF16_CASES = [
     ("attn_block", 8, 50, 768, False, "frozen", True),
     ("mlp_block", 8, 50, 768, False, "frozen", True),
@@ -728,6 +757,21 @@ BF16_CASES = [
     ("attn_block", 3, 197, 768, False, None, False),  # an odd T: 3 query tiles, a ragged key tile
     ("mlp_block", 3, 197, 768, False, None, False),  # ragged row count
     ("attn_block", 4, 77, 832, True, None, False),  # 13 heads: N = 2496 and 832, partial tiles
+    ("attn_block", 1024, 77, 768, True, "l14_bf16", True),  # ViT-L/14 text
+    ("mlp_block", 1024, 77, 768, False, "l14_bf16", True),
+    ("fused_qkv", 256, 257, 1024, False, "l14_bf16", True),  # ViT-L/14 vision, 16 heads
+    ("fused_qkv", 1024, 50, 768, False, "fused_bf16", True),  # ViT-B/32 vision under fused
+    ("fused_qkv", 1024, 77, 768, True, None, True),  # ViT-L/14's text width, causal
+    ("fused_qkv", 3, 257, 1024, False, None, False),  # ragged batch: a 1-row last query tile
+    ("fused_qkv", 5, 197, 768, False, None, False),  # ViT-B/16's T
+    ("packed_attention", 64, 50, 768, False, "pallas_bf16", True),  # ViT-B/32 under pallas
+    ("packed_attention", 256, 257, 1024, False, None, True),  # ViT-L/14 under pallas
+    ("mlp_stream", 256, 257, 1024, False, "l14_bf16", True),  # ViT-L/14 vision
+    ("mlp_stream", 3, 257, 1024, False, None, False),  # ragged row count
+    ("attn_stream", 256, 257, 1024, False, "attn_stream_bf16", True),  # ViT-L/14, switch on
+    ("attn_stream", 3, 77, 832, True, None, False),  # 13 heads causal: partial tiles
+    ("mlp_chunked", 256, 257, 1024, False, "mlp_chunked_bf16", True),  # ViT-L/14, switch on
+    ("mlp_chunked", 3, 257, 1024, False, None, False),  # ragged row count
 ]
 BF16_CALLS = 20  # back-to-back calls between one pair of CUDA events
 
@@ -739,21 +783,93 @@ def _bound_bf16(nbytes: float, nflops: float, card: dict) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _attention_source(name: str) -> tuple[str, str]:
+    return ("clip_ppo_tpu_torch/csrc/fused_qkv.cu", "clip_ppo_tpu/models/clip/pallas_attention.py:"
+            + ("91" if name == "fused_qkv" else "391"))
+
+
+def bf16_case(spec: tuple, blocks: dict, gen, dev) -> dict:
+    """One ``BF16_CASES`` row on the card: the bf16 kernel's call, its plain
+    bf16 version's, the float32 kernel's on the same values, the library
+    call computing the same function (SDPA in bf16, for K4 and K8), other
+    routes timed beside, the work the bound counts and the output's bytes."""
+    import torch
+    import torch.nn.functional as F
+
+    from clip_ppo_tpu_torch.models.clip import attention_kernels as ak
+    from clip_ppo_tpu_torch.models.clip import block_kernels as bk
+    from clip_ppo_tpu_torch.models.clip.model import cast_tower
+
+    name, b, t, dm, causal, _, _ = spec
+    heads = dm // 64
+    pairs = t * (t + 1) // 2 if causal else t * t
+    case = {"beside": {}, "library": None}
+    if name in ("fused_qkv", "packed_attention"):
+        qkv = torch.randn((b, t, 3 * dm), generator=gen, device=dev).to(torch.bfloat16)
+        qkv32 = qkv.float()
+        views = [tuple(z.view(b, t, heads, 64) for z in buf.split(dm, dim=-1))
+                 for buf in (qkv, qkv32)]
+        if name == "fused_qkv":
+            case.update(fn=lambda: ak.fused_qkv_attention(qkv, heads, causal),
+                        plain=lambda: ak.fused_qkv_attention_plain(qkv, heads, causal),
+                        f32=lambda: ak.fused_qkv_attention(qkv32, heads, causal),
+                        shape=f"[{b},{t},{3 * dm}]")
+        else:
+            case.update(fn=lambda: ak.packed_attention(*views[0]),
+                        plain=lambda: ak.packed_attention_plain(*views[0]),
+                        f32=lambda: ak.packed_attention(*views[1]),
+                        shape=f"[{b},{t},{heads},64] strided")
+        qh, kh, vh = (z.transpose(1, 2) for z in views[0])
+        case["library"] = lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal)
+        case.update(x=qkv, out_bytes=b * t * dm * 2, nflops=2 * 2 * b * pairs * dm,
+                    nbytes=4 * b * t * dm * 2, source=_attention_source(name))
+        return case
+    if dm not in blocks:
+        p32 = random_block(gen, dm, dev)
+        blocks[dm] = (p32, cast_tower(p32, torch.bfloat16))
+    p32, p = blocks[dm]
+    x = torch.randn((b, t, dm), generator=gen, device=dev).to(torch.bfloat16)
+    x32 = x.float()
+    fn = bk.mlp_block_resident if name == "mlp_block" else getattr(bk, name)
+    if name.startswith("attn"):
+        case.update(fn=lambda: fn(x, p["ln_1"], p["attn"], heads, causal),
+                    plain=lambda: bk.attn_block_plain(x, p["ln_1"], p["attn"], heads, causal),
+                    f32=lambda: (bk.attn_block if name == "attn_block" else fn)(
+                        x32, p32["ln_1"], p32["attn"], heads, causal),
+                    nflops=2 * b * t * dm * 4 * dm + 2 * 2 * b * pairs * dm,
+                    wbytes=(4 * dm * dm + 6 * dm) * 2)
+    else:
+        case.update(fn=lambda: fn(x, p["ln_2"], p["mlp"]),
+                    plain=lambda: bk.mlp_block_plain(x, p["ln_2"], p["mlp"]),
+                    # K3's function routes to K5 at D = 768 in fp32
+                    f32=lambda: (bk.mlp_block if name == "mlp_block" else fn)(
+                        x32, p32["ln_2"], p32["mlp"]),
+                    nflops=2 * 2 * b * t * dm * 4 * dm, wbytes=(8 * dm * dm + 7 * dm) * 2)
+        if name == "mlp_chunked":
+            case["beside"]["K5 bf16 (mlp_stream)"] = lambda: bk.mlp_stream(x, p["ln_2"], p["mlp"])
+    case.update(x=x, out_bytes=x.numel() * 2, nbytes=2 * x.numel() * 2 + case["wbytes"],
+                shape=f"[{b},{t},{dm}]", source=_source(name))
+    return case
+
+
 def phase_bf16_kernels(card: dict) -> list[dict]:
-    """K2 and K3 in bf16 against their plain versions in bf16 on the card
+    """Every kernel in bf16 against its plain version in bf16 on the card
     (the same rounding steps, every product a cuBLAS bf16 matmul) at the
     shapes of ``BF16_CASES``, tolerance (1/64) x max(1, max |ref|) compared in
     float32: about three bf16 ulps of the largest value, since the two round
     in other places (the plain version rounds the scores to bf16 before the
-    softmax, as ``_attn_block_ref`` does; the kernel keeps them fp32, as the
-    TPU kernel does). Timed by CUDA events over ``BF16_CALLS`` back-to-back
-    calls beside their device time, the plain (cuBLAS bf16) route and the
-    float32 kernel on the same values, against the larger of the bytes and
-    the flops at the dense bf16 peak."""
+    softmax, as ``_attn_block_ref`` does, and each product before its bias;
+    the kernels keep them fp32, as the TPU kernels do). Each case prints the
+    device memory its wrapper asks for besides the output (scratch); K7's
+    must not exceed one bf16 chunk of the hidden, the fp32 [B*T, D] sum of
+    the chunks and the row statistics. Timed by CUDA events over
+    ``BF16_CALLS`` back-to-back calls beside their device time, the plain
+    (cuBLAS bf16) route, the float32 kernel on the same values and, for K4
+    and K8, ``scaled_dot_product_attention`` in bf16 on the same q/k/v,
+    against the larger of the bytes and the flops at the dense bf16 peak."""
     import torch
 
     from clip_ppo_tpu_torch.models.clip import block_kernels as bk
-    from clip_ppo_tpu_torch.models.clip.model import cast_tower
 
     t0 = time.time()
     dev = torch.device("cuda", 0)
@@ -763,68 +879,72 @@ def phase_bf16_kernels(card: dict) -> list[dict]:
     torch.backends.cudnn.allow_tf32 = False
     blocks, results = {}, []
     with torch.no_grad():
-        for name, b, t, dm, causal, path, timed in BF16_CASES:
-            if dm not in blocks:
-                p32 = random_block(gen, dm, dev)
-                blocks[dm] = (p32, cast_tower(p32, torch.bfloat16))
-            p32, p = blocks[dm]
-            heads = dm // 64
-            x = torch.randn((b, t, dm), generator=gen, device=dev).to(torch.bfloat16)
-            if name == "attn_block":
-                fn = lambda x=x, p=p: bk.attn_block(x, p["ln_1"], p["attn"], heads, causal)  # noqa: E731
-                plain = lambda x=x, p=p: bk.attn_block_plain(x, p["ln_1"], p["attn"], heads,  # noqa: E731
-                                                             causal)
-                pairs = t * (t + 1) // 2 if causal else t * t
-                nflops = 2 * b * t * dm * 4 * dm + 2 * 2 * b * pairs * dm
-                wbytes = (4 * dm * dm + 6 * dm) * 2
-            else:
-                fn = lambda x=x, p=p: bk.mlp_block_resident(x, p["ln_2"], p["mlp"])  # noqa: E731
-                plain = lambda x=x, p=p: bk.mlp_block_plain(x, p["ln_2"], p["mlp"])  # noqa: E731
-                nflops = 2 * 2 * b * t * dm * 4 * dm
-                wbytes = (8 * dm * dm + 7 * dm) * 2
-            got, ref = fn(), plain()
+        for spec in BF16_CASES:
+            name, b, t, dm, causal, path, timed = spec
+            case = bf16_case(spec, blocks, gen, dev)
+            fn, plain = case["fn"], case["plain"]
             torch.cuda.synchronize()
-            if got.dtype != torch.bfloat16 or got.shape != x.shape:
+            base = torch.cuda.memory_stats(dev)["requested_bytes.all.current"]
+            torch.cuda.reset_peak_memory_stats(dev)
+            got = fn()
+            scratch = torch.cuda.memory_stats(dev)["requested_bytes.all.peak"] - base \
+                - case["out_bytes"]
+            ref = plain()
+            torch.cuda.synchronize()
+            if got.dtype != torch.bfloat16 or got.shape != ref.shape:
                 fail(f"{name} bf16 returned {got.dtype} {tuple(got.shape)}")
             err, rel = _errors(got.float(), ref.float())
             scale = ref.float().abs().max().item()
             tol = max(1.0, scale) / 64
-            shape = f"[{b},{t},{dm}]" + (" causal" if causal else "") + " bf16"
+            del got, ref
+            shape = case["shape"] + (" causal" if causal else "") + " bf16"
             print(f"[bf16 kernels] {name} {shape}: max_abs_err {err:.3e} max_rel_err {rel:.3e} "
-                  f"(max |ref| {scale:.3f}; tolerance (1/64) x max(1, max |ref|) = {tol:.2e})")
+                  f"(max |ref| {scale:.3f}; tolerance (1/64) x max(1, max |ref|) = {tol:.2e}); "
+                  f"scratch {scratch} bytes")
             if not err <= tol:
                 fail(f"{name} {shape} disagrees with its plain bf16 version: {err} > {tol}")
+            if name == "mlp_chunked":
+                m = b * t
+                limit = m * (4 * dm // bk.MLP_CHUNKS) * 2 + m * dm * 4 + m * 2 * 4
+                if not scratch <= limit:
+                    fail(f"mlp_chunked {shape} allocated {scratch} bytes of scratch, more than "
+                         f"one bf16 chunk of the hidden, the fp32 sum and the statistics ({limit})")
             if not timed:
                 continue
-            x32 = x.float()
-            if name == "attn_block":
-                f32 = lambda: bk.attn_block(x32, p32["ln_1"], p32["attn"], heads, causal)  # noqa: E731
-            else:
-                f32 = lambda: bk.mlp_block(x32, p32["ln_2"], p32["mlp"])  # noqa: E731
             n = BF16_CALLS
             ms = time_ms(fn, reps=10, calls=n)
             plain_ms = time_ms(plain, reps=10, calls=n)
-            f32_ms = time_ms(f32, reps=10, calls=n)
+            f32_ms = time_ms(case["f32"], reps=10, calls=n)
+            library_ms = library_dev_ms = None
+            if case["library"] is not None:
+                library_ms = time_ms(case["library"], reps=10, calls=n)
+                library_dev_ms = device_ms(case["library"], calls=n)
+            beside = {k: time_ms(f, reps=10, calls=n) for k, f in case["beside"].items()}
             split = device_split(fn, calls=n)
             dev_ms = sum(split.values()) or None
-            nbytes = 2 * x.numel() * 2 + wbytes
+            nflops, nbytes = case["nflops"], case["nbytes"]
             bound_ms, bound_by = _bound_bf16(nbytes, nflops, card)
+            lib = (f", scaled_dot_product_attention in bf16 {library_ms:.4f} ms (device "
+                   f"{_fmt_ms(library_dev_ms)})" if library_ms is not None else "")
             print(f"[bf16 kernels] {name} {shape}: {ms:.4f} ms per call over {n} back-to-back "
                   f"calls (torch.profiler device time {_fmt_ms(dev_ms)} per call: "
                   + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
                   + f"), plain (cuBLAS bf16) {plain_ms:.4f} ms, the float32 kernel on the same "
-                  f"values {f32_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
-                  f"{nflops / 1e9:.2f} GFLOP at {BF16_FLOPS / 1e12:.0f} TFLOP/s bf16, "
-                  f"{nbytes / 1e6:.1f} MB; {ms / bound_ms:.2f}x it), "
-                  f"{nflops / ms / 1e9:.2f} TFLOP/s on {card['smi']}")
-            del x32
+                  f"values {f32_ms:.4f} ms{lib}"
+                  + "".join(f", {k} {v:.4f} ms" for k, v in beside.items())
+                  + f", bound {bound_ms:.4f} ms ({bound_by}, {nflops / 1e9:.2f} GFLOP at "
+                  f"{BF16_FLOPS / 1e12:.0f} TFLOP/s bf16, {nbytes / 1e6:.1f} MB; "
+                  f"{ms / bound_ms:.2f}x it), {nflops / ms / 1e9:.2f} TFLOP/s on {card['smi']}")
+            src, line = case["source"]
             results.append({
-                "name": f"{name}_bf16", "route": "cuda", "source": _source(name)[0],
-                "replaces": _source(name)[1], "shape": shape, "path": path,
-                "max_abs_err": err, "max_rel_err": rel, "tolerance": tol, "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": None, "device_ms": dev_ms, "f32_kernel_ms": f32_ms,
+                "name": f"{name}_bf16", "route": "cuda", "source": src, "replaces": line,
+                "shape": shape, "path": path, "max_abs_err": err, "max_rel_err": rel,
+                "tolerance": tol, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": library_ms, "device_ms": dev_ms,
+                "library_device_ms": library_dev_ms, "f32_kernel_ms": f32_ms,
+                "scratch_bytes": scratch, "beside_ms": beside,
             })
+            del case, fn, plain
     del blocks
     torch.cuda.empty_cache()
     print(f"[bf16 kernels] phase took {time.time() - t0:.1f} s")
@@ -939,18 +1059,19 @@ def phase_attention(card: dict) -> list[dict]:
 
 
 SLICES = {
-    # modality: launches expected on the CLI's main path, per iteration
-    "text": {"attn_block": 0, "mlp_block": 0, "mlp_stream": 0, "fused_qkv": 0,
-             "packed_attention": 0, "attn_stream": 0, "mlp_chunked": 0, "disturb": 128,
-             "attn_block_bf16": 0, "mlp_block_bf16": 0},
-    "image": {"attn_block": 12, "mlp_block": 0, "mlp_stream": 12, "fused_qkv": 0,
-              "packed_attention": 0, "attn_stream": 0, "mlp_chunked": 0, "disturb": 128,
-              "attn_block_bf16": 0, "mlp_block_bf16": 0},
+    # modality: launches expected on the CLI's main path, per iteration (every
+    # other kernel none); ViT-B/16's image path launches ViT-B/32's kernels
+    "text": {"disturb": 128},
+    "image": {"attn_block": 12, "mlp_stream": 12, "disturb": 128},
 }
 STARTUP = {"text": {"attn_block": 12, "mlp_block": 12}, "image": {}}  # the text table
 
 
-def phase_slice(results: list[dict], card: dict, modality: str) -> None:
+def phase_slice(results: list[dict], card: dict, modality: str,
+                model: str = "ViT-B/32") -> None:
+    """The CLIP-PPO MiniGrid CLI with ``modality`` at ``model`` for two
+    iterations, every kernel's launches against ``SLICES`` (ViT-B/32's runs
+    give the kernels line its launches)."""
     import math
 
     import torch
@@ -959,8 +1080,10 @@ def phase_slice(results: list[dict], card: dict, modality: str) -> None:
     from clip_ppo_tpu_torch.cli import clip_ppo_minigrid as cli
     from clip_ppo_tpu_torch.utils import flags
 
+    t_phase = time.time()
     argv = [
         "--clip-config.clip-lambda", "1e-5", "--clip-config.clip-modality", modality,
+        "--clip-config.clip-model", model,
         "--clip-config.apply-disturbances", "--clip-config.disturbance-severity", "HARD",
         "--total-timesteps", "2048", "--no-capture-video", "--seed", "1",
     ]
@@ -982,16 +1105,17 @@ def phase_slice(results: list[dict], card: dict, modality: str) -> None:
         finally:
             os.chdir(cwd)
     iters = args.num_iterations
-    tag = f"[{modality} slice]"
+    tag = f"[{modality} slice]" if model == "ViT-B/32" else f"[{modality} slice {model}]"
     print(f"{tag} {iters} iterations of {args.num_envs}x{args.num_steps} on {args.env_id} "
-          f"in {wall:.2f} s wall; launches {launches}")
+          f"at {model} in {wall:.2f} s wall; launches {launches}")
     print(f"{tag} text table build {summary['table_seconds']:.3f} s; steady SPS "
           f"{summary['sps']:.1f}; first_clip_loss {float(summary['last_scalars']['first_clip_loss']):.6f} "
           f"on {card['smi']}")
-    for name, per_iter in SLICES[modality].items():
-        n = per_iter * iters + STARTUP[modality].get(name, 0)
+    for name in launches:
+        n = SLICES[modality].get(name, 0) * iters + STARTUP[modality].get(name, 0)
         if launches[name] != n:
-            fail(f"{name} launched {launches[name]} times on the {modality} path, expected {n}")
+            fail(f"{name} launched {launches[name]} times on the {modality} path at {model}, "
+                 f"expected {n}")
     for key, v in summary["last_scalars"].items():
         if not math.isfinite(float(v)) and key != "explained_variance":
             fail(f"non-finite {key} = {v}")
@@ -1001,12 +1125,15 @@ def phase_slice(results: list[dict], card: dict, modality: str) -> None:
         fail("no TensorBoard event file written")
     if not any(c.endswith("_final.ckpt") for c in ckpts):
         fail(f"no final checkpoint among {ckpts}")
-    for r in results:
-        if r["path"] == modality:
-            r["launches"] = launches[r["name"]]
+    if model == "ViT-B/32":
+        for r in results:
+            if r["path"] == modality:
+                r["launches"] = launches[r["name"]]
+    else:
+        print(f"{tag} phase took {time.time() - t_phase:.1f} s")
 
 
-def phase_image_encode(card: dict) -> None:
+def phase_image_encode(card: dict, model: str = "ViT-B/32") -> None:
     """The vision tower's embeddings of a few frames through the kernels on
     the card, against the plain versions on the CPU with the same weights."""
     import torch
@@ -1015,16 +1142,16 @@ def phase_image_encode(card: dict) -> None:
     from clip_ppo_tpu_torch.utils.tree import tree_map
 
     dev = torch.device("cuda", 0)
-    params, cfg = clip_utils.load_clip_model("ViT-B/32", dev)
+    params, cfg = clip_utils.load_clip_model(model, dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
     frames = torch.randint(0, 256, (8, 84, 84, 3), generator=gen, device=dev, dtype=torch.uint8)
     got = clip_utils.encode_images(params, cfg, frames).cpu()
     ref = clip_utils.encode_images(tree_map(lambda t: t.cpu(), params), cfg, frames.cpu())
     err = (got - ref).abs().max().item()
-    print(f"[image encode] 8 frames through the ViT-B/32 tower (K2 + K5 on the card) vs the "
-          f"plain versions on the CPU: shape {tuple(got.shape)}, max_abs_err {err:.3e} on "
-          f"unit vectors (tolerance 1e-4)")
+    print(f"[image encode] 8 frames through the {model} tower (K2 + K5 on the card, T = "
+          f"{cfg.num_patches + 1}) vs the plain versions on the CPU: shape {tuple(got.shape)}, "
+          f"max_abs_err {err:.3e} on unit vectors (tolerance 1e-4)")
     if got.shape != (8, cfg.embed_dim) or not torch.isfinite(got).all() or not err <= 1e-4:
         fail(f"image embeddings on the card disagree with the CPU: {err}")
 
@@ -1473,6 +1600,50 @@ SWITCHES = [
 ]
 
 
+# The encoder benchmark at its default dtype, bf16, at ViT-L/14: every kernel
+# through its bf16 entry point. The vision tower takes K4 and K5 (K6 and K7
+# under the switches); the text tower's 768-wide MLP fits the budget in bf16,
+# so it takes K2 and K3 under every switch.
+L14_BF16_TEXT = {"attn_block_bf16": 12, "mlp_block_bf16": 12}
+BENCH_L14_BF16 = ["--model", "ViT-L/14", "--batch-sizes", "64", "256", "--text-batch", "1024",
+                  "--iterations", "3"]
+BENCH_L14_BF16_PER_CALL = {"image": {"fused_qkv_bf16": 24, "mlp_stream_bf16": 24},
+                           "text": L14_BF16_TEXT}
+BENCH_SWITCH_BF16 = ["--model", "ViT-L/14", "--batch-sizes", "256", "--text-batch", "1024",
+                     "--iterations", "2"]
+SWITCHES_BF16 = [
+    ("attn_stream_bf16", {"CLIP_PPO_ATTN_STREAM": "1"},
+     {"image": {"attn_stream_bf16": 24, "mlp_stream_bf16": 24}, "text": L14_BF16_TEXT}),
+    ("mlp_chunked_bf16", {"CLIP_PPO_MLP_CHUNKED": "1"},
+     {"image": {"fused_qkv_bf16": 24, "mlp_chunked_bf16": 24}, "text": L14_BF16_TEXT}),
+    ("both_bf16", BOTH,
+     {"image": {"attn_stream_bf16": 24, "mlp_chunked_bf16": 24}, "text": L14_BF16_TEXT}),
+    ("mlp_stream_off_bf16", {"CLIP_PPO_MLP_STREAM": "0"},
+     {"image": {"fused_qkv_bf16": 24}, "text": L14_BF16_TEXT}),
+]
+# ViT-B/32 in bf16 under --attention-impl fused (K4) and pallas (K8); the
+# text half runs "auto" (K2 and K3 in bf16), as in the JAX tool.
+B32_BF16_TEXT = {"attn_block_bf16": 12, "mlp_block_bf16": 12}
+BENCH_IMPL_BF16 = [
+    ("fused_bf16", ["--model", "ViT-B/32", "--attention-impl", "fused", "--batch-sizes", "1024",
+                    "--iterations", "2"],
+     {"image": {"fused_qkv_bf16": 12}, "text": B32_BF16_TEXT}),
+    ("pallas_bf16", ["--model", "ViT-B/32", "--attention-impl", "pallas", "--batch-sizes", "64",
+                     "--iterations", "2"],
+     {"image": {"packed_attention_bf16": 12}, "text": B32_BF16_TEXT}),
+]
+# ViT-B/16 (T = 197) at one batch size in each dtype: bf16 both towers on K2
+# and K3 in bf16; float32 its vision tower on K2 and K5, its 512-wide text
+# tower on K2 and K3.
+BENCH_B16 = [
+    ("b16_bf16", ["--model", "ViT-B/16", "--batch-sizes", "256", "--iterations", "3"],
+     {"image": {"attn_block_bf16": 12, "mlp_block_bf16": 12}, "text": B32_BF16_TEXT}),
+    ("b16_f32", ["--model", "ViT-B/16", "--dtype", "float32", "--batch-sizes", "256",
+                 "--iterations", "3"],
+     {"image": {"attn_block": 12, "mlp_stream": 12}, "text": {"attn_block": 12, "mlp_block": 12}}),
+]
+
+
 @contextlib.contextmanager
 def switches(env: dict):
     """Run with exactly the switches in ``env`` set, the others unset."""
@@ -1616,6 +1787,64 @@ def phase_large_tower(card: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def phase_large_tower_bf16(card: dict) -> None:
+    """ViT-L/14's vision tower in bf16 as ``benchmark_clip`` runs it (cast
+    once, the frames preprocessed in fp32 and encoded in bf16), on its
+    default route (K4 + K5 in bf16) and under both weight-streaming switches
+    (K6 + K7 in bf16): its L2-normalized features of two frames on the card
+    against the plain bf16 route on the CPU with the same weights, 2e-2
+    absolute (``tests/test_clip.py``'s bound on bf16 against float32); then
+    where one batch-256 bf16 image call of each spends its device time."""
+    import torch
+
+    from clip_ppo_tpu_torch import cuda_build
+    from clip_ppo_tpu_torch.models import clip_utils
+    from clip_ppo_tpu_torch.models.clip.model import cast_tower, encode_image
+    from clip_ppo_tpu_torch.ops.resize import preprocess_for_clip
+    from clip_ppo_tpu_torch.utils.tree import tree_map
+
+    t0 = time.time()
+    dev = torch.device("cuda", 0)
+    params, cfg = clip_utils.load_clip_model("ViT-L/14", dev)
+    visual = cast_tower({"visual": params["visual"]}, torch.bfloat16)
+    del params
+
+    def features(p, frames):
+        x = preprocess_for_clip(frames.float() / 255.0, cfg.image_size)
+        return encode_image(p, cfg, x, torch.bfloat16)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    frames = torch.randint(0, 256, (2, 84, 84, 3), generator=gen, device=dev, dtype=torch.uint8)
+    t_cpu = time.time()
+    with torch.no_grad():
+        ref = clip_utils.l2_normalize(features(tree_map(lambda t: t.cpu(), visual), frames.cpu()))
+    t_cpu = time.time() - t_cpu
+    routes = [("default route", {}, {"fused_qkv_bf16": 24, "mlp_stream_bf16": 24}),
+              ("both switches", BOTH, {"attn_stream_bf16": 24, "mlp_chunked_bf16": 24})]
+    for label, env, want in routes:
+        with switches(env), torch.no_grad():
+            cuda_build.reset_launches()
+            got = clip_utils.l2_normalize(features(visual, frames)).cpu()
+            launches = _launch_delta({k: 0 for k in cuda_build.LAUNCHES}, cuda_build.LAUNCHES)
+        err = (got - ref).abs().max().item()
+        print(f"[large tower bf16] {label}: 2 frames through the bf16 ViT-L/14 tower (launches "
+              f"{launches}) vs the plain bf16 route on the CPU ({t_cpu:.1f} s): shape "
+              f"{tuple(got.shape)}, max_abs_err {err:.3e} on unit vectors (tolerance 2e-2)")
+        if launches != want:
+            fail(f"the bf16 ViT-L/14 tower ({label}) launched {launches}, expected {want}")
+        if got.shape != (2, cfg.embed_dim) or not torch.isfinite(got).all() or not err <= 2e-2:
+            fail(f"bf16 ViT-L/14 features ({label}) on the card disagree with the CPU: {err}")
+    frames = torch.randint(0, 255, (256, 84, 84, 3), generator=gen, device=dev, dtype=torch.uint8)
+    for label, env, _ in routes:
+        with switches(env), torch.no_grad():
+            _profile_call(lambda: features(visual, frames),
+                          f"one batch-256 bf16 image call, {label}", card)
+    del visual, frames
+    torch.cuda.empty_cache()
+    print(f"[large tower bf16] phase took {time.time() - t0:.1f} s")
+
+
 def main() -> None:
     try:
         import torch
@@ -1638,6 +1867,8 @@ def main() -> None:
         if modality == "image":
             phase_image_encode(card)
         phase_profile(card, modality)
+    phase_slice(results, card, "image", "ViT-B/16")
+    phase_image_encode(card, "ViT-B/16")
     phase_vanilla(card)
     default = phase_benchmark(results, card, "benchmark", BENCH_L14, BENCH_L14_PER_CALL)
     phase_benchmark(results, card, "pallas", BENCH_PALLAS, BENCH_PALLAS_PER_CALL)
@@ -1649,6 +1880,20 @@ def main() -> None:
         f"{k} {v * 1e3:.2f} ms/batch, {256 / v:.1f} frames/s" for k, v in image.items())
         + f" on {card['smi']}")
     phase_large_tower(card)
+    t0 = time.time()
+    default = phase_benchmark(results, card, "l14_bf16", BENCH_L14_BF16, BENCH_L14_BF16_PER_CALL)
+    image = {"default route": next(r for r in default if r[0] == 256)[1]}
+    for label, env, per_call in SWITCHES_BF16:
+        with switches(env):
+            image[label] = phase_benchmark(results, card, label, BENCH_SWITCH_BF16,
+                                           per_call)[0][1]
+    print("[switches bf16] ViT-L/14 bf16 image call at batch 256: " + "; ".join(
+        f"{k} {v * 1e3:.2f} ms/batch, {256 / v:.1f} frames/s" for k, v in image.items())
+        + f" on {card['smi']}")
+    for label, argv, per_call in BENCH_IMPL_BF16 + BENCH_B16:
+        phase_benchmark(results, card, label, argv, per_call)
+    print(f"[benchmark bf16 and ViT-B/16] phase took {time.time() - t0:.1f} s")
+    phase_large_tower_bf16(card)
     for mode in ABLATIONS:
         phase_ablation(results, card, mode)
     phase_frozen_encode(card)
@@ -1658,6 +1903,9 @@ def main() -> None:
     print(f"[benchmark bench_bf16] phase took {time.time() - t0:.1f} s")
     order = ("name", "route", "source", "replaces", "shape", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms")
+    for r in results:  # every kernel of a driven path was launched there
+        if r["path"] and not r.get("launches"):
+            fail(f"{r['name']} {r['shape']} was not launched on its path {r['path']}")
     print(f"[done] every phase passed in {time.time() - t_start:.1f} s")
     extra = ("bound_fp32_ms", "device_ms", "library_device_ms", "ctas", "empty_ms",
              "empty_device_ms", "ms_8_ctas", "device_ms_8_ctas", "f32_kernel_ms")

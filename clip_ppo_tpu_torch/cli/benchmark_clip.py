@@ -6,19 +6,21 @@ the tower's input size, normalization, exactly the training path) and the
 text tower at growing batch sizes. Flags and defaults are the JAX tool's,
 plus ``--cuda``/``--no-cuda``:
 
-    python -m clip_ppo_tpu_torch.cli.benchmark_clip --model ViT-L/14 \\
-        --dtype float32 --batch-sizes 256
+    python -m clip_ppo_tpu_torch.cli.benchmark_clip --model ViT-L/14 --batch-sizes 256
 
 Runs on the GPU (``--cuda``, the default, raises without one) or on the CPU
 with ``--no-cuda`` (the kernels' plain versions). ``--attention-impl``
-routes the towers as ``models/clip/model.py`` describes: at ViT-L/14 "auto"
-runs K4 and K5 in the vision tower and K2 and K5 in the text tower; "pallas"
-runs K8 in the vision tower. As in the JAX tool, the text half always runs
-"auto". ``--dtype bfloat16``, the JAX tool's default, casts the towers once
-(``model.cast_tower``) and runs them in bf16: at ViT-B/32 both towers take
-K2 and K3 in bf16. Rejected, each naming the slice of ``ROADMAP.md`` that
-brings it: bfloat16 at ViT-L/14 (K4 and K5 in bf16), ``--tp``/
-``--num-devices`` above 1, and ViT-B/16 on the GPU.
+routes the towers as ``models/clip/model.py`` describes, and the MLP halves
+follow the TPU kernels' weight budget in the compute dtype. ``--dtype
+bfloat16``, the JAX tool's default, casts the towers once
+(``model.cast_tower``) and runs every kernel through its bf16 entry point:
+at ViT-L/14 "auto" runs K4 and K5 in the vision tower (K6 and K7 under the
+weight-streaming switches) and K2 and K3 in the text tower; at ViT-B/32 and
+ViT-B/16 both towers take K2 and K3. ``--dtype float32`` at ViT-L/14 runs
+K4 and K5 in the vision tower and K2 and K5 in the text tower. "fused" runs
+K4 and "pallas" K8 in the vision tower; as in the JAX tool, the text half
+always runs "auto". Rejected, naming the slice of ``ROADMAP.md`` that brings
+it: ``--tp``/``--num-devices`` above 1.
 """
 
 from __future__ import annotations
@@ -68,29 +70,15 @@ _IMPLS = ("auto", "fused", "block", "xla", "pallas")
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
-def _reject_unported(args: ClipBenchArgs, device: torch.device) -> None:
+def _reject_unported(args: ClipBenchArgs) -> None:
     """Options that need later slices of the port, by name, before any tower
     is built."""
     if args.dtype not in _DTYPES:
         raise SystemExit(f"--dtype {args.dtype}: one of {', '.join(_DTYPES)}")
-    if args.dtype == "bfloat16" and args.model == "ViT-L/14":
-        raise SystemExit(
-            "--model ViT-L/14 --dtype bfloat16 needs K4 and K5 in bf16, which come with the "
-            "ViT-L/14 bf16 slice (ROADMAP.md Queue 1 item 3); pass --dtype float32.")
-    if args.dtype == "bfloat16" and args.attention_impl in ("fused", "pallas") \
-            and device.type == "cuda":
-        raise SystemExit(
-            f"--attention-impl {args.attention_impl} --dtype bfloat16 on the GPU needs K4/K8 in "
-            "bf16, which come with the ViT-L/14 bf16 slice (ROADMAP.md Queue 1 item 3); pass "
-            "--dtype float32.")
     if args.tp > 1 or args.num_devices > 1:
         raise SystemExit(
             f"--tp {args.tp} --num-devices {args.num_devices}: multi-GPU runs come with "
             "the multi-GPU slice (ROADMAP.md Queue 1 item 9); the port runs on one device.")
-    if args.model == "ViT-B/16" and device.type == "cuda":
-        raise SystemExit(
-            "--model ViT-B/16 on the GPU is not yet driven and timed on the card: it comes "
-            "with the ViT-B/16 slice (ROADMAP.md Queue 1 item 4); run it with --no-cuda.")
     if args.model not in CLIP_CONFIGS:
         raise SystemExit(f"--model {args.model}: one of {', '.join(CLIP_CONFIGS)}")
     impl = args.attention_impl
@@ -115,7 +103,7 @@ def _bench(fn, data: torch.Tensor, iterations: int) -> float:
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = flags.parse(ClipBenchArgs, argv)
     device = resolve_device(args.cuda)
-    _reject_unported(args, device)
+    _reject_unported(args)
     params, cfg = load_clip_model(args.model, device, pretrained="auto", seed=args.seed)
     dtype = _DTYPES[args.dtype]
     params = cast_tower(params, dtype)

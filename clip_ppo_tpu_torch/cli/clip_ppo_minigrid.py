@@ -189,19 +189,15 @@ class Args:
     """the number of iterations (computed in runtime)"""
 
 
-def _reject_later_slices(args: Args, compute_clip: bool, device: torch.device) -> None:
+def _reject_later_slices(args: Args, compute_clip: bool) -> None:
     cc = args.clip_config
     random_mode = cc.ablation_mode == AblationMode.RANDOM_ENCODER
     frozen_mode = cc.ablation_mode == AblationMode.FROZEN_CLIP
-    image = (compute_clip and cc.clip_modality == "image" and not random_mode) or frozen_mode
     later = [
         (args.num_devices > 1 or args.tp > 1 or args.distributed,
          "--num-devices/--tp > 1 and --distributed", "the multi-GPU slice"),
         (cc.structured_frozen_init, "--clip-config.structured-frozen-init",
          "the distillation slice (gradients through the CLIP towers)"),
-        (image and cc.clip_model == "ViT-B/16" and device.type == "cuda",
-         "The vision tower at ViT-B/16 on the GPU (not yet driven and timed on the card)",
-         "the ViT-B/16 slice"),
         (args.mission_conditioning, "--mission-conditioning", "the extensions slice"),
         (compute_clip and not random_mode and not args.text_embed_table
          and cc.clip_modality == "text",
@@ -228,7 +224,7 @@ def train(args: Args, run_name: Optional[str] = None) -> dict:
     cc = args.clip_config
     compute_clip = clip_utils.should_compute_clip_loss(cc.ablation_mode, cc.clip_lambda)
     device = resolve_device(args.cuda)
-    _reject_later_slices(args, compute_clip, device)
+    _reject_later_slices(args, compute_clip)
     run_name = run_name or args.run_name or f"{args.env_id}__{args.exp_name}__{args.seed}__{int(time.time())}"
 
     maybe_init_wandb(args, run_name)

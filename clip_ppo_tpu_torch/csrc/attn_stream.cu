@@ -31,7 +31,20 @@
 // device memory: the qkv GEMM applies it as x arrives in shared memory. The
 // weights are not streamed by hand: the GEMM's column walk keeps each row
 // block's weights (12.6 MB of w_qkv) in the 50 MB L2.
+//
+// bf16 (attn_stream_bf16_launch): the encoder benchmark's default dtype
+// runs ViT-L/14's vision tower in bfloat16, and under CLIP_PPO_ATTN_STREAM=1
+// its attention halves come here. The same four launches in bf16
+// (attn_half.cuh), as K2's bf16 entry point runs them: gemm_bf16.cuh's wgmma
+// m64n128k16 and attention_bf16_kernel (mma.sync m16n8k16), one bf16 pass a
+// product with fp32 accumulators, rounding where _attn_stream_kernel rounds
+// (pallas_block.py:468-499): LN1(x), each qkv column, P, the attention
+// output and the out-projection before the residual. Bound: the 621 GFLOP
+// at [256, 257, 1024] take 0.628 ms at the dense bf16 peak, 989 TFLOP/s,
+// against 2 x 135 MB of x and out and 8.4 MB of weights, 0.083 ms at 3.35
+// TB/s. Scratch: 4 B*T*D bf16, 539 MB there.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "attn_half.cuh"
@@ -45,6 +58,17 @@ int attn_stream_launch(const float* x, const float* ln_g, const float* ln_b,
                        const float* w_qkv, const float* b_qkv, const float* w_out,
                        const float* b_out, float* stats, float* qkv, float* attn, float* out,
                        int B, int T, int D, int heads, int causal, float eps, void* stream) {
+  return attn_half::launch(x, ln_g, ln_b, w_qkv, b_qkv, w_out, b_out, stats, qkv, attn, out, B,
+                           T, D, heads, causal, eps, static_cast<cudaStream_t>(stream));
+}
+
+// As attn_stream_launch, every tensor but stats bfloat16; stats fp32.
+int attn_stream_bf16_launch(const __nv_bfloat16* x, const __nv_bfloat16* ln_g,
+                            const __nv_bfloat16* ln_b, const __nv_bfloat16* w_qkv,
+                            const __nv_bfloat16* b_qkv, const __nv_bfloat16* w_out,
+                            const __nv_bfloat16* b_out, float* stats, __nv_bfloat16* qkv,
+                            __nv_bfloat16* attn, __nv_bfloat16* out, int B, int T, int D,
+                            int heads, int causal, float eps, void* stream) {
   return attn_half::launch(x, ln_g, ln_b, w_qkv, b_qkv, w_out, b_out, stats, qkv, attn, out, B,
                            T, D, heads, causal, eps, static_cast<cudaStream_t>(stream));
 }

@@ -1,4 +1,5 @@
-// The bf16 GEMM of K2 (attn_block.cu) and K3 (mlp_block.cu) in bfloat16:
+// The bf16 GEMM of K2, K3, K5, K6 and K7 in bfloat16 (attn_half.cuh,
+// mlp_half.cuh):
 //   C[M, N] = epilogue(A'[M, K] @ W[N, K]^T),
 // bf16 in and out, the products on Hopper's tensor cores (wgmma) in one
 // bf16 pass with float32 accumulators. The sibling of gemm_tf32x3.cuh, with
@@ -18,7 +19,11 @@
 //   kBiasQuickGelu applies QuickGELU in fp32, then rounds (the hidden);
 //   kBiasResidual rounds the projection to bf16 first and adds it to the
 //   bf16 residual, rounding the sum again (o = x + out.astype(x.dtype)).
-//   No kAccumulate: K7, its one user, stays float32.
+// * K7's chunks of the hidden dimension (mlp_half.cuh) sum in fp32, as
+//   _mlp_block_chunked_kernel sums them in its fp32 acc_scratch and rounds
+//   once: kAccumulate writes the fp32 sum C32 = R32 + A' @ W^T (R32 null:
+//   0; R32 == C32 allowed) and no bf16 C; kBiasResidual with R32 given adds
+//   R32 to the product in fp32 before the bias and the rounding.
 //
 // Bound on Hopper: operations, 2 M N K flops at the dense bf16 peak, 989
 // TFLOP/s. At K3's fc in the FROZEN_CLIP update, [12,800 x 768] @ [3,072 x
@@ -47,6 +52,7 @@ namespace gemm_bf16 {
 
 using gemm_tf32x3::descriptor;
 using gemm_tf32x3::fence_proxy_async;
+using gemm_tf32x3::kAccumulate;
 using gemm_tf32x3::kBias;
 using gemm_tf32x3::kBiasQuickGelu;
 using gemm_tf32x3::kBiasResidual;
@@ -54,6 +60,7 @@ using gemm_tf32x3::kBM;
 using gemm_tf32x3::kBN;
 using gemm_tf32x3::kStages;
 using gemm_tf32x3::kThreads;
+using gemm_tf32x3::ld_coherent;
 using gemm_tf32x3::swizzle;
 using gemm_tf32x3::wgmma_commit;
 using gemm_tf32x3::wgmma_fence;
@@ -66,9 +73,11 @@ constexpr int kTileBytes = kBM * kBK * 2;                   // 16 KB, A or W
 constexpr int kSmemBytes = kStages * 2 * kTileBytes + 1024;  // + alignment to the swizzle's 1 KB
 
 // C = epilogue(A' @ W^T). stats, ln_g, ln_b are read only with LN; R only
-// with kBiasResidual. A, W, C, R, bias, ln_g, ln_b 16-byte aligned; K a
-// multiple of kBK, N a multiple of 8; W's rows ldw elements apart (0: K),
-// ldw >= K and a multiple of 8.
+// with kBiasResidual; bias and C not with kAccumulate, which writes C32; R32
+// (fp32 [M, N], may be null) with kAccumulate and kBiasResidual. A, W, C,
+// R, C32, R32, bias, ln_g, ln_b 16-byte aligned; K a multiple of kBK, N a
+// multiple of 8; W's rows ldw elements apart (0: K), ldw >= K and a
+// multiple of 8.
 struct Params {
   const bf16* A;
   const float2* stats;  // [M] (mean, rstd), fp32
@@ -80,6 +89,8 @@ struct Params {
   bf16* C;
   int M, N, K;
   int ldw;
+  float* C32;
+  const float* R32;
 };
 
 // d (+)= A[64 x 16] @ B[128 x 16]^T in bf16, fp32 accumulators; both from
@@ -111,8 +122,8 @@ __device__ __forceinline__ void wgmma(float (&d)[64], uint64_t a, uint64_t b, in
 
 template <bool kLN, int kEpi>
 __global__ void __launch_bounds__(kThreads, 1) gemm_bf16_kernel(const Params p) {
-  static_assert(kEpi == kBias || kEpi == kBiasQuickGelu || kEpi == kBiasResidual,
-                "the bf16 GEMM has no kAccumulate epilogue");
+  static_assert(kEpi == kBias || kEpi == kBiasQuickGelu || kEpi == kBiasResidual ||
+                kEpi == kAccumulate, "an epilogue of gemm_tf32x3::Epilogue");
   extern __shared__ __align__(16) unsigned char smem_bf16[];
   const uint32_t raw_addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem_bf16));
   unsigned char* smem = smem_bf16 + (((raw_addr + 1023) & ~1023u) - raw_addr);
@@ -231,8 +242,17 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_bf16_kernel(const Params p) 
       const int n = n0 + 8 * j + 2 * (lane & 3);
       if (n >= p.N) continue;
       const size_t o = static_cast<size_t>(m) * p.N + n;
+      float2 v = make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      if ((kEpi == kAccumulate || kEpi == kBiasResidual) && p.R32 != nullptr) {
+        const float2 r = ld_coherent(p.R32 + o);  // R32 may be C32 itself
+        v = make_float2(r.x + v.x, r.y + v.y);
+      }
+      if (kEpi == kAccumulate) {
+        *reinterpret_cast<float2*>(p.C32 + o) = v;
+        continue;
+      }
       const float2 bias = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p.bias + n));
-      float2 v = make_float2(acc[4 * j + 2 * h] + bias.x, acc[4 * j + 2 * h + 1] + bias.y);
+      v = make_float2(v.x + bias.x, v.y + bias.y);
       if (kEpi == kBiasQuickGelu) {
         v.x = v.x / (1.0f + __expf(-1.702f * v.x));
         v.y = v.y / (1.0f + __expf(-1.702f * v.y));

@@ -47,7 +47,25 @@
 //
 // Widths: D a multiple of 32 (the GEMM's reduction slice), 4D a multiple of
 // 32 x chunks; any B*T that fits an int.
+//
+// bf16 (mlp_chunked_bf16_launch): the encoder benchmark's default dtype
+// runs ViT-L/14's vision tower in bfloat16, and under CLIP_PPO_MLP_CHUNKED=1
+// its MLP halves come here (its text tower's D = 768 fits the budget in bf16
+// and takes K3). The TPU kernel sums the chunks' proj products in an fp32
+// acc_scratch and rounds once, at its last chunk (pallas_block.py:160-167).
+// So does this entry point: mlp_half.cuh's bf16 chunk loop on gemm_bf16.cuh,
+// each chunk's proj GEMM but the last writing the fp32 sum so far into an
+// [M, D] fp32 scratch the wrapper allocates (acc32), the last adding it
+// before proj_b, one rounding to bf16 and the residual. Adding each chunk
+// into the bf16 output in place, as the fp32 entry point adds into out,
+// would round once a chunk. The scratch is one chunk's [M, 4D / chunks] bf16
+// hidden, acc32 and the statistics: at [256, 257, 1024] with 4 chunks 135 +
+// 269 MB, against K5's 539 MB of hidden. What the chunks cost over K5 in
+// bf16: acc32 is written by chunks 0-2 and read by chunks 1-3, 1.6 GB at
+// 3.35 TB/s, ~0.48 ms against the 1.116 ms bound of the products. Widths:
+// D a multiple of 64, 4D of 64 x chunks.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -64,6 +82,18 @@ int mlp_chunked_launch(const float* x, const float* ln_g, const float* ln_b,
                        int D4, int n_chunks, float eps, void* stream) {
   return mlp_half::launch(x, ln_g, ln_b, w_fc, b_fc, w_proj, b_proj, stats, h, out, M, D, D4,
                           n_chunks, eps, static_cast<cudaStream_t>(stream));
+}
+
+// As mlp_chunked_launch, every tensor but stats and acc32 bfloat16; acc32:
+// [M, D] fp32 scratch; D a multiple of 64, D4 of 64 * n_chunks.
+int mlp_chunked_bf16_launch(const __nv_bfloat16* x, const __nv_bfloat16* ln_g,
+                            const __nv_bfloat16* ln_b, const __nv_bfloat16* w_fc,
+                            const __nv_bfloat16* b_fc, const __nv_bfloat16* w_proj,
+                            const __nv_bfloat16* b_proj, float* stats, __nv_bfloat16* h,
+                            float* acc32, __nv_bfloat16* out, int M, int D, int D4, int n_chunks,
+                            float eps, void* stream) {
+  return mlp_half::launch(x, ln_g, ln_b, w_fc, b_fc, w_proj, b_proj, stats, h, out, M, D, D4,
+                          n_chunks, eps, static_cast<cudaStream_t>(stream), acc32);
 }
 
 }  // extern "C"

@@ -25,12 +25,19 @@
 // Widths: D a multiple of 32 (the GEMM's reduction slice), 4D a multiple of
 // 32 x n_chunks; any B*T that fits an int; every pointer 16-byte aligned.
 //
-// In bfloat16 (K3's bf16 entry point) the same launches run ln_stats on bf16
-// rows and the bf16 GEMM (gemm_bf16.cuh), one bf16 pass a product, one chunk only,
-// rounding where the TPU kernel rounds: LN2(x) to bf16 before fc, the hidden
-// to bf16 after QuickGELU in fp32, the projection to bf16 before the
-// residual add. Its reduction slice is 64 deep, so D and 4D are multiples of
-// 64 there.
+// In bfloat16 (the bf16 entry points of K3, K5 and K7) the same launches
+// run ln_stats on bf16 rows and the bf16 GEMM (gemm_bf16.cuh), one bf16
+// pass a product, rounding where the TPU kernels round: LN2(x) to bf16
+// before fc, the hidden to bf16 after QuickGELU in fp32, the projection to
+// bf16 before the residual add. With several chunks (K7) the projection is
+// summed in fp32 and rounded once, as _mlp_block_chunked_kernel sums it in
+// its fp32 acc_scratch: each chunk's proj GEMM but the last writes the sum
+// so far into an fp32 [M, D] scratch (acc32; the GEMM's kAccumulate, chunk 0
+// with nothing to add), and the last adds it, then proj_b, rounds to bf16,
+// adds the residual and rounds again. Rounding each chunk's product into
+// the bf16 output instead would round once a chunk: not the TPU kernel's
+// function. The bf16 reduction slice is 64 deep, so D is a multiple of 64
+// and 4D of 64 x n_chunks there.
 
 #pragma once
 
@@ -47,17 +54,19 @@ namespace mlp_half {
 
 // x, out: [M, D]; w_fc: [D4, D]; b_fc: [D4]; w_proj: [D, D4]; b_proj, ln_g,
 // ln_b: [D]; stats: [M, 2] fp32 and h: [M, D4 / n_chunks] scratch; Elem is
-// float or __nv_bfloat16 (then n_chunks == 1), every tensor but stats of
-// that type. Returns a cudaError_t.
+// float or __nv_bfloat16, every tensor but stats and acc32 of that type;
+// acc32: [M, D] fp32 scratch, read only in bf16 with n_chunks > 1. Returns a
+// cudaError_t.
 template <typename Elem>
 int launch(const Elem* x, const Elem* ln_g, const Elem* ln_b, const Elem* w_fc,
            const Elem* b_fc, const Elem* w_proj, const Elem* b_proj, float* stats, Elem* h,
-           Elem* out, int M, int D, int D4, int n_chunks, float eps, cudaStream_t st) {
+           Elem* out, int M, int D, int D4, int n_chunks, float eps, cudaStream_t st,
+           float* acc32 = nullptr) {
   constexpr bool kF32 = std::is_same<Elem, float>::value;
   static_assert(kF32 || std::is_same<Elem, __nv_bfloat16>::value, "float or bfloat16");
   const int slice = kF32 ? gemm_tf32x3::kBK : gemm_bf16::kBK;
-  if (M < 1 || D < slice || D % slice != 0 || n_chunks < 1 || (!kF32 && n_chunks != 1) ||
-      D4 < slice * n_chunks || D4 % (slice * n_chunks) != 0)
+  if (M < 1 || D < slice || D % slice != 0 || n_chunks < 1 || D4 < slice * n_chunks ||
+      D4 % (slice * n_chunks) != 0 || (!kF32 && n_chunks > 1 && acc32 == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   float2* st2 = reinterpret_cast<float2*>(stats);
   const int ck = D4 / n_chunks;
@@ -66,11 +75,24 @@ int launch(const Elem* x, const Elem* ln_g, const Elem* ln_b, const Elem* w_fc,
   if (err != cudaSuccess) return err;
   if constexpr (!kF32) {
     using gemm_bf16::Params;
-    const Params fc{x, st2, ln_g, ln_b, w_fc, b_fc, nullptr, h, M, D4, D};
-    err = gemm_bf16::launch<true, gemm_bf16::kBiasQuickGelu>(fc, st);
-    if (err != cudaSuccess) return err;
-    const Params proj{h, nullptr, nullptr, nullptr, w_proj, b_proj, x, out, M, D, D4};
-    return gemm_bf16::launch<false, gemm_bf16::kBiasResidual>(proj, st);
+    for (int c = 0; c < n_chunks; ++c) {
+      const size_t u0 = static_cast<size_t>(c) * ck;  // the chunk's first hidden unit
+      const Params fc{x, st2, ln_g, ln_b, w_fc + u0 * D, b_fc + u0, nullptr, h, M, ck, D};
+      err = gemm_bf16::launch<true, gemm_bf16::kBiasQuickGelu>(fc, st);
+      if (err != cudaSuccess) return err;
+      const float* sum = c == 0 ? nullptr : acc32;  // the fp32 sum of chunks 0 .. c - 1
+      if (c == n_chunks - 1) {
+        const Params proj{h,  nullptr, nullptr, nullptr, w_proj + u0, b_proj, x, out, M, D, ck,
+                          D4, nullptr, sum};
+        err = gemm_bf16::launch<false, gemm_bf16::kBiasResidual>(proj, st);
+      } else {
+        const Params proj{h,  nullptr, nullptr, nullptr, w_proj + u0, nullptr, nullptr, nullptr,
+                          M,  D,       ck,      D4,      acc32,       sum};
+        err = gemm_bf16::launch<false, gemm_bf16::kAccumulate>(proj, st);
+      }
+      if (err != cudaSuccess) return err;
+    }
+    return cudaSuccess;
   } else {
     using gemm_tf32x3::Params;
     for (int c = 0; c < n_chunks; ++c) {

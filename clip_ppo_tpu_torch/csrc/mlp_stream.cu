@@ -36,7 +36,21 @@
 //
 // Widths: D and 4D multiples of 32 (the GEMM's reduction slice); the
 // towers' 768 and 1024 and their 3,072 and 4,096.
+//
+// bf16 (mlp_stream_bf16_launch): the encoder benchmark's default dtype runs
+// ViT-L/14's vision tower in bfloat16, where 2 * 1024 * 4096 * 2 bytes = 16
+// MiB of MLP weights still exceed the TPU kernel's budget, so its MLP halves
+// come here. mlp_half.cuh's launches in bf16 with one chunk, as K3's bf16
+// entry point runs them (gemm_bf16.cuh, wgmma m64n128k16, one bf16 pass a
+// product): the proj GEMM sums all 4D hidden units in fp32 accumulators and
+// rounds once, which is what _mlp_stream_kernel's fp32 acc_scratch over its
+// streamed chunks computes (pallas_block.py:410, 442-450). Bound: the 1.104
+// TFLOP at [256, 257, 1024] take 1.116 ms at the dense bf16 peak, 989
+// TFLOP/s, against 2 x 135 MB of x and out and 16.8 MB of weights, 0.085 ms
+// at 3.35 TB/s. Widths: D and 4D multiples of 64; scratch: the [B*T, 4D]
+// bf16 hidden, 539 MB there.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -51,6 +65,17 @@ int mlp_stream_launch(const float* x, const float* ln_g, const float* ln_b,
                       const float* w_fc, const float* b_fc, const float* w_proj,
                       const float* b_proj, float* stats, float* h, float* out, int M, int D,
                       int D4, float eps, void* stream) {
+  return mlp_half::launch(x, ln_g, ln_b, w_fc, b_fc, w_proj, b_proj, stats, h, out, M, D, D4, 1,
+                          eps, static_cast<cudaStream_t>(stream));
+}
+
+// As mlp_stream_launch, every tensor but stats bfloat16; stats fp32; D and
+// D4 multiples of 64.
+int mlp_stream_bf16_launch(const __nv_bfloat16* x, const __nv_bfloat16* ln_g,
+                           const __nv_bfloat16* ln_b, const __nv_bfloat16* w_fc,
+                           const __nv_bfloat16* b_fc, const __nv_bfloat16* w_proj,
+                           const __nv_bfloat16* b_proj, float* stats, __nv_bfloat16* h,
+                           __nv_bfloat16* out, int M, int D, int D4, float eps, void* stream) {
   return mlp_half::launch(x, ln_g, ln_b, w_fc, b_fc, w_proj, b_proj, stats, h, out, M, D, D4, 1,
                           eps, static_cast<cudaStream_t>(stream));
 }

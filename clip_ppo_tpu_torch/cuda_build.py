@@ -38,13 +38,26 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
+# The kernels with a bfloat16 entry point (``<name>_bf16_launch``): every
+# one but K1, whose images are float32.
+BF16_KERNELS = ("attn_block", "mlp_block", "mlp_stream", "fused_qkv", "attn_stream",
+                "mlp_chunked", "packed_attention")
+
 # Launches of each kernel since the last reset_launches(); each wrapper adds
 # one where it launches its kernel and nowhere else. fused_qkv.cu has two
 # entry points, K4 ("fused_qkv") and K8 ("packed_attention"), counted apart;
-# so do K2's and K3's bfloat16 entry points ("attn_block_bf16",
-# "mlp_block_bf16") beside their float32 ones.
+# each bfloat16 entry point ("attn_block_bf16", ...) is counted apart from
+# its float32 one.
 LAUNCHES: dict[str, int] = {
-    name: 0 for name in [*SOURCES, "packed_attention", "attn_block_bf16", "mlp_block_bf16"]}
+    name: 0 for name in [*SOURCES, "packed_attention", *(f"{k}_bf16" for k in BF16_KERNELS)]}
+
+
+def entry(name: str, x) -> str:
+    """The entry point (``<entry>_launch``) and launch counter of kernel
+    ``name`` for tensor x's dtype: ``<name>_bf16`` for bfloat16."""
+    import torch
+
+    return f"{name}_bf16" if x.dtype == torch.bfloat16 else name
 
 
 def reset_launches() -> None:
@@ -118,10 +131,15 @@ def _declare(libs: dict[str, ctypes.CDLL]) -> None:
         ("mlp_block", "mlp_block_launch"): [*[p] * 10, i, i, i, f, p],
         ("mlp_block", "mlp_block_bf16_launch"): [*[p] * 10, i, i, i, f, p],
         ("mlp_stream", "mlp_stream_launch"): [*[p] * 10, i, i, i, f, p],
+        ("mlp_stream", "mlp_stream_bf16_launch"): [*[p] * 10, i, i, i, f, p],
         ("fused_qkv", "fused_qkv_launch"): [p, p, i, i, i, i, p],
+        ("fused_qkv", "fused_qkv_bf16_launch"): [p, p, i, i, i, i, p],
         ("fused_qkv", "packed_attention_launch"): [p, p, p, p, i, i, i, *[ll] * 9, p],
+        ("fused_qkv", "packed_attention_bf16_launch"): [p, p, p, p, i, i, i, *[ll] * 9, p],
         ("attn_stream", "attn_stream_launch"): [*[p] * 11, i, i, i, i, i, f, p],
+        ("attn_stream", "attn_stream_bf16_launch"): [*[p] * 11, i, i, i, i, i, f, p],
         ("mlp_chunked", "mlp_chunked_launch"): [*[p] * 10, i, i, i, i, f, p],
+        ("mlp_chunked", "mlp_chunked_bf16_launch"): [*[p] * 11, i, i, i, i, f, p],
     }
     for (lib, fn), argtypes in sig.items():
         func = getattr(libs[lib], fn)

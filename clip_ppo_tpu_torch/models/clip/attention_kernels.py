@@ -16,14 +16,17 @@ Counterpart of ``clip_ppo_tpu/models/clip/pallas_attention.py``:
   never copied. Plain version :func:`packed_attention_plain`.
 
 Both kernels are ``csrc/fused_qkv.cu`` around the body in
-``csrc/attention_tile.cuh``: fp32 in and out, up to 96 query rows of one
-head per block (16 a warp), keys in tiles of 64 staged by ``cp.async`` with
-an online softmax, both products on the tensor cores as three TF32 passes
-per fp32 product, so the result stays within the fp32 tolerance of the
-plain versions. They take Dh = 64 — every CLIP tower's head width — any T
-and any batch; the wrappers raise for any other Dh on the GPU, and for
-bfloat16, which comes with the ViT-L/14 bf16 slice. The plain versions take
-any Dh.
+``csrc/attention_tile.cuh``: up to 96 query rows of one head per block (16
+a warp), keys in tiles of 64 staged by ``cp.async`` with an online softmax.
+In float32 both products run on the tensor cores as three TF32 passes per
+fp32 product, so the result stays within the fp32 tolerance of the plain
+versions. In bfloat16 (the entry points ``fused_qkv_bf16_launch`` and
+``packed_attention_bf16_launch``, counted apart as ``fused_qkv_bf16`` and
+``packed_attention_bf16``) each product is one bf16 pass with fp32
+accumulators, the scores and softmax in fp32, P and the output rounded to
+bf16, as the TPU kernel computes with bf16 q, k and v. They take Dh = 64 —
+every CLIP tower's head width — any T and any batch; the wrappers raise
+for any other Dh or dtype on the GPU. The plain versions take any Dh.
 
 The TPU tiling arguments have no counterpart and are not carried over:
 ``block_batches`` and ``group`` (batches and heads per VMEM block and per
@@ -68,16 +71,19 @@ def packed_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) ->
 
 
 def _check_rows(t: torch.Tensor, strides: tuple[int, ...], name: str, what: str) -> None:
-    """The kernel reads 16-byte vectors along each 64-wide row."""
-    if t.dtype == torch.bfloat16:
-        raise ValueError(f"{name}: the kernel takes float32 only; bfloat16 comes with the "
-                         "ViT-L/14 bf16 slice (ROADMAP.md Queue 1 item 3)")
-    if t.dtype != torch.float32 or t.stride(-1) != 1:
-        raise ValueError(f"{name}: {what} must be float32 with a contiguous last dimension")
-    if t.data_ptr() % 16 or any(s % 4 for s in strides):
-        raise ValueError(f"{name}: {what} must start on a 16-byte boundary with strides that "
-                         f"are multiples of 4 elements (the kernel reads 16-byte vectors), "
-                         f"got strides {tuple(t.stride())}")
+    """The kernel reads 16-byte vectors along each 64-wide row: 4 float32
+    or 8 bfloat16 elements."""
+    if t.dtype not in (torch.float32, torch.bfloat16) or t.stride(-1) != 1:
+        raise ValueError(f"{name}: {what} must be float32 or bfloat16 with a contiguous last "
+                         "dimension")
+    vec = 16 // t.element_size()
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: {what} must start on a 16-byte boundary (the kernel reads "
+                         "16-byte vectors)")
+    if any(s % vec for s in strides):
+        raise ValueError(f"{name}: {what}'s strides must be multiples of {vec} elements in "
+                         f"{t.dtype} (the kernel reads 16-byte vectors of {vec}), got strides "
+                         f"{tuple(t.stride())}")
 
 
 def fused_qkv_attention(qkv: torch.Tensor, heads: int, causal: bool = False) -> torch.Tensor:
@@ -95,9 +101,10 @@ def fused_qkv_attention(qkv: torch.Tensor, heads: int, causal: bool = False) -> 
                          f"(3D = 3 x heads x {HEAD_DIM}), got 3D={d3}, heads={heads}")
     _check_rows(qkv, (d3,), "fused_qkv_attention", "qkv")
     out = torch.empty((b, t, d3 // 3), dtype=qkv.dtype, device=qkv.device)
-    cuda_build.launch("fused_qkv", "fused_qkv_launch", qkv.data_ptr(), out.data_ptr(),
+    entry = cuda_build.entry("fused_qkv", qkv)
+    cuda_build.launch("fused_qkv", f"{entry}_launch", qkv.data_ptr(), out.data_ptr(),
                       b, t, heads, int(causal), cuda_build.stream_handle(qkv.device))
-    cuda_build.LAUNCHES["fused_qkv"] += 1
+    cuda_build.LAUNCHES[entry] += 1
     return out
 
 
@@ -113,14 +120,18 @@ def packed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("packed_attention: q, k and v must be on one device")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"packed_attention: q, k and v must share one dtype, got {q.dtype}, "
+                         f"{k.dtype}, {v.dtype}")
     b, t, h, dh = q.shape
     if dh != HEAD_DIM:
         raise ValueError(f"packed_attention: the kernel takes Dh = {HEAD_DIM}, got {dh}")
     for name, z in (("q", q), ("k", k), ("v", v)):
         _check_rows(z, z.stride()[:3], "packed_attention", name)
     out = torch.empty((b, t, h, dh), dtype=q.dtype, device=q.device)
-    cuda_build.launch("fused_qkv", "packed_attention_launch", q.data_ptr(), k.data_ptr(),
+    entry = cuda_build.entry("packed_attention", q)
+    cuda_build.launch("fused_qkv", f"{entry}_launch", q.data_ptr(), k.data_ptr(),
                       v.data_ptr(), out.data_ptr(), b, t, h, *q.stride()[:3], *k.stride()[:3],
                       *v.stride()[:3], cuda_build.stream_handle(q.device))
-    cuda_build.LAUNCHES["packed_attention"] += 1
+    cuda_build.LAUNCHES[entry] += 1
     return out

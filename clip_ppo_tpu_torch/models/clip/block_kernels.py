@@ -28,8 +28,8 @@ hand-written CUDA kernels, and their plain PyTorch versions.
   tower's D = 768 in fp32, ViT-L/14's D = 1024 and 768):
   ``CLIP_PPO_MLP_CHUNKED=1`` runs :func:`mlp_chunked`, K7, replacing
   ``_mlp_block_chunked_kernel`` (``csrc/mlp_chunked.cu``: the hidden
-  dimension cut into :data:`MLP_CHUNKS` chunks, each chunk's product added
-  to the output in chunk order); else ``CLIP_PPO_MLP_STREAM`` other than "1"
+  dimension cut into :data:`MLP_CHUNKS` chunks, their products summed in
+  chunk order); else ``CLIP_PPO_MLP_STREAM`` other than "1"
   runs the plain version, as ``_mlp_block_ref``; else :func:`mlp_stream`,
   K5, replacing ``_mlp_stream_kernel`` (``csrc/mlp_stream.cu``). K3, K5 and
   K7 share one sequence of launches (``csrc/mlp_half.cuh``): LN statistics,
@@ -40,7 +40,7 @@ hand-written CUDA kernels, and their plain PyTorch versions.
   (``csrc/mlp_block.cu`` says why K3 no longer keeps it on chip), K7 once
   per chunk with one chunk's [B, T, 4D / MLP_CHUNKS]. K3 and K5 take D and
   4D multiples of 32, K7 D a multiple of 32 and 4D a multiple of 32 ×
-  MLP_CHUNKS.
+  MLP_CHUNKS (64 for 32 in bfloat16).
 
 Each wrapper launches its kernel for a CUDA tensor, runs its plain version
 (which mirrors ``_attn_block_ref`` / ``_mlp_block_ref``, in float32 or in
@@ -49,12 +49,18 @@ for any other device and for shapes its kernel does not take.
 
 Dtypes on the GPU. Every tensor of one call has x's dtype (cast a tower
 once with ``model.cast_tower``); the LayerNorm statistics the wrappers
-allocate as scratch are float32 whatever x is. K2 and K3 take float32 and
-bfloat16: their bf16 entry points (``attn_block_bf16``, ``mlp_block_bf16``,
-counted apart) run every product as one bf16 pass on the tensor cores with
-fp32 accumulators, rounding where the TPU kernels round (``csrc/
-gemm_bf16.cuh``), and K3 then takes D and 4D multiples of 64. K5, K6 and K7
-take float32 only: their bf16 comes with the ViT-L/14 bf16 slice.
+allocate as scratch are float32 whatever x is. Every wrapper takes float32
+and bfloat16: the bf16 entry points (``attn_block_bf16``, ``mlp_stream_bf16``,
+..., counted apart) run every product as one bf16 pass on the tensor cores
+with fp32 accumulators, rounding where the TPU kernels round (``csrc/
+gemm_bf16.cuh``, ``attention_tile.cuh``'s ``attention_bf16_kernel``), and the
+MLP halves then take D and 4D multiples of 64. K7 in bf16 sums its chunks'
+products in an fp32 [B*T, D] scratch and rounds once, as
+``_mlp_block_chunked_kernel`` sums them in its fp32 ``acc_scratch``. The TPU
+kernel's chunk count depends on the dtype (``pallas_block.py:328-331``: 8 in
+bf16 and 16 in fp32 at D = 1024, from its VMEM budget); the port's
+:data:`MLP_CHUNKS` = 4 in either dtype computes the same fp32 sum, in
+another grouping of its terms.
 Forward only: the towers run under ``torch.no_grad()``. The primitives the
 plain versions are built from (``layer_norm``, ``quick_gelu``,
 ``attention``) are the model's own; ``attention`` computes its scores
@@ -82,9 +88,6 @@ WEIGHT_BUDGET_BYTES = 12 << 20
 MLP_CHUNKS = 4
 # The largest row count (B*T) the C entry points take: an int.
 _INT_MAX = 2**31 - 1
-# The kernels with a bfloat16 entry point; the others take float32 only.
-BF16_KERNELS = ("attn_block", "mlp_block")
-_BF16_LATER = "the ViT-L/14 bf16 slice (ROADMAP.md Queue 1 item 3)"
 
 
 def uses_mlp_stream(width: int, hidden: int, itemsize: int) -> bool:
@@ -144,12 +147,8 @@ attn_stream_plain = attn_block_plain
 
 
 def _check(x: torch.Tensor, weights: dict, name: str) -> None:
-    if x.dtype == torch.bfloat16 and name not in BF16_KERNELS:
-        raise ValueError(f"{name}: the kernel takes float32 only; bfloat16 comes with "
-                         f"{_BF16_LATER}")
     if x.dtype not in (torch.float32, torch.bfloat16) or x.dim() != 3 or not x.is_contiguous():
-        kinds = "float32 or bfloat16" if name in BF16_KERNELS else "float32"
-        raise ValueError(f"{name}: x must be a contiguous {kinds} [B, T, D] tensor")
+        raise ValueError(f"{name}: x must be a contiguous float32 or bfloat16 [B, T, D] tensor")
     for key, w in weights.items():
         if w.device != x.device or w.dtype != x.dtype or not w.is_contiguous():
             raise ValueError(f"{name}: {key} must be a contiguous {x.dtype} tensor on "
@@ -211,7 +210,7 @@ def _attn_half(name: str, x: torch.Tensor, ln1: dict, attn: dict, heads: int, ca
                          f"B={b}, T={t}")
     _check_aligned(name, x, ln1["scale"], ln1["bias"], *attn.values())
     buf = attn_scratch(x)
-    entry = _entry(name, x)
+    entry = cuda_build.entry(name, x)
     cuda_build.launch(
         name, f"{entry}_launch",
         x.data_ptr(), ln1["scale"].data_ptr(), ln1["bias"].data_ptr(),
@@ -223,11 +222,6 @@ def _attn_half(name: str, x: torch.Tensor, ln1: dict, attn: dict, heads: int, ca
     )
     cuda_build.LAUNCHES[entry] += 1
     return buf["out"]
-
-
-def _entry(name: str, x: torch.Tensor) -> str:
-    """The kernel's entry point (and launch counter) for x's dtype."""
-    return f"{name}_bf16" if x.dtype == torch.bfloat16 else name
 
 
 def _stats(x: torch.Tensor, rows: int) -> torch.Tensor:
@@ -251,11 +245,15 @@ def attn_scratch(x: torch.Tensor) -> dict:
 def mlp_scratch(x: torch.Tensor, d4: int, chunks: int = 1) -> dict:
     """The buffers K3, K5 and K7 launch on for [B, T, D] x: the fp32 LN2
     statistics, one chunk's [B*T, 4D / chunks] hidden in x's dtype, and the
-    output."""
-    m = x.shape[0] * x.shape[1]
-    return {"stats": _stats(x, m),
-            "hidden": torch.empty((m, d4 // chunks), dtype=x.dtype, device=x.device),
-            "out": torch.empty_like(x)}
+    output; in bfloat16 with several chunks also the fp32 [B*T, D] sum of
+    the chunks' projections (``acc``)."""
+    m, d = x.shape[0] * x.shape[1], x.shape[2]
+    buf = {"stats": _stats(x, m),
+           "hidden": torch.empty((m, d4 // chunks), dtype=x.dtype, device=x.device),
+           "out": torch.empty_like(x)}
+    if x.dtype == torch.bfloat16 and chunks > 1:
+        buf["acc"] = torch.empty((m, d), dtype=torch.float32, device=x.device)
+    return buf
 
 
 def mlp_block(x: torch.Tensor, ln2: dict, mlp: dict, eps: float = 1e-5) -> torch.Tensor:
@@ -284,7 +282,8 @@ def mlp_block_resident(x: torch.Tensor, ln2: dict, mlp: dict, eps: float = 1e-5)
 
 def mlp_stream(x: torch.Tensor, ln2: dict, mlp: dict, eps: float = 1e-5) -> torch.Tensor:
     """K5: :func:`mlp_block` as two tensor-core GEMMs with the [B, T, 4D]
-    hidden as scratch between them (D and 4D multiples of 32)."""
+    hidden as scratch between them (D and 4D multiples of 32; of 64 in
+    bfloat16)."""
     if x.device.type == "cpu":
         return mlp_stream_plain(x, ln2, mlp, eps)
     return _mlp_half("mlp_stream", x, ln2, mlp, eps)
@@ -295,7 +294,9 @@ def _mlp_half(name: str, x: torch.Tensor, ln2: dict, mlp: dict, eps: float,
     """K3, K5 or K7 (``name``) on a device tensor: the launches of
     ``csrc/mlp_half.cuh`` through the kernel's own entry point, the hidden
     dimension in ``chunks`` chunks, one chunk's [B*T, 4D / chunks] hidden as
-    scratch (D a multiple of 32, 4D a multiple of 32 x chunks)."""
+    scratch (D a multiple of 32, 4D a multiple of 32 x chunks; 64 for 32 in
+    bfloat16), and in bfloat16 with several chunks the fp32 sum of their
+    projections."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     b, t, _ = x.shape
@@ -309,13 +310,14 @@ def _mlp_half(name: str, x: torch.Tensor, ln2: dict, mlp: dict, eps: float,
                          f"D={d}, 4D={d4}, B*T={m}")
     _check_aligned(name, x, ln2["scale"], ln2["bias"], *mlp.values())
     buf = mlp_scratch(x, d4, chunks)
-    entry = _entry(name, x)
+    entry = cuda_build.entry(name, x)
     cuda_build.launch(
         name, f"{entry}_launch",
         x.data_ptr(), ln2["scale"].data_ptr(), ln2["bias"].data_ptr(),
         mlp["fc_w"].data_ptr(), mlp["fc_b"].data_ptr(),
         mlp["proj_w"].data_ptr(), mlp["proj_b"].data_ptr(),
-        buf["stats"].data_ptr(), buf["hidden"].data_ptr(), buf["out"].data_ptr(), m, d, d4,
+        buf["stats"].data_ptr(), buf["hidden"].data_ptr(),
+        *([buf["acc"].data_ptr()] if "acc" in buf else []), buf["out"].data_ptr(), m, d, d4,
         *([chunks] if name == "mlp_chunked" else []), float(eps),
         cuda_build.stream_handle(x.device),
     )
@@ -336,7 +338,8 @@ def mlp_chunked(x: torch.Tensor, ln2: dict, mlp: dict, eps: float = 1e-5) -> tor
     """K7: :func:`mlp_block` as a sum over :data:`MLP_CHUNKS` chunks of the
     hidden dimension, taken in chunk order, with one chunk's [B, T, 4D /
     MLP_CHUNKS] hidden as scratch (D a multiple of 32, 4D a multiple of 32 x
-    MLP_CHUNKS)."""
+    MLP_CHUNKS; 64 for 32 in bfloat16, where the sum is kept in an fp32
+    [B*T, D] scratch and rounded once)."""
     if x.device.type == "cpu":
         return mlp_chunked_plain(x, ln2, mlp, eps)
     return _mlp_half("mlp_chunked", x, ln2, mlp, eps, MLP_CHUNKS)

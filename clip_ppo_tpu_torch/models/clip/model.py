@@ -22,7 +22,9 @@ none):
   route sends the MLP half through :func:`block_kernels.mlp_block`, which
   picks K3, K5, K7 or the plain version by the weights' size in the
   activations' dtype and the ``CLIP_PPO_MLP_CHUNKED`` and
-  ``CLIP_PPO_MLP_STREAM`` switches.
+  ``CLIP_PPO_MLP_STREAM`` switches; past K2's widths
+  ``CLIP_PPO_MLP_STREAM`` other than "1" takes the plain MLP whatever
+  ``CLIP_PPO_MLP_CHUNKED`` says, as ``_use_stream_mlp`` does.
 * ``"fused"``: K4 for attention at any width, causal for the text tower;
   the plain MLP.
 * ``"block"``: K2 and :func:`block_kernels.mlp_block` at any width.
@@ -118,7 +120,9 @@ def resblock(p: dict, x: torch.Tensor, heads: int, causal: bool = False,
         x = attn_stream(x, p["ln_1"], p["attn"], heads, causal)
     else:
         x = x + attention(p["attn"], layer_norm(p["ln_1"], x), heads, causal, impl)
-    if impl == "auto":
+    # Past K2's widths "auto" streams the MLP only while CLIP_PPO_MLP_STREAM
+    # is "1", before any other switch (``_use_stream_mlp``).
+    if impl == "auto" and os.environ.get("CLIP_PPO_MLP_STREAM", "1") == "1":
         return mlp_block(x, p["ln_2"], p["mlp"])
     return mlp_block_plain(x, p["ln_2"], p["mlp"])
 

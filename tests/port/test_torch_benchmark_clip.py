@@ -60,15 +60,55 @@ def test_main_runs_on_cpu(monkeypatch, capsys, impl, kernel):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--model", "ViT-L/14"], "ViT-L/14 bf16 slice"),  # the default dtype, bfloat16
     (["--dtype", "float32", "--tp", "2"], "multi-GPU slice"),
     (["--dtype", "float32", "--num-devices", "2"], "multi-GPU slice"),
-    (["--dtype", "float32", "--model", "ViT-B/16"], "ViT-B/16 slice"),
 ])
 def test_main_rejects_what_later_slices_bring(monkeypatch, argv, match):
     monkeypatch.setattr(tbench, "resolve_device", lambda cuda: torch.device("cuda", 0))
     monkeypatch.setattr(tbench, "load_clip_model", lambda *a, **k: pytest.fail("tower built"))
     with pytest.raises(SystemExit, match=match):
+        tbench.main(argv)
+
+
+@pytest.mark.parametrize("impl,kernel", [("auto", "fused_qkv_attention"),
+                                         ("fused", "fused_qkv_attention"),
+                                         ("pallas", "packed_attention")])
+def test_main_runs_vit_l14_width_at_its_default_bf16_on_cpu(monkeypatch, capsys, impl, kernel):
+    """The default dtype, bfloat16, at ViT-L/14's vision width: the towers
+    cast once and every call routed as on the GPU, where each of these
+    wrappers launches its bf16 entry point."""
+    monkeypatch.setattr(tbench, "load_clip_model", _tiny_tower)
+    seen = {"image": [], "text": []}
+    for name, half in ((kernel, "image"), ("attn_block", "text")):
+        real = getattr(tmodel, name)
+        monkeypatch.setattr(tmodel, name,
+                            lambda x, *a, real=real, half=half: seen[half].append(x.dtype)
+                            or real(x, *a))
+    tbench.main(["--no-cuda", "--batch-sizes", "2", "--text-batch", "2", "--iterations", "1",
+                 "--attention-impl", impl])
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0] == "model=ViT-B/32 dtype=bfloat16 device=cpu (cpu)"
+    assert len(lines) == 4 and lines[3].startswith("text  batch=2: ")
+    assert seen == {"image": [torch.bfloat16] * 2, "text": [torch.bfloat16] * 2}
+
+
+@pytest.mark.parametrize("argv", [
+    ["--model", "ViT-L/14"],  # the default dtype, bfloat16
+    ["--model", "ViT-L/14", "--attention-impl", "fused"],
+    ["--model", "ViT-B/32", "--attention-impl", "pallas"],
+    ["--model", "ViT-B/16"],
+    ["--model", "ViT-B/16", "--dtype", "float32"],
+])
+def test_main_takes_every_model_and_impl_on_the_gpu(monkeypatch, argv):
+    """Nothing of these is refused on the GPU any more: the run goes on to
+    build the tower."""
+    monkeypatch.setattr(tbench, "resolve_device", lambda cuda: torch.device("cuda", 0))
+
+    def built(name, device, **_):
+        raise RuntimeError(f"tower {name} built on {device}")
+
+    monkeypatch.setattr(tbench, "load_clip_model", built)
+    with pytest.raises(RuntimeError, match=f"tower {argv[1]} built on cuda:0"):
         tbench.main(argv)
 
 

@@ -1,5 +1,5 @@
 """K2 and K3 in bfloat16: their plain versions against the JAX package, the
-wrappers' bf16 contract, and the bf16 image tower.
+wrappers' bf16 contract (every resblock half's), and the bf16 image tower.
 
 The JAX side runs ``fused_attn_block``/``fused_mlp_block`` in interpret
 mode on bf16 x (they cast the weights to bf16 themselves, ``_row(..., dt)``)
@@ -130,27 +130,21 @@ def test_mlp_block_plain_casts_float32_weights(block):
 ])
 def test_layernorm_statistics_stay_float32_in_bf16(make, key):
     """The scratch the GPU wrappers launch on: the LN statistics are float32
-    whatever x is (a bf16 mean would round away the row's offset); the
-    activations' scratch is in x's dtype."""
+    whatever x is (a bf16 mean would round away the row's offset), and so is
+    K7's sum of its chunks in bf16 (``acc``); the activations' scratch is in
+    x's dtype."""
     for dtype in (torch.bfloat16, torch.float32):
         buf = make(torch.zeros((3, 5, 128), dtype=dtype))
         assert buf[key].dtype == torch.float32 and tuple(buf[key].shape) == (15, 2)
-        assert all(v.dtype == dtype for k, v in buf.items() if k != key)
+        assert all(v.dtype == dtype for k, v in buf.items() if k not in (key, "acc"))
+        assert buf.get("acc", torch.zeros((), dtype=torch.float32)).dtype == torch.float32
 
 
-@pytest.mark.parametrize("name", ["mlp_stream", "mlp_chunked", "attn_stream"])
-def test_kernels_without_bf16_refuse_it_by_slice_name(block, name):
-    _, tp = block
-    x = torch.zeros((2, 3, 128), dtype=torch.bfloat16)
-    weights = tp["mlp"] if name.startswith("mlp") else tp["attn"]
-    with pytest.raises(ValueError, match=f"{name}: .*ViT-L/14 bf16 slice"):
-        bk._check(x, weights, name)
-
-
-@pytest.mark.parametrize("name", ["attn_block", "mlp_block"])
+@pytest.mark.parametrize("name", ["attn_block", "mlp_block", "mlp_stream", "mlp_chunked",
+                                  "attn_stream"])
 def test_bf16_kernels_refuse_mixed_dtypes(block, name):
     jp, tp = block
-    part = "attn" if name == "attn_block" else "mlp"
+    part = "attn" if name.startswith("attn") else "mlp"
     bk._check(torch.zeros((2, 3, 128), dtype=torch.bfloat16), tp[part], name)  # one dtype: taken
     f32 = {k: torch.as_tensor(v) for k, v in jp[part].items()}
     with pytest.raises(ValueError, match="cast_tower"):

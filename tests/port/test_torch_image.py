@@ -186,13 +186,12 @@ def test_cli_image_modality_runs_on_cpu(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("model,error,match", [
-    ("ViT-B/16", SystemExit, "ViT-B/16 on the GPU"),
     ("ViT-L/14", ValueError, r"Dimension mismatch: PPO latents \(512\) vs CLIP embeddings \(768\)"),
 ])
 def test_cli_rejects_image_towers_it_cannot_run(tmp_path, monkeypatch, model, error, match):
-    """Up front, before any tower is built: ViT-B/16 needs K2 at 197 tokens
-    on the GPU; ViT-L/14's 768-wide embedding cannot align with the 512-wide
-    latent, the error the JAX package raises at the loss."""
+    """Up front, before any tower is built: ViT-L/14's 768-wide embedding
+    cannot align with the 512-wide latent, the error the JAX package raises
+    at the loss."""
     monkeypatch.chdir(tmp_path)
     monkeypatch.setattr(tcli, "resolve_device", lambda cuda: torch.device("cuda", 0))
     monkeypatch.setattr(tcu, "load_clip_model", lambda *a, **k: pytest.fail("tower built"))

@@ -140,6 +140,7 @@ def _port_route(mp, tp, x, heads, causal) -> set:
     for name, key in (("mlp_chunked", "mlp_chunked"), ("mlp_stream", "mlp_stream"),
                       ("mlp_block_resident", "mlp_block"), ("mlp_block_plain", "mlp_plain")):
         mp.setattr(bk, name, rec(key))
+    mp.setattr(tmodel, "mlp_block_plain", rec("mlp_plain"))  # resblock's own plain MLP
     tmodel.resblock(tp, torch.as_tensor(x), heads, causal, "auto")
     return set(calls)
 
@@ -154,6 +155,10 @@ ROUTES = [
     ({"CLIP_PPO_MLP_STREAM": "0"}, {"fused_qkv", "mlp_plain"}, {"attn_block", "mlp_plain"}),
     ({"CLIP_PPO_ATTN_STREAM": "1", "CLIP_PPO_MLP_STREAM": "0"}, {"attn_stream", "mlp_plain"},
      {"attn_block", "mlp_plain"}),
+    # Past K2's widths the stream switch comes first (_use_stream_mlp); at
+    # K2's, fused_mlp_block reads the chunked one first.
+    ({"CLIP_PPO_MLP_CHUNKED": "1", "CLIP_PPO_MLP_STREAM": "0"}, {"fused_qkv", "mlp_plain"},
+     {"attn_block", "mlp_chunked"}),
 ]
 
 
