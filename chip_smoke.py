@@ -17,10 +17,11 @@ non-zero at once:
    the shapes the main paths give it: K1 at every severity, at the shapes
    of ``K1_CASES`` (a ragged band, one channel, bands thinner than the
    halo, clusters of 8) and in the main path's mode, noise drawn in the
-   kernel, against the plain version fed the kernel's own normals; timed
-   with clusters of 16 and of 8 CTAs beside an empty kernel on the same
-   grid, and its device time with fewer CTAs, without drawing the noise
-   and at other tap counts. ``BLOCK_CASES``: K2, K3 and K5 with random
+   kernel, against the plain version fed the kernel's own normals (the
+   rollout's [8,84,84,3] and an Atari frame's [8,84,84,1]); timed with
+   clusters of 16 and of 8 CTAs beside an empty kernel on the same grid,
+   and its device time with fewer CTAs, without drawing the noise and at
+   other tap counts, and at [8,84,84,1]. ``BLOCK_CASES``: K2, K3 and K5 with random
    LayerNorm affines and biases; K2 at the text, the vision and ViT-L/14's
    text tower's shapes, at ViT-B/16's T = 197 and at K6's [256, 257, 1024];
    K5 also at ViT-L/14's two widths and at a ragged row count; K3 at a
@@ -43,9 +44,11 @@ non-zero at once:
    [B*T, D] chunk of the hidden plus the row statistics. Then every kernel
    but K1 in bfloat16 (its bf16 entry point) against its plain bf16 version
    at the FROZEN_CLIP trunk's, the bf16 encoder benchmarks' and odd shapes
-   (``BF16_CASES``, tolerance (1/64) x max(1, max |ref|)), timed beside
-   its device time, the plain (cuBLAS bf16) route and the float32 kernel
-   on the same values, against the dense bf16 peak;
+   (``BF16_CASES``, the Atari image modality's [4096,50,768] and its
+   FROZEN_CLIP rollout's [32,50,768] among them; tolerance (1/64) x
+   max(1, max |ref|)), timed beside its device time, the plain (cuBLAS
+   bf16) route and the float32 kernel on the same values, against the
+   dense bf16 peak;
 3. text slice — the CLIP-PPO MiniGrid CLI (text modality, HARD
    disturbances) for two iterations, with every launch count read from the
    run;
@@ -88,7 +91,23 @@ non-zero at once:
     bf16 route on the CPU; one steady FROZEN_CLIP iteration by part with the
     device's busy share; and ``benchmark_clip`` at its default bf16 at
     ViT-B/32 (both towers on K2 and K3 in bf16), launches of every call
-    checked.
+    checked;
+11. atari — ``cli/ppo_atari.py`` for two iterations on each of Breakout,
+    Pong and Seaquest (no kernel launched, finite losses), then
+    ``cli/clip_ppo_atari.py`` for two iterations in each mode of
+    ``ATARI_RUNS`` (the image modality at its defaults: 1,024 stacks of 4
+    frames through the bf16 ViT-B/32 tower, K2 and K3 in bf16 at
+    [4096,50,768] 12 times an iteration; HARD ``stack_frames`` disturbances
+    on Pong, K1 512 times an iteration; the text modality's split path, K2
+    and K3 in fp32; FROZEN_CLIP, 1,740 of each in bf16; RANDOM_ENCODER in
+    both modalities, none), launch counts from the configuration
+    (:func:`atari_launches`), the CLIP loss > 0 (0 under FROZEN_CLIP), each
+    run's second iteration clocked for its steady env-steps/s;
+    ``stack_frames`` on the card against the CPU on the same noise, and the
+    four frames' in-kernel noise shown to differ; the multi-frame bf16
+    features of two stacks against the plain bf16 route on the CPU; one
+    steady image-modality iteration by part, with the device's busy share,
+    its kernels and its device time by ported kernel.
 
 Besides, phase 2 holds K4–K8 in bf16 (their bf16 entry points) against
 their plain bf16 versions (``BF16_CASES``), K4 and K8 timed beside
@@ -104,8 +123,9 @@ CPU on the default route and under both switches, and profiles one
 batch-256 bf16 image call of each. Every kernel of the ``kernels`` line
 must have been launched on its path.
 
-The paths of phases 3 to 8 before the switch runs, and of phase 10, run
-with every switch unset, and their launch checks hold K6 and K7 at 0.
+The paths of phases 3 to 8 before the switch runs, and of phases 10 and
+11, run with every switch unset, and their launch checks hold K6 and K7
+at 0.
 
 The last lines are the kernels' JSON summary, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device the
@@ -371,13 +391,16 @@ def _errors(got, ref) -> tuple[float, float]:
     return err, err / max(ref.abs().max().item(), 1e-30)
 
 
-# K1 at shapes its bands must get right, noise as input: (shape, severity,
-# CTAs an image)
+# K1 at shapes its bands must get right: (shape, severity, CTAs an image,
+# noise drawn in the kernel); with the noise drawn in the kernel (the main
+# paths' mode) the plain version is fed the kernel's own normals, else both
+# take the same noise as input.
 K1_CASES = [
-    ((3, 85, 83, 3), "HARD", 16),  # ragged: bands of 6, the 15th of 1, the 16th empty
-    ((4, 84, 84, 1), "HARD", 16),  # one channel: the channel mean
-    ((2, 9, 13, 3), "SEVERE", 16),  # bands of 1 row, thinner than the 3-row halo
-    ((8, 84, 84, 3), "SEVERE", 8),  # the portable cluster size: bands of 11
+    ((3, 85, 83, 3), "HARD", 16, False),  # ragged: bands of 6, the 15th of 1, the 16th empty
+    ((4, 84, 84, 1), "HARD", 16, False),  # one channel: the channel mean
+    ((2, 9, 13, 3), "SEVERE", 16, False),  # bands of 1 row, thinner than the 3-row halo
+    ((8, 84, 84, 3), "SEVERE", 8, False),  # the portable cluster size: bands of 11
+    ((8, 84, 84, 1), "HARD", 16, True),  # one frame of the Atari rollout's stacks
 ]
 
 
@@ -418,10 +441,30 @@ def phase_kernels(card: dict) -> list[dict]:
     for sev in ("MILD", "MODERATE", "HARD", "SEVERE"):
         params = SEVERITY_CONFIGS[DisturbanceSeverity[sev]]
         k1_check(f"{sev} [8,84,84,3]", x, params, noise_in(x, params))
-    for shape, sev, ctas in K1_CASES:
+    def own_normals(xc, d_seed):
+        """The kernel's own normals for ``d_seed``: image i's stream under the
+        call's seed, indexed by the NHWC element as the kernel indexes it."""
+        seed = int(d_seed.seed.item())
+        own = torch.stack([dk.kernel_normals(xc[0].numel(), seed, i, dev).view(xc.shape[1:])
+                           for i in range(xc.shape[0])])
+        return DisturbanceDraws(own, d_seed.factor, d_seed.origin)
+
+    for shape, sev, ctas, in_kernel in K1_CASES:
         params = SEVERITY_CONFIGS[DisturbanceSeverity[sev]]
         xc = torch.rand(shape, generator=gen, device=dev)
-        k1_check(f"{sev} [{','.join(map(str, shape))}]", xc, params, noise_in(xc, params), ctas)
+        label = f"{sev} [{','.join(map(str, shape))}]"
+        if not in_kernel:
+            k1_check(label, xc, params, noise_in(xc, params), ctas)
+            continue
+        d_seed = draw(xc, params, gen)
+        err, rel = _errors(dk.disturb_batched(xc, params, d_seed, ctas=ctas),
+                           dk.disturb_batched_plain(xc, params, own_normals(xc, d_seed)))
+        print(f"[kernels] K1 {label}, noise drawn in the kernel, {ctas} CTAs an image, against "
+              f"the plain version fed the kernel's own normals: max_abs_err {err:.3e} "
+              f"max_rel_err {rel:.3e} (tolerance 1e-5)")
+        if not err <= 1e-5:
+            fail(f"K1 {label} with in-kernel noise disagrees with its plain version: {err}")
+        worst, worst_rel = max(worst, err), max(worst_rel, rel)
     z = dk.kernel_normals(1 << 22, 12345, 0, dev)
     z1 = dk.kernel_normals(1 << 16, 12345, 1, dev)
     mean, std = z.mean().item(), z.std().item()
@@ -431,12 +474,8 @@ def phase_kernels(card: dict) -> list[dict]:
              "its streams do not differ per image")
     params = SEVERITY_CONFIGS[DisturbanceSeverity.HARD]
     d_seed = draw(x, params, gen)  # the main path's mode: noise drawn in the kernel
-    # The plain version fed the kernel's own normals: image i's stream under
-    # the call's seed, indexed by the NHWC element as the kernel indexes it.
     seed = int(d_seed.seed.item())
-    own = torch.stack([dk.kernel_normals(x[0].numel(), seed, i, dev).view(x.shape[1:])
-                       for i in range(x.shape[0])])
-    d_own = DisturbanceDraws(own, d_seed.factor, d_seed.origin)
+    d_own = own_normals(x, d_seed)
     for ctas in (dk.CLUSTER_CTAS, 8):
         err, rel = _errors(dk.disturb_batched(x, params, d_seed, ctas=ctas),
                            dk.disturb_batched_plain(x, params, d_own))
@@ -492,6 +531,28 @@ def phase_kernels(card: dict) -> list[dict]:
         "library_ms": None, "device_ms": k1_device_ms, "ctas": dk.CLUSTER_CTAS,
         "empty_ms": empty_ms, "empty_device_ms": empty_device_ms,
         "ms_8_ctas": timed[8][0], "device_ms_8_ctas": timed[8][1],
+    })
+    # One frame of the Atari rollout's [8, 84, 84, 4] stacks under
+    # stack_frames (4 launches a step), HARD, noise drawn in the kernel.
+    x1 = torch.rand((8, 84, 84, 1), generator=gen, device=dev)
+    d1 = draw(x1, params, gen)
+    d1_own = own_normals(x1, d1)
+    err1, rel1 = _errors(dk.disturb_batched(x1, params, d1),
+                         dk.disturb_batched_plain(x1, params, d1_own))
+    k1 = lambda: dk.disturb_batched(x1, params, d1)  # noqa: E731
+    ms1 = time_ms(k1, reps=20, calls=50)
+    dev1 = device_ms(k1, calls=50, kernel="disturb_kernel")
+    plain1 = time_ms(lambda: dk.disturb_batched_plain(x1, params, d1_own), reps=20, calls=50)
+    bound1, by1 = _bound(2 * x1.numel() * 4, x1.numel() * (4 * params.blur_kernel_size + 7), card)
+    print(f"[kernels] K1 HARD [8,84,84,1] (an Atari frame), noise drawn in the kernel: "
+          f"{ms1:.4f} ms per call over 50 back-to-back calls (device {_fmt_ms(dev1)}), plain "
+          f"{plain1:.4f} ms, bound {bound1:.5f} ms ({by1})")
+    results.append({
+        "name": "disturb", "route": "cuda", "source": "clip_ppo_tpu_torch/csrc/disturb.cu",
+        "replaces": "clip_ppo_tpu/ops/pallas_disturb.py:76", "shape": "[8,84,84,1]",
+        "path": "atari_hard", "max_abs_err": err1, "max_rel_err": rel1, "tolerance": 1e-5,
+        "ms": ms1, "plain_ms": plain1, "bound_ms": bound1, "bound_by": by1, "library_ms": None,
+        "device_ms": dev1, "ctas": dk.CLUSTER_CTAS,
     })
 
     # -- K2, K3 and K5 at the shapes of BLOCK_CASES ---------------------
@@ -744,8 +805,15 @@ def phase_stream_kernels(card: dict) -> list[dict]:
 # at [1024, 77, 512] causal, ViT-L/14's vision tower (K4 and K5; K6 and K7
 # under the switches) at [256, 257, 1024] and its text tower (K2 and K3) at
 # [1024, 77, 768] causal, and ViT-B/32's vision tower under --attention-impl
-# fused (K4) at [1024, 50, 768] and pallas (K8) at [64, 50, 768].
+# fused (K4) at [1024, 50, 768] and pallas (K8) at [64, 50, 768]. The Atari
+# image modality encodes 1,024 stacks of 4 frames at [4096, 50, 768]; Atari
+# FROZEN_CLIP runs [32, 50, 768] in the rollout and [1024, 50, 768] in the
+# update.
 BF16_CASES = [
+    ("attn_block", 4096, 50, 768, False, "atari", True),  # Atari: 1,024 stacks x 4 frames
+    ("mlp_block", 4096, 50, 768, False, "atari", True),
+    ("attn_block", 32, 50, 768, False, "atari_frozen", True),  # Atari FROZEN_CLIP: 8 x 4
+    ("mlp_block", 32, 50, 768, False, "atari_frozen", True),
     ("attn_block", 8, 50, 768, False, "frozen", True),
     ("mlp_block", 8, 50, 768, False, "frozen", True),
     ("attn_block", 256, 50, 768, False, "frozen", True),
@@ -1845,6 +1913,297 @@ def phase_large_tower_bf16(card: dict) -> None:
     print(f"[large tower bf16] phase took {time.time() - t0:.1f} s")
 
 
+# Phase 11, Atari: the vanilla CLI on each game, and the CLIP-PPO CLI in
+# every mode, 2 iterations of 8 envs x 128 steps each at ViT-B/32. Name:
+# (CLI, argv). The image modality is the CLIP-PPO CLI's default (Breakout,
+# λ = 1e-5).
+ATARI_GAMES = ("ALE/Breakout-v5", "ALE/Pong-v5", "ALE/Seaquest-v5")
+ATARI_RUNS = {
+    "image": [],
+    "image HARD Pong": ["--env-id", "ALE/Pong-v5", "--clip-config.apply-disturbances",
+                        "--clip-config.disturbance-severity", "HARD"],
+    "text": ["--clip-config.clip-modality", "text"],
+    "FROZEN_CLIP": ["--clip-config.ablation-mode", "FROZEN_CLIP"],
+    "RANDOM_ENCODER image": ["--clip-config.ablation-mode", "RANDOM_ENCODER"],
+    "RANDOM_ENCODER text": ["--clip-config.ablation-mode", "RANDOM_ENCODER",
+                            "--clip-config.clip-modality", "text"],
+}
+# The kernels line's Atari rows take their launches from these runs.
+ATARI_PATHS = {"image": "atari", "image HARD Pong": "atari_hard", "FROZEN_CLIP": "atari_frozen"}
+
+
+def atari_launches(args) -> dict:
+    """Each kernel's launches per iteration of the CLIP-PPO Atari CLI under
+    ``args``, from its configuration: K1 once a frame of each stored stack
+    (4 a rollout step) under disturbances; the image modality's one bf16
+    encode of the iteration's T x N stacks, K2 and K3 in bf16 once a vision
+    layer; the text modality's fp32 text tower, K2 and K3 once a text layer;
+    FROZEN_CLIP's bf16 tower once a vision layer for every rollout step, the
+    bootstrap value and every minibatch; RANDOM_ENCODER no tower kernel."""
+    from clip_ppo_tpu_torch import cuda_build
+    from clip_ppo_tpu_torch.models.agent import AblationMode
+    from clip_ppo_tpu_torch.models.clip.config import CLIP_CONFIGS
+
+    cc = args.clip_config
+    cfg = CLIP_CONFIGS[cc.clip_model]
+    per = {k: 0 for k in cuda_build.LAUNCHES}
+    if cc.apply_disturbances:
+        per["disturb"] = 4 * args.num_steps
+    if cc.ablation_mode == AblationMode.FROZEN_CLIP:
+        calls = args.num_steps + 1 + args.update_epochs * args.num_minibatches
+        per["attn_block_bf16"] = per["mlp_block_bf16"] = cfg.vision_layers * calls
+    elif cc.ablation_mode == AblationMode.NONE and cc.clip_modality == "image":
+        per["attn_block_bf16"] = per["mlp_block_bf16"] = cfg.vision_layers
+    elif cc.ablation_mode == AblationMode.NONE:
+        per["attn_block"] = per["mlp_block"] = cfg.text_layers
+    return per
+
+
+@contextlib.contextmanager
+def iteration_clock(times: list):
+    """Appends the host clock, after a device synchronize, at the end of
+    every Trainer iteration of the block (a fused call of one iteration, or
+    a split path's update half): the difference of two is one iteration's
+    wall time, its host work between the calls included."""
+    import torch
+
+    from clip_ppo_tpu_torch.train.runner import Trainer
+
+    saved = {name: getattr(Trainer, name) for name in ("run_iterations", "run_update_half")}
+
+    def clocked(fn):
+        def call(*a, **k):
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter())
+            return out
+        return call
+
+    for name, fn in saved.items():
+        setattr(Trainer, name, clocked(fn))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(Trainer, name, fn)
+
+
+def run_atari_cli(cli, argv: list[str]):
+    """``cli.train`` for 2 iterations of 8 x 128 in a temporary directory,
+    one iteration a dispatch and clocked. Returns (args, summary, launches,
+    wall seconds, steady env-steps/s of the second iteration, files)."""
+    import torch
+
+    from clip_ppo_tpu_torch import cuda_build
+    from clip_ppo_tpu_torch.utils import flags
+
+    argv = [*argv, "--total-timesteps", "2048", "--iterations-per-dispatch", "1",
+            "--no-capture-video", "--seed", "1"]
+    args = flags.parse(cli.Args, argv)
+    cwd = os.getcwd()
+    times: list = []
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            if hasattr(args, "model_path"):
+                args.model_path = os.path.join(tmp, "checkpoints")
+            cuda_build.reset_launches()
+            t0 = time.time()
+            with iteration_clock(times):
+                summary = cli.train(args, run_name="chip_smoke")
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            launches = dict(cuda_build.LAUNCHES)
+            files = [f for _, _, fs in os.walk(tmp) for f in fs]
+        finally:
+            os.chdir(cwd)
+    steady = args.batch_size / (times[-1] - times[-2]) if len(times) >= 2 else None
+    return args, summary, launches, wall, steady, files
+
+
+def _check_scalars(tag: str, scalars: dict) -> None:
+    import math
+
+    for key, v in scalars.items():
+        if not math.isfinite(float(v)) and key != "explained_variance":
+            fail(f"{tag}: non-finite {key} = {v}")
+
+
+def phase_atari(results: list[dict], card: dict) -> dict:
+    """Phase 11: ``ppo_atari`` on each game and ``clip_ppo_atari`` in each
+    mode of ``ATARI_RUNS``, launches against :func:`atari_launches`; then
+    ``stack_frames`` and the multi-frame bf16 features against the CPU, and
+    one steady image-modality iteration by part. Returns each run's steady
+    env-steps/s."""
+    import torch
+
+    from clip_ppo_tpu_torch.cli import clip_ppo_atari, ppo_atari
+
+    t_phase = time.time()
+    sps = {}
+    for env_id in ATARI_GAMES:
+        args, summary, launches, wall, steady, files = run_atari_cli(
+            ppo_atari, ["--env-id", env_id])
+        tag = f"[atari ppo {env_id}]"
+        print(f"{tag} python -m clip_ppo_tpu_torch.cli.ppo_atari --env-id {env_id}: "
+              f"{args.num_iterations} iterations of {args.num_envs}x{args.num_steps} in "
+              f"{wall:.2f} s wall; CLI SPS {summary['sps']:.1f}; steady (iteration 2) "
+              f"{steady:.1f} env-steps/s; launches {sum(launches.values())}; "
+              f"{summary['episodes']} episodes; "
+              + ", ".join(f"{k} {float(summary['last_scalars'][k]):.6f}"
+                          for k in ("policy_loss", "value_loss", "entropy"))
+              + f" on {card['smi']}")
+        if any(launches.values()):
+            fail(f"ppo_atari on {env_id} launched a kernel of the port: {launches}")
+        _check_scalars(tag, summary["last_scalars"])
+        if not any("tfevents" in f for f in files):
+            fail(f"{tag}: no TensorBoard event file written")
+        sps[f"ppo_atari {env_id}"] = steady
+    for mode, argv in ATARI_RUNS.items():
+        args, summary, launches, wall, steady, files = run_atari_cli(clip_ppo_atari, argv)
+        per = atari_launches(args)
+        iters = args.num_iterations
+        scalars = summary["last_scalars"]
+        tag = f"[atari {mode}]"
+        print(f"{tag} python -m clip_ppo_tpu_torch.cli.clip_ppo_atari {' '.join(argv)}: {iters} "
+              f"iterations of {args.num_envs}x{args.num_steps} on {args.env_id} at "
+              f"{args.clip_config.clip_model} in {wall:.2f} s wall; CLI SPS {summary['sps']:.1f}; "
+              f"steady (iteration 2) {steady:.1f} env-steps/s; launches {launches} (expected "
+              f"per iteration {({k: v for k, v in per.items() if v})}); "
+              + ", ".join(f"{k} {float(scalars[k]):.6f}"
+                          for k in ("policy_loss", "value_loss", "entropy", "first_clip_loss"))
+              + f" on {card['smi']}")
+        for name, n in per.items():
+            if launches[name] != n * iters:
+                fail(f"{name} launched {launches[name]} times in {mode}, expected {n * iters}")
+        _check_scalars(tag, scalars)
+        clip_on = float(scalars["first_clip_loss"]) > 0.0
+        if clip_on != (mode != "FROZEN_CLIP"):
+            fail(f"{tag}: the CLIP loss {'ran' if clip_on else 'did not run'} "
+                 f"(first_clip_loss {float(scalars['first_clip_loss'])})")
+        if not any("tfevents" in f for f in files) or not any(
+                f.endswith("_final.ckpt") for f in files):
+            fail(f"{tag}: no TensorBoard event file or final checkpoint among {files}")
+        for r in results:
+            if r["path"] == ATARI_PATHS.get(mode):
+                r["launches"] = launches[r["name"]]
+        sps[f"clip_ppo_atari {mode}"] = steady
+    torch.cuda.empty_cache()
+    phase_stack_frames(card)
+    phase_multiframe_encode(card)
+    phase_atari_profile(card)
+    print("[atari] steady env-steps/s (iteration 2 of each run): " + "; ".join(
+        f"{k} {v:.1f}" for k, v in sps.items()) + f" on {card['smi']}")
+    print(f"[atari] phase took {time.time() - t_phase:.1f} s")
+    return sps
+
+
+def phase_stack_frames(card: dict) -> None:
+    """``stack_frames`` on the card: a HARD [8, 84, 84, 4] stack, one K1
+    launch a frame, against the plain version on the CPU fed the same noise
+    (1e-5); then in the main path's mode, the four frames of identical images
+    with the same contrast factor and cutout: their in-kernel noise (each
+    frame its own seed) must differ."""
+    import torch
+
+    from clip_ppo_tpu_torch import cuda_build
+    from clip_ppo_tpu_torch.ops import disturbances as td
+    from clip_ppo_tpu_torch.ops.severity import DisturbanceSeverity, SEVERITY_CONFIGS
+
+    dev = torch.device("cuda", 0)
+    params = SEVERITY_CONFIGS[DisturbanceSeverity.HARD]
+    cpu_gen = torch.Generator().manual_seed(4)
+    x = torch.rand((8, 84, 84, 4), generator=cpu_gen)
+    draws = td.draw(x, params, cpu_gen, "stack_frames")  # the noise itself, on the CPU
+    on_card = tuple(td.DisturbanceDraws(*(None if t is None else t.to(dev) for t in d))
+                    for d in draws)
+    cuda_build.reset_launches()
+    got = td.disturb(x.to(dev), params, on_card, "stack_frames").cpu()
+    n = cuda_build.LAUNCHES["disturb"]
+    err = (got - td.disturb(x, params, draws, "stack_frames")).abs().max().item()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    same = x[..., :1].to(dev).expand(8, 84, 84, 4).contiguous()
+    seeded = td.draw(same, params, gen, "stack_frames")
+    seeded = tuple(d._replace(factor=seeded[0].factor, origin=seeded[0].origin) for d in seeded)
+    frames = td.disturb(same, params, seeded, "stack_frames")
+    seeds = [int(d.seed.item()) for d in seeded]
+    apart = min((frames[..., i] - frames[..., j]).abs().max().item()
+                for i in range(4) for j in range(i + 1, 4))
+    print(f"[stack_frames] HARD [8,84,84,4] on the card ({n} K1 launches) vs the plain version "
+          f"on the CPU, same noise: max_abs_err {err:.3e} (tolerance 1e-5); in-kernel noise, "
+          f"seeds {seeds}: the closest two frames of identical images differ by up to {apart:.3f}")
+    if n != 4 or not err <= 1e-5:
+        fail(f"stack_frames on the card: {n} launches (4 expected), max_abs_err {err}")
+    if len(set(seeds)) != 4 or not apart > 0.05:
+        fail(f"stack_frames: the four frames' in-kernel noise does not differ ({seeds}, {apart})")
+
+
+def phase_multiframe_encode(card: dict) -> None:
+    """The image modality's multi-frame features of two stacks: the bf16
+    ViT-B/32 vision tower through K2 and K3 in bf16 on the card against the
+    plain bf16 route on the CPU with the same weights, per-frame
+    L2-normalized, 2e-2 absolute (as phase 10)."""
+    import torch
+
+    from clip_ppo_tpu_torch import cuda_build
+    from clip_ppo_tpu_torch.models import clip_utils
+    from clip_ppo_tpu_torch.models.clip.model import cast_tower
+    from clip_ppo_tpu_torch.utils.tree import tree_map
+
+    dev = torch.device("cuda", 0)
+    params, cfg = clip_utils.load_clip_model("ViT-B/32", dev)
+    frozen = {"clip": cast_tower({"visual": params["visual"]}, torch.bfloat16)}
+    del params
+    gen = torch.Generator(device=dev).manual_seed(7)
+    stacks = torch.randint(0, 256, (2, 84, 84, 4), generator=gen, device=dev, dtype=torch.uint8)
+    embed = clip_utils.make_multiframe_embed_fn(cfg)
+    cuda_build.reset_launches()
+    got = embed(stacks, frozen).cpu()
+    launches = {k: v for k, v in cuda_build.LAUNCHES.items() if v}
+    ref = embed(stacks.cpu(), {"clip": tree_map(lambda t: t.cpu(), frozen["clip"])})
+    err = (got - ref).abs().max().item()
+    want = {"attn_block_bf16": cfg.vision_layers, "mlp_block_bf16": cfg.vision_layers}
+    print(f"[multiframe encode] 2 stacks of 4 frames through the bf16 ViT-B/32 vision tower "
+          f"(launches {launches}) vs the plain bf16 route on the CPU: shape {tuple(got.shape)}, "
+          f"max_abs_err {err:.3e} on per-frame unit vectors (tolerance 2e-2)")
+    if launches != want:
+        fail(f"the multi-frame encode launched {launches}, expected {want}")
+    if got.shape != (2, 4 * cfg.embed_dim) or not torch.isfinite(got).all() or not err <= 2e-2:
+        fail(f"multi-frame features on the card disagree with the CPU: {err}")
+
+
+def phase_atari_profile(card: dict) -> None:
+    """One steady image-modality iteration (Breakout, 8 x 128, ViT-B/32 in
+    bf16) by part, with the device's busy share, its kernel launches and
+    its time by ported kernel."""
+    import torch
+
+    from clip_ppo_tpu_torch.envs.atari.vector import AtariVectorEnv
+    from clip_ppo_tpu_torch.models import clip_utils
+    from clip_ppo_tpu_torch.models.agent import init_agent_params
+    from clip_ppo_tpu_torch.models.clip.model import cast_tower
+    from clip_ppo_tpu_torch.train.ppo import PPOConfig
+    from clip_ppo_tpu_torch.train.runner import Trainer
+
+    t0 = time.time()
+    dev = torch.device("cuda", 0)
+    env = AtariVectorEnv("ALE/Breakout-v5", 8, dev)
+    clip_params, clip_cfg = clip_utils.load_clip_model("ViT-B/32", dev)
+    frozen = {"clip": cast_tower({"visual": clip_params["visual"]}, torch.bfloat16)}
+    del clip_params
+    trainer = Trainer(PPOConfig(clip_mode="projected"), env, 2,
+                      embed_images_fn=clip_utils.make_multiframe_embed_fn(clip_cfg),
+                      clip_lambda=1e-5, frozen_params=frozen)
+    gen = torch.Generator()
+    gen.manual_seed(1)
+    params = init_agent_params(gen, env.num_actions, dev, in_channels=4,
+                               with_temporal_projection=True)
+    profile_iteration(trainer, trainer.init_state(params, 1), "[atari profile]",
+                      "Breakout 8x128, image modality, 4,096 frames through ViT-B/32 in bf16",
+                      card, "CLIP encode (4,096 frames)")
+    print(f"[atari profile] phase took {time.time() - t0:.1f} s")
+
+
 def main() -> None:
     try:
         import torch
@@ -1901,6 +2260,7 @@ def main() -> None:
     t0 = time.time()
     phase_benchmark(results, card, "bench_bf16", BENCH_BF16, BENCH_BF16_PER_CALL)
     print(f"[benchmark bench_bf16] phase took {time.time() - t0:.1f} s")
+    phase_atari(results, card)
     order = ("name", "route", "source", "replaces", "shape", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms")
     for r in results:  # every kernel of a driven path was launched there

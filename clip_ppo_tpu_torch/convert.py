@@ -15,6 +15,9 @@ jax. Outputs are the port's tensors on ``device``:
   mission fields of other families have no counterpart here and are
   dropped. In a JAX checkpoint's pickle these classes are read as the
   stand-ins of :data:`JAX_STATE_CLASSES`.
+* :func:`atari_vec_state` — the Atari vector env's ``AtariVecState`` with
+  its batched game state (Breakout, Pong or Seaquest), field by field; the
+  games' PRNG key is dropped.
 
 And back, for the checkpoints both packages read (``io/checkpoint.py``):
 
@@ -27,11 +30,15 @@ And back, for the checkpoints both packages read (``io/checkpoint.py``):
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, NamedTuple
 
 import numpy as np
 import torch
 
+from clip_ppo_tpu_torch.envs.atari import core as atari_core
+from clip_ppo_tpu_torch.envs.atari.seaquest import SeaquestState
+from clip_ppo_tpu_torch.envs.atari.vector import AtariVecState
 from clip_ppo_tpu_torch.envs.minigrid.core import EnvState
 from clip_ppo_tpu_torch.envs.vector import VecState
 from clip_ppo_tpu_torch.train.ppo import ADAM_B1, ADAM_B2, ADAM_EPS
@@ -160,3 +167,17 @@ def vec_state(vs: Any, device="cpu") -> VecState:
         episode_return=_t(vs.episode_return, device, torch.float32),
         episode_length=_t(vs.episode_length, device, torch.int32),
     )
+
+
+_ATARI_STATES = {"breakout": atari_core.BreakoutState, "pong": atari_core.PongState,
+                 "seaquest": SeaquestState}
+
+
+def atari_vec_state(vs: Any, game: str, device="cpu") -> AtariVecState:
+    """An ``AtariVecState`` of the JAX package (numpy leaves) for ``game``
+    ("breakout", "pong" or "seaquest"), each field in its own dtype."""
+    cls = _ATARI_STATES[game]
+    env = cls(**{f.name: _t(getattr(vs.env, f.name), device) for f in dataclasses.fields(cls)})
+    return AtariVecState(env=env, frames=_t(vs.frames, device, torch.uint8),
+                         episode_return=_t(vs.episode_return, device, torch.float32),
+                         episode_length=_t(vs.episode_length, device, torch.int32))

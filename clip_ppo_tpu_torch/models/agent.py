@@ -32,18 +32,25 @@ LATENT_DIM = 512  # the trunk's output, the latent the CLIP loss aligns
 
 
 def init_agent_params(gen: torch.Generator, num_actions: int, device,
-                      in_channels: int = 3, hidden: int = LATENT_DIM) -> dict:
+                      in_channels: int = 3, hidden: int = LATENT_DIM,
+                      with_temporal_projection: bool = False) -> dict:
     """Orthogonally initialized trunk and heads; ``gen`` is a CPU generator
-    (the weights are drawn on the CPU, then moved to ``device``)."""
-    return {
+    (the weights are drawn on the CPU, then moved to ``device``).
+    ``with_temporal_projection`` adds the 4·512 → 512 dense the Atari
+    CLIP-PPO agent puts frame-stacked CLIP features through
+    (`clip_ppo_atari.py:183-187`)."""
+    params = {
         "trunk": cnn.init_nature_cnn(gen, in_channels, device, hidden),
         "actor": cnn.init_dense(gen, hidden, num_actions, device, scale=0.01),
         "critic": cnn.init_dense(gen, hidden, 1, device, scale=1.0),
     }
+    if with_temporal_projection:
+        params["temporal_projection"] = cnn.init_dense(gen, 4 * hidden, hidden, device)
+    return params
 
 
 # A feature trunk is ``fn(params, obs, frozen)``; ``frozen`` carries
-# non-optimized weights (none on this slice's path).
+# non-optimized weights (the frozen CLIP tower of the FROZEN_CLIP trunks).
 FeatureFn = Callable[..., torch.Tensor]
 
 

@@ -3,8 +3,8 @@ description-embedding table and the per-iteration image embeddings.
 
 Port of the parts of ``clip_ppo_tpu/models/clip_utils.py`` the text and
 image modalities and the FROZEN_CLIP and RANDOM_ENCODER ablations run on
-MiniGrid (reference `shared/clip_ppo_utils.py:13-240`). The Atari
-multi-frame features come with a later slice.
+MiniGrid and Atari (reference `shared/clip_ppo_utils.py:13-240`), the
+Atari multi-frame features (`clip_ppo_atari.py:211-299`) included.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from clip_ppo_tpu_torch.models import nature_cnn as cnn
 from clip_ppo_tpu_torch.models.agent import AblationMode
 from clip_ppo_tpu_torch.models.clip import model as clip_model_mod
 from clip_ppo_tpu_torch.models.clip.config import CLIPConfig
@@ -148,6 +149,58 @@ def make_frozen_clip_features_fn(cfg: CLIPConfig, compute_dtype: torch.dtype = t
         return get_frozen_clip_features(frozen["clip"], cfg, obs.float() / 255.0, compute_dtype)
 
     return features
+
+
+def stack_to_rgb_frames(obs: torch.Tensor) -> torch.Tensor:
+    """[B, H, W, S] grayscale frame stacks → [B·S, H, W, 3] RGB frames
+    (`convert_atari_frames_for_clip`, `clip_ppo_atari.py:249-269`): each
+    frame's gray channel replicated to RGB, frames interleaved per stack
+    (b0f0..b0f3, b1f0..)."""
+    b, h, w, s = obs.shape
+    frames = obs.permute(0, 3, 1, 2).reshape(b * s, h, w, 1)
+    return frames.expand(b * s, h, w, 3)
+
+
+def multiframe_clip_embeddings(clip_params: dict, cfg: CLIPConfig, obs: torch.Tensor,
+                               compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """[B, H, W, S] uint8 stacks → [B, S·embed_dim] concatenated per-frame
+    CLIP features, not normalized, in ONE pass of the vision tower over the
+    B·S frames (`process_multiframe_clip_embeddings`,
+    `clip_ppo_atari.py:272-299`). In ``compute_dtype`` (bf16 by default: K2
+    and K3 in bf16 on the GPU at ViT-B/32), under ``torch.no_grad()``."""
+    b = obs.shape[0]
+    frames = stack_to_rgb_frames(obs).float() / 255.0
+    return get_frozen_clip_features(clip_params, cfg, frames, compute_dtype).reshape(b, -1)
+
+
+def make_frozen_clip_stack_features_fn(cfg: CLIPConfig,
+                                       compute_dtype: torch.dtype = torch.bfloat16):
+    """FeatureFn of the Atari FROZEN_CLIP ablation: per-frame frozen CLIP
+    features, concatenated and put through the trainable
+    ``temporal_projection`` (`clip_ppo_atari.py:211-228`), the only
+    parameters its gradient reaches. The tower's weights arrive in
+    ``frozen["clip"]`` (cast once with ``model.cast_tower``)."""
+
+    def features(params: dict, obs: torch.Tensor, frozen: dict) -> torch.Tensor:
+        concat = multiframe_clip_embeddings(frozen["clip"], cfg, obs, compute_dtype)
+        return cnn.dense(params["temporal_projection"], concat)
+
+    return features
+
+
+def make_multiframe_embed_fn(cfg: CLIPConfig, compute_dtype: torch.dtype = torch.bfloat16):
+    """Per-iteration embedding fn of the Atari image modality:
+    ``(obs_stack_uint8 [B, H, W, S], frozen) -> [B, S·embed_dim]``, each
+    frame's features L2-normalized before the concatenation
+    (`clip_ppo_atari.py:272-299`); the B·S frames go through the tower in
+    one call. The CLIP weights arrive in ``frozen["clip"]``."""
+
+    def embed(obs: torch.Tensor, frozen: dict) -> torch.Tensor:
+        b, s = obs.shape[0], obs.shape[-1]
+        emb = multiframe_clip_embeddings(frozen["clip"], cfg, obs, compute_dtype)
+        return l2_normalize(emb.reshape(b, s, -1)).reshape(b, -1)
+
+    return embed
 
 
 def make_random_embed_fn(batch_size: int, embed_dim: int = 512, frames: int = 1):

@@ -13,6 +13,12 @@
   cutout origin per image, with uint8 quantization between stages. Plain
   PyTorch on any device; it never reaches K1, which computes the batched
   function.
+* **stack_frames** — the Atari script's, on ``[B, H, W, S]`` grayscale
+  frame stacks (`clip_ppo_atari.py:568-584`): the batched pipeline applied
+  to each of the S frames on its own, each with its own draws (noise,
+  contrast factor, cutout origin, shared by the batch within a frame). On a
+  CUDA tensor each frame is one launch of K1 on a contiguous [B, H, W, 1]
+  copy, with its own seed for the in-kernel noise.
 
 Images are ``[B, H, W, C]`` float tensors in [0, 1] (NHWC, the JAX
 package's layout). Every random quantity is an explicit input of the stage
@@ -52,11 +58,12 @@ def _cutout_patch_hw(h: int, w: int, ratio: float) -> tuple[int, int]:
     return patch_h, patch_w
 
 
-SEMANTICS = ("batched", "per_image")
+SEMANTICS = ("batched", "per_image", "stack_frames")
 
 
 class DisturbanceDraws(NamedTuple):
-    """The random inputs of one disturbance call, on the images' device.
+    """The random inputs of one disturbance call, on the images' device
+    (``stack_frames`` takes a sequence of them, one a frame).
 
     ``noise``: [B, H, W, C] standard normals (batched only: None lets the
     CUDA kernel draw them itself from ``seed``); ``factor``: the contrast
@@ -174,20 +181,21 @@ def disturb_per_image(x: torch.Tensor, params: DisturbanceParams,
 
 
 def check_semantics(semantics: str) -> None:
-    """Raise unless ``semantics`` is one this port runs."""
-    if semantics == "stack_frames":
-        raise NotImplementedError("the stack_frames semantics (Atari frame stacks) is not "
-                                  "ported yet: it comes with the Atari slice of the port")
+    """Raise unless ``semantics`` is one of :data:`SEMANTICS`."""
     if semantics not in SEMANTICS:
         raise ValueError(f"unknown semantics: {semantics!r}")
 
 
 def draw(x: torch.Tensor, params: DisturbanceParams, generator: torch.Generator,
-         semantics: str = "batched") -> DisturbanceDraws:
+         semantics: str = "batched"):
     """Draw one call's random inputs on ``x``'s device. Batched: the noise
     itself on the CPU, a seed for the kernel's own generator on CUDA.
-    Per-image: the noise, a factor and an origin per image."""
+    Per-image: the noise, a factor and an origin per image. Stack-frames: a
+    tuple of the batched draws of each [B, H, W, 1] frame, in frame order."""
     check_semantics(semantics)
+    if semantics == "stack_frames":
+        frame = x[..., :1]
+        return tuple(draw(frame, params, generator) for _ in range(x.shape[-1]))
     b, h, w, _ = x.shape
     lo, hi = params.contrast_range
     dev = x.device
@@ -207,17 +215,23 @@ def draw(x: torch.Tensor, params: DisturbanceParams, generator: torch.Generator,
     return DisturbanceDraws(noise, factor, origin)
 
 
-def disturb(x: torch.Tensor, params: DisturbanceParams, draws: DisturbanceDraws,
+def disturb(x: torch.Tensor, params: DisturbanceParams, draws,
             semantics: str = "batched") -> torch.Tensor:
     """The full pipeline on ``[B,H,W,C]`` floats in [0,1] with the given
     draws. ``"batched"`` is one launch of K1 on a CUDA tensor and its plain
-    version on a CPU tensor; ``"per_image"`` is plain PyTorch everywhere.
-    ``"stack_frames"`` is refused (the Atari slice)."""
+    version on a CPU tensor; ``"per_image"`` is plain PyTorch everywhere;
+    ``"stack_frames"`` runs the batched pipeline once a frame, each frame
+    (a contiguous [B, H, W, 1] copy) with its own entry of ``draws``."""
     check_semantics(semantics)
     if semantics == "per_image":
         return disturb_per_image(x, params, draws)
     from clip_ppo_tpu_torch.ops.disturb_kernel import disturb_batched
 
+    if semantics == "stack_frames":
+        if len(draws) != x.shape[-1]:
+            raise ValueError(f"stack_frames: {len(draws)} draws for {x.shape[-1]} frames")
+        return torch.cat([disturb_batched(x[..., s:s + 1].contiguous(), params, d)
+                          for s, d in enumerate(draws)], dim=-1)
     return disturb_batched(x, params, draws)
 
 

@@ -14,7 +14,11 @@ of the bias-corrected second moment. Its state is ``{"mu", "nu", "count"}``.
 
 The CLIP alignment loss (`clip_ppo_minigrid.py:533-559`) joins every 4th
 minibatch with its exact gradient topology: the latent is detached, so with
-precomputed (text) embeddings it is a pure monitor.
+precomputed embeddings (``clip_mode="precomputed"``) it is a pure monitor.
+With ``clip_mode="projected"`` (the Atari image modality,
+`clip_ppo_atari.py:726-731`) the [mb, 4·512] multi-frame embeddings go
+through the trainable ``temporal_projection`` inside the loss, the only
+parameters the CLIP gradient reaches.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import numpy as np
 import torch
 
 from clip_ppo_tpu_torch.models import agent as agent_mod
+from clip_ppo_tpu_torch.models import nature_cnn as cnn
 from clip_ppo_tpu_torch.models.clip_utils import CLIP_LOSS_FREQUENCY, compute_cosine_embedding_loss
 from clip_ppo_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -51,8 +56,8 @@ class PPOConfig:
     vf_coef: float = 0.5
     max_grad_norm: float = 0.5
     target_kl: Optional[float] = None
-    # CLIP alignment ("none" | "precomputed"); "projected" comes with the
-    # image-modality slice.
+    # CLIP alignment: "none" | "precomputed" | "projected" (the embeddings
+    # through params["temporal_projection"] inside the loss).
     clip_mode: str = "none"
 
     @property
@@ -119,11 +124,14 @@ def ppo_loss(params: dict, mb: dict, cfg: PPOConfig, features_fn, clip_embedding
     """Full minibatch loss; returns (loss, aux dict of 0-d tensors)."""
     newlogprob, entropy, newvalue, hidden = agent_mod.evaluate_actions(
         params, mb["obs"], mb["actions"], features_fn, frozen)
-    return _ppo_from_eval(mb, cfg, newlogprob, entropy, newvalue, hidden,
+    return _ppo_from_eval(params, mb, cfg, newlogprob, entropy, newvalue, hidden,
                           clip_embeddings, clip_lambda_eff, use_clip_this_mb)
 
 
-def _ppo_from_eval(mb, cfg, newlogprob, entropy, newvalue, hidden,
+CLIP_MODES = ("none", "precomputed", "projected")
+
+
+def _ppo_from_eval(params, mb, cfg, newlogprob, entropy, newvalue, hidden,
                    clip_embeddings, clip_lambda_eff, use_clip_this_mb):
     logratio = newlogprob - mb["logprobs"]
     ratio = torch.exp(logratio)
@@ -151,13 +159,15 @@ def _ppo_from_eval(mb, cfg, newlogprob, entropy, newvalue, hidden,
     loss = pg_loss - cfg.ent_coef * entropy_loss + cfg.vf_coef * v_loss
 
     clip_loss = torch.zeros((), device=loss.device)
+    if cfg.clip_mode not in CLIP_MODES:
+        raise ValueError(f"unknown clip_mode {cfg.clip_mode!r} (one of {', '.join(CLIP_MODES)})")
     if cfg.clip_mode != "none":
-        if cfg.clip_mode != "precomputed":
-            raise ValueError(f"clip_mode {cfg.clip_mode!r} comes with the Atari slice "
-                             "(ROADMAP.md Queue 1 item 7)")
         if use_clip_this_mb:
+            c = clip_embeddings
+            if cfg.clip_mode == "projected":
+                c = cnn.dense(params["temporal_projection"], c)
             # the latent is detached (`clip_ppo_minigrid.py:269-271`)
-            clip_loss = compute_cosine_embedding_loss(hidden.detach(), clip_embeddings)
+            clip_loss = compute_cosine_embedding_loss(hidden.detach(), c)
         loss = loss + clip_lambda_eff * clip_loss
 
     aux = {"pg_loss": pg_loss, "v_loss": v_loss, "entropy": entropy_loss,

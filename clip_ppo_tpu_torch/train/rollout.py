@@ -7,9 +7,13 @@ samples the policy, steps the envs and writes its records into [T, N]
 storage on the device; no step waits for the host.
 
 The random draws are explicit: the whole rollout's categorical noise is one
-[T, N, A] Gumbel batch, and each step's disturbance takes its
-:class:`~clip_ppo_tpu_torch.ops.disturbances.DisturbanceDraws`. Both are
-drawn from the run's generator unless the caller passes them.
+[T, N, A] Gumbel batch, each step's disturbance takes its
+:class:`~clip_ppo_tpu_torch.ops.disturbances.DisturbanceDraws` (a tuple of
+one a frame under the Atari ``stack_frames`` semantics), and each env step
+may take the env's own draws (the Atari games' serves and spawns). All are
+drawn from the run's generator unless the caller passes them. The rollout
+stores the disturbed observation and acts on it; the env's own stack stays
+clean.
 
 A feature trunk may offer ``fixed(params)``, a copy of itself for params
 that do not change; the rollout calls it once, so the view fast path's
@@ -41,7 +45,7 @@ class RolloutBatch(NamedTuple):
     done_mask: torch.Tensor       # bool [T, N]
     episode_return: torch.Tensor  # f32 [T, N] (value where done_mask)
     episode_length: torch.Tensor  # int32 [T, N]
-    desc: dict                    # per-step {"agent_pos", "agent_dir"} or {}
+    desc: dict                    # per-step snapshots ({"agent_pos", "agent_dir"}) or {}
     video: Any                    # env-0 RGB frames [T, H, W, 3] or None
 
 
@@ -62,10 +66,12 @@ def collect_rollout(
     gumbels: Optional[torch.Tensor] = None,
     disturb_draws: Optional[Sequence[DisturbanceDraws]] = None,
     small_obs: bool = False,
+    env_draws: Optional[Sequence[Any]] = None,
 ):
     """Run ``num_steps`` env steps. Returns (vec_state, obs, next_done,
-    RolloutBatch). ``gumbels`` [T, N, A] and ``disturb_draws`` (one per
-    step) default to draws from ``gen``.
+    RolloutBatch). ``gumbels`` [T, N, A], ``disturb_draws`` (one per step)
+    and ``env_draws`` (one per step, for an env whose ``step_fn`` takes
+    ``draws``) default to draws from ``gen``.
 
     ``small_obs``: the view fast path — ``obs`` (carry and storage) are the
     raw [N, 7, 7, 3] views instead of their ×12 upscale, and
@@ -83,7 +89,7 @@ def collect_rollout(
         gumbels = agent_mod.gumbel_like((num_steps, n, env.num_actions), gen, device)
     obs_t = torch.empty((num_steps,) + tuple(obs.shape), dtype=torch.uint8, device=device)
     packed = torch.empty((num_steps, n, 8), device=device)
-    desc = {"agent_pos": [], "agent_dir": []} if collect_desc else {}
+    desc: dict = {}
     video = [] if capture_video else None
     with torch.no_grad():
         for t in range(num_steps):
@@ -96,13 +102,13 @@ def collect_rollout(
             action, logprob, value = agent_mod.get_action_and_value_gumbel(
                 params, obs, gumbels[t], features_fn, frozen)
             if collect_desc:
-                snap = env.rollout_desc(vec_state)
-                desc["agent_pos"].append(snap["agent_pos"])
-                desc["agent_dir"].append(snap["agent_dir"])
+                for k, v in env.rollout_desc(vec_state).items():
+                    desc.setdefault(k, []).append(v)
             if capture_video:
                 video.append(env.render_env0(vec_state))
+            step_kwargs = {} if env_draws is None else {"draws": env_draws[t]}
             new_state, new_obs, reward, term, trunc, info = env.step_fn(
-                vec_state, action, gen, small_obs=small_obs)
+                vec_state, action, gen, small_obs=small_obs, **step_kwargs)
             obs_t[t] = obs
             packed[t] = torch.stack([
                 action.float(), logprob, reward.float(), next_done.float(), value,
@@ -111,8 +117,7 @@ def collect_rollout(
             ], dim=-1)
             vec_state, obs = new_state, new_obs
             next_done = (term | trunc).float()
-    if collect_desc:
-        desc = {k: torch.stack(v) for k, v in desc.items()}
+    desc = {k: torch.stack(v) for k, v in desc.items()}
     batch = RolloutBatch(
         obs=obs_t,
         actions=packed[..., 0].long(),

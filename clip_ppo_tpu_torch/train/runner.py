@@ -12,7 +12,10 @@ RANDOM_ENCODER's fresh Gaussian embeddings each iteration
 (``embed_random_fn``). Nothing in an iteration waits for the host;
 logs are packed on the device and fetched one chunk behind
 (:class:`LogPipeline`), so the fetch of chunk *k* overlaps the queued work
-of chunk *k+1*.
+of chunk *k+1*. The Atari text modality encodes descriptions of the live
+games between the rollout and the update on the host: it runs the split
+path (:meth:`Trainer.run_rollout_half`, :meth:`Trainer.run_update_half`,
+:meth:`Trainer.fetch_logs`), one iteration at a time.
 
 Every random draw comes from the ``torch.Generator`` in the
 :class:`TrainState`, unless the caller passes them to :meth:`Trainer.iteration`
@@ -56,15 +59,18 @@ class TrainState:
 
 class Draws(NamedTuple):
     """One iteration's random inputs, all optional: the rollout's [T, N, A]
-    Gumbel batch, one DisturbanceDraws per step, the update's
-    [update_epochs, batch_size] permutations, and RANDOM_ENCODER's
-    [batch_size, embed_dim] standard normals (drawn after the rollout and
-    before the permutations, as the JAX package splits its key)."""
+    Gumbel batch, one DisturbanceDraws per step (a tuple of one a frame
+    under ``stack_frames``), the update's [update_epochs, batch_size]
+    permutations, RANDOM_ENCODER's [batch_size·frames, embed_dim] standard
+    normals (drawn after the rollout and before the permutations, as the
+    JAX package splits its key), and the env's own draws, one per step (the
+    Atari games' serves and spawns)."""
 
     gumbels: Optional[torch.Tensor] = None
     disturb: Optional[Sequence[DisturbanceDraws]] = None
     permutations: Optional[torch.Tensor] = None
     random_embeddings: Optional[torch.Tensor] = None
+    env: Optional[Sequence[Any]] = None
 
 
 class Trainer:
@@ -72,11 +78,12 @@ class Trainer:
 
     Args:
         cfg: PPO hyperparameters.
-        env: TorchVectorEnv.
+        env: TorchVectorEnv (MiniGrid) or envs.atari.vector.AtariVectorEnv.
         num_iterations: total iterations (LR anneal, λ warmup).
         disturbance: optional DisturbanceParams applied each rollout step.
-        disturbance_semantics: ``"batched"`` (the CLIP scripts', K1 on the
-            GPU) or ``"per_image"`` (the vanilla script's).
+        disturbance_semantics: ``"batched"`` (the MiniGrid CLIP scripts',
+            K1 on the GPU), ``"per_image"`` (the vanilla script's) or
+            ``"stack_frames"`` (the Atari scripts': K1 once a frame).
         features_fn: the agent's feature trunk. With the default
             ``cnn_features``, no disturbance, no ``embed_images_fn`` and an
             env whose observations are exact tile upscales of its views,
@@ -84,16 +91,18 @@ class Trainer:
             rollout stores raw [N, 7, 7, 3] views and the trunk is
             ``agent.make_view_features``, the JAX package's rule
             (`runner.py:204-211`).
-        embed_images_fn: optional ``(obs_uint8 [T·N, H, W, 3], frozen) ->
+        embed_images_fn: optional ``(obs_uint8 [T·N, H, W, C], frozen) ->
             [T·N, D]`` image-embedding function
-            (``clip_utils.make_encode_images_fn``), applied to the rollout's
-            stored observations flattened t-major; takes precedence over
+            (``clip_utils.make_encode_images_fn``, or the Atari stacks'
+            ``make_multiframe_embed_fn``), applied to the rollout's stored
+            observations flattened t-major; takes precedence over
             ``embed_desc_fn`` as in the JAX package.
         embed_desc_fn: optional ``(rollout_desc, frozen) -> [T·N, D]``
             text-embedding function (the MiniGrid description table,
             ``clip_utils.make_text_table_embed_fn``).
         embed_random_fn: optional ``(gen, normals) -> [T·N, D]``
-            RANDOM_ENCODER embeddings (``clip_utils.make_random_embed_fn``),
+            RANDOM_ENCODER embeddings (``clip_utils.make_random_embed_fn``,
+            ``frames=4`` for the Atari image modality),
             drawn once per iteration before the update; used where neither
             of the two above is given, as in the JAX package.
         clip_lambda: target λ of the alignment loss (linear warmup over
@@ -186,6 +195,7 @@ class Trainer:
             self.cfg.num_steps, self.disturbance, self.disturbance_semantics, self.features_fn,
             self.capture_env0, self.frozen_params, collect_desc=self.embed_desc_fn is not None,
             gumbels=draws.gumbels, disturb_draws=draws.disturb, small_obs=self.view_mode,
+            env_draws=draws.env,
         )
         state = dataclasses.replace(state, vec_state=vec_state, obs=obs, next_done=next_done)
         return state, batch
@@ -255,14 +265,7 @@ class Trainer:
             return self.embed_random_fn(gen, random_normals)
         return None
 
-    def iteration(self, state: TrainState, iteration: int, draws: Draws = Draws()):
-        """One full iteration. Returns (state, scalars, episode_stats,
-        batch, data): the RolloutBatch and the GAE'd update inputs, both in
-        rollout layout [T, N, ...]."""
-        state, batch = self._rollout(state, draws)
-        data = self._data2d(state, batch)
-        clip_embeddings = self.embed(batch, data, state.gen, draws.random_embeddings)
-        state, scalars = self._update(state, data, iteration, clip_embeddings, draws)
+    def _stats(self, batch: rollout_mod.RolloutBatch, data: dict) -> dict:
         stats = {
             "done_mask": batch.done_mask,
             "episode_return": batch.episode_return,
@@ -272,7 +275,17 @@ class Trainer:
         if self.capture_env0:
             stats["env0_frames"] = batch.video
             stats["env0_dones"] = batch.done_mask[:, 0]
-        return state, scalars, stats, batch, data
+        return stats
+
+    def iteration(self, state: TrainState, iteration: int, draws: Draws = Draws()):
+        """One full iteration. Returns (state, scalars, episode_stats,
+        batch, data): the RolloutBatch and the GAE'd update inputs, both in
+        rollout layout [T, N, ...]."""
+        state, batch = self._rollout(state, draws)
+        data = self._data2d(state, batch)
+        clip_embeddings = self.embed(batch, data, state.gen, draws.random_embeddings)
+        state, scalars = self._update(state, data, iteration, clip_embeddings, draws)
+        return state, scalars, self._stats(batch, data), batch, data
 
     @staticmethod
     def _pack(scalars: dict, stats: dict):
@@ -293,12 +306,36 @@ class Trainer:
         for off in range(k):
             state, scalars, stats, _, _ = self.iteration(state, start_iteration + off)
             packs.append(self._pack(scalars, stats))
-            returns = stats["returns"]
+        return state, self._stack_packs(packs, stats["returns"])
+
+    def _stack_packs(self, packs: list, returns: torch.Tensor):
         sc = torch.stack([p[0] for p in packs])
         ep = torch.stack([p[1] for p in packs])
         video = torch.stack([p[2] for p in packs]) if self.capture_env0 else None
         dones0 = torch.stack([p[3] for p in packs]) if self.capture_env0 else None
-        return state, (sc, ep, video, dones0, returns)
+        return sc, ep, video, dones0, returns
+
+    # -- split path (host text descriptions between the halves) ----------------
+
+    def run_rollout_half(self, state: TrainState, draws: Draws = Draws()):
+        """Rollout and GAE. Returns (state, data, episode_stats, desc):
+        ``data`` is the update's payload for :meth:`run_update_half`
+        (rollout layout [T, N, ...])."""
+        state, batch = self._rollout(state, draws)
+        data = self._data2d(state, batch)
+        return state, data, self._stats(batch, data), batch.desc
+
+    def run_update_half(self, state: TrainState, data: dict, iteration: int,
+                        clip_embeddings: Optional[torch.Tensor], draws: Draws = Draws()):
+        """The update on :meth:`run_rollout_half`'s payload with the given
+        [T·N, D] embeddings. Returns (state, scalars)."""
+        return self._update(state, data, iteration, clip_embeddings, draws)
+
+    def fetch_logs(self, scalars: dict, stats: dict) -> tuple[dict, dict]:
+        """One iteration's ``(scalars_np, stats_np)`` in one device→host
+        fetch, ``b_returns`` included."""
+        return self.fetch_logs_chunk(self._stack_packs([self._pack(scalars, stats)],
+                                                       stats["returns"]))[0]
 
     # -- host log fetch --------------------------------------------------------
 

@@ -116,9 +116,14 @@ def test_per_image_never_reaches_k1(monkeypatch):
 
 
 def test_stack_frames_is_refused_by_name():
+    """The Atari slice lifted the refusal of ``stack_frames`` (its parity
+    with the JAX package: ``test_torch_atari_clip.py``): it disturbs each
+    frame of the stack; a semantics of no slice is refused by name."""
     x = torch.rand(1, 84, 84, 4)
-    with pytest.raises(NotImplementedError, match="Atari slice"):
-        td.disturb_auto(x, TSEVERITY[TSev.MILD], torch.Generator(), semantics="stack_frames")
+    y = td.disturb_auto(x, TSEVERITY[TSev.MILD], torch.Generator(), semantics="stack_frames")
+    assert y.shape == x.shape and not torch.equal(y, x)
+    with pytest.raises(ValueError, match="unknown semantics"):
+        td.disturb_auto(x, TSEVERITY[TSev.MILD], torch.Generator(), semantics="per_frame")
 
 
 def test_disturb_uint8_and_the_wrappers():

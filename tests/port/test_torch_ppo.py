@@ -27,6 +27,7 @@ from clip_ppo_tpu.models import agent as jagent
 from clip_ppo_tpu.train import gae as jgae
 from clip_ppo_tpu.train import ppo as jppo
 from clip_ppo_tpu_torch import convert
+from clip_ppo_tpu_torch.models import clip_utils as tclip
 from clip_ppo_tpu_torch.train import gae as tgae
 from clip_ppo_tpu_torch.train import ppo as tppo
 
@@ -142,12 +143,20 @@ def test_explained_variance_and_anneal_match():
 
 
 def test_projected_clip_mode_names_the_atari_slice():
-    """The "projected" CLIP mode (the JAX package's Atari temporal
-    projection) is refused with the slice that brings it."""
-    cfg = tppo.PPOConfig(clip_mode="projected")
+    """The "projected" CLIP mode, which the Atari slice brought, aligns the
+    latent with the embeddings put through ``params["temporal_projection"]``
+    (its parity with the JAX package: ``test_torch_atari_clip.py``); a mode
+    of no slice is refused by name."""
     n = 4
-    mb = {"logprobs": torch.zeros(n), "advantages": torch.randn(n), "values": torch.zeros(n),
-          "returns": torch.zeros(n)}
-    with pytest.raises(ValueError, match="Atari slice"):
-        tppo._ppo_from_eval(mb, cfg, torch.zeros(n), torch.zeros(n), torch.zeros(n),
-                            torch.zeros(n, 8), torch.zeros(n, 8), 1.0, True)
+    gen = torch.Generator().manual_seed(0)
+    mb = {"logprobs": torch.zeros(n), "advantages": torch.randn(n, generator=gen),
+          "values": torch.zeros(n), "returns": torch.zeros(n)}
+    proj = {"w": torch.randn(16, 8, generator=gen), "b": torch.randn(8, generator=gen)}
+    hidden, emb = torch.randn(n, 8, generator=gen), torch.randn(n, 16, generator=gen)
+    args = (mb, torch.zeros(n), torch.zeros(n), torch.zeros(n), hidden, emb, 1.0, True)
+    _, aux = tppo._ppo_from_eval({"temporal_projection": proj}, mb,
+                                 tppo.PPOConfig(clip_mode="projected"), *args[1:])
+    want = tclip.compute_cosine_embedding_loss(hidden, emb @ proj["w"] + proj["b"])
+    torch.testing.assert_close(aux["clip_loss"], want, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="unknown clip_mode 'bogus'"):
+        tppo._ppo_from_eval({}, mb, tppo.PPOConfig(clip_mode="bogus"), *args[1:])
