@@ -109,6 +109,24 @@ non-zero at once:
     steady image-modality iteration by part, with the device's busy share,
     its kernels and its device time by ported kernel.
 
+12. pipeline — the experiment pipeline: (a) ``run_pretrained_robustness
+    --synthesize-checkpoint`` on DoorKey-6x6, text modality, 3 iterations a
+    run: the full ViT-B/32 archive synthesized and taken by the loader, the
+    clean and HARD runs' launches (K2 and K3 12 each at a run's start, K1 128
+    an iteration in the disturbed run only), the severities read back from
+    the logs, RI and AUC finite; (b) the CLI under FROZEN_CLIP with
+    ``--clip-config.structured-frozen-init`` for two iterations: the
+    distillation's MSE at its first and last step (it must fall), K2 and K3
+    in bf16 as phase 10 counts them; (c) ``benchmark_disturbances`` at its
+    defaults, per-image against batched at batch 1 to 64, K1's launches,
+    and at each batch size K1 against its plain version, timed with its
+    bound; (d) ``run_experiments --dry-run`` (78 commands on the port's
+    modules), then the command ``build_command`` gives for CLIP-PPO SEVERE
+    in the image modality on Breakout, cut to 3 iterations, as a subprocess,
+    its log read by the port's metrics; (e) ``disturbances_test``'s panels on
+    the card against the CPU. Nothing of it needs tensorboard, pandas,
+    matplotlib or PIL.
+
 Besides, phase 2 holds K4–K8 in bf16 (their bf16 entry points) against
 their plain bf16 versions (``BF16_CASES``), K4 and K8 timed beside
 ``scaled_dot_product_attention`` in bf16 and K7 beside K5; phase 5 also runs
@@ -144,6 +162,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 # Published dense peaks of the H100 SXM at its full 700 W (NVIDIA data
 # sheet): fp32 outside the tensor cores, TF32 on the tensor cores, and
@@ -441,14 +460,6 @@ def phase_kernels(card: dict) -> list[dict]:
     for sev in ("MILD", "MODERATE", "HARD", "SEVERE"):
         params = SEVERITY_CONFIGS[DisturbanceSeverity[sev]]
         k1_check(f"{sev} [8,84,84,3]", x, params, noise_in(x, params))
-    def own_normals(xc, d_seed):
-        """The kernel's own normals for ``d_seed``: image i's stream under the
-        call's seed, indexed by the NHWC element as the kernel indexes it."""
-        seed = int(d_seed.seed.item())
-        own = torch.stack([dk.kernel_normals(xc[0].numel(), seed, i, dev).view(xc.shape[1:])
-                           for i in range(xc.shape[0])])
-        return DisturbanceDraws(own, d_seed.factor, d_seed.origin)
-
     for shape, sev, ctas, in_kernel in K1_CASES:
         params = SEVERITY_CONFIGS[DisturbanceSeverity[sev]]
         xc = torch.rand(shape, generator=gen, device=dev)
@@ -458,7 +469,7 @@ def phase_kernels(card: dict) -> list[dict]:
             continue
         d_seed = draw(xc, params, gen)
         err, rel = _errors(dk.disturb_batched(xc, params, d_seed, ctas=ctas),
-                           dk.disturb_batched_plain(xc, params, own_normals(xc, d_seed)))
+                           dk.disturb_batched_plain(xc, params, _own_normals(xc, d_seed)))
         print(f"[kernels] K1 {label}, noise drawn in the kernel, {ctas} CTAs an image, against "
               f"the plain version fed the kernel's own normals: max_abs_err {err:.3e} "
               f"max_rel_err {rel:.3e} (tolerance 1e-5)")
@@ -475,7 +486,7 @@ def phase_kernels(card: dict) -> list[dict]:
     params = SEVERITY_CONFIGS[DisturbanceSeverity.HARD]
     d_seed = draw(x, params, gen)  # the main path's mode: noise drawn in the kernel
     seed = int(d_seed.seed.item())
-    d_own = own_normals(x, d_seed)
+    d_own = _own_normals(x, d_seed)
     for ctas in (dk.CLUSTER_CTAS, 8):
         err, rel = _errors(dk.disturb_batched(x, params, d_seed, ctas=ctas),
                            dk.disturb_batched_plain(x, params, d_own))
@@ -536,7 +547,7 @@ def phase_kernels(card: dict) -> list[dict]:
     # stack_frames (4 launches a step), HARD, noise drawn in the kernel.
     x1 = torch.rand((8, 84, 84, 1), generator=gen, device=dev)
     d1 = draw(x1, params, gen)
-    d1_own = own_normals(x1, d1)
+    d1_own = _own_normals(x1, d1)
     err1, rel1 = _errors(dk.disturb_batched(x1, params, d1),
                          dk.disturb_batched_plain(x1, params, d1_own))
     k1 = lambda: dk.disturb_batched(x1, params, d1)  # noqa: E731
@@ -1347,12 +1358,15 @@ def ablation_launches(args, mode: str) -> dict:
     return per
 
 
-def phase_ablation(results: list[dict], card: dict, mode: str) -> None:
+def phase_ablation(results: list[dict], card: dict, mode: str, structured: bool = False) -> None:
     """The CLIP-PPO MiniGrid CLI under ``mode`` for two iterations, through
     its ``train()``: every kernel's launches against
     :func:`ablation_launches`, finite losses, the CLIP loss off (FROZEN_CLIP)
     or on (RANDOM_ENCODER), view mode off (HARD disturbances), the TensorBoard
-    events and the final checkpoint."""
+    events and the final checkpoint. With ``structured`` the run passes
+    ``--clip-config.structured-frozen-init``: the distillation's MSE at its
+    first and last step must fall, and it launches no kernel (its tower runs
+    the plain route, as the JAX distillation does)."""
     import math
 
     import torch
@@ -1366,6 +1380,7 @@ def phase_ablation(results: list[dict], card: dict, mode: str) -> None:
         "--clip-config.ablation-mode", mode, *ABLATIONS[mode],
         "--clip-config.apply-disturbances", "--clip-config.disturbance-severity", "HARD",
         "--total-timesteps", "2048", "--no-capture-video", "--seed", "1",
+        *(["--clip-config.structured-frozen-init"] if structured else []),
     ]
     args = flags.parse(cli.Args, argv)
     cwd = os.getcwd()
@@ -1386,8 +1401,20 @@ def phase_ablation(results: list[dict], card: dict, mode: str) -> None:
             os.chdir(cwd)
     iters = args.num_iterations
     per = ablation_launches(args, mode)
-    tag = f"[{mode}]"
+    tag = f"[{mode} structured]" if structured else f"[{mode}]"
     scalars = summary["last_scalars"]
+    if structured:
+        losses = summary["distill_losses"]
+        if losses is None:
+            fail(f"{tag}: the distillation did not run")
+        print(f"{tag} distillation: {len(losses)} Adam steps at batch 64 through the bf16 "
+              f"ViT-B/32 vision tower (plain route, autograd) in {summary['distill_seconds']:.2f} "
+              f"s wall, {len(losses) / summary['distill_seconds']:.1f} steps/s; MSE "
+              f"{float(losses[0]):.6f} at the first step, {float(losses[-1]):.6f} at the last "
+              f"on {card['smi']}")
+        if not float(losses[-1]) < float(losses[0]) or not torch.isfinite(losses).all():
+            fail(f"{tag}: the distillation MSE did not fall ({float(losses[0])} -> "
+                 f"{float(losses[-1])})")
     print(f"{tag} python -m clip_ppo_tpu_torch.cli.clip_ppo_minigrid {' '.join(argv)}: {iters} "
           f"iterations of {args.num_envs}x{args.num_steps} on {args.env_id} at "
           f"{args.clip_config.clip_model} in {wall:.2f} s wall; view mode {summary['view_mode']}; "
@@ -1411,7 +1438,7 @@ def phase_ablation(results: list[dict], card: dict, mode: str) -> None:
         fail(f"no TensorBoard event file written under {mode}")
     if not any(c.endswith("_final.ckpt") for c in ckpts):
         fail(f"no final checkpoint among {ckpts}")
-    if mode == "FROZEN_CLIP":
+    if mode == "FROZEN_CLIP" and not structured:
         for r in results:
             if r["path"] == "frozen":
                 r["launches"] = launches[r["name"]]
@@ -2204,6 +2231,290 @@ def phase_atari_profile(card: dict) -> None:
     print(f"[atari profile] phase took {time.time() - t0:.1f} s")
 
 
+# -- phase 12: the experiment pipeline ---------------------------------------
+
+DRILL_ITERATIONS = 3  # DoorKey-6x6 truncates at 360 steps: 3 x 128 end an episode in each env
+DRILL_STARTUP = {"attn_block": 12, "mlp_block": 12}  # the text table, once a run
+
+
+def phase_drill(card: dict) -> None:
+    """12a. ``run_pretrained_robustness --synthesize-checkpoint`` on
+    DoorKey-6x6 (text modality, λ 1e-5, HARD for the disturbed run) for 3
+    iterations a run: the full ViT-B/32 archive synthesized and taken by the
+    loader; each run's launches (the text table's K2 and K3 once a layer,
+    K1 once a rollout step in the disturbed run only); the severity read back
+    from each run's log; the RI and AUC finite. Each run dispatches one
+    iteration at a time, so its last iteration is clocked for the steady
+    env-steps/s."""
+    import math
+
+    import torch
+
+    from clip_ppo_tpu_torch import cuda_build
+    from clip_ppo_tpu_torch.cli import clip_ppo_minigrid as cpm
+    from clip_ppo_tpu_torch.cli import run_pretrained_robustness as drill
+    from clip_ppo_tpu_torch.metrics import get_disturbance_severity
+    from clip_ppo_tpu_torch.models.clip import loader
+    from clip_ppo_tpu_torch.models.clip.config import CLIP_CONFIGS
+
+    t0 = time.time()
+    runs, loaded = {}, []
+    real_train, real_load = cpm.train, loader.load_openai_checkpoint
+
+    def train(targs, run_name=None):
+        targs.iterations_per_dispatch = 1
+        times: list = []
+        cuda_build.reset_launches()
+        t_run = time.time()
+        with iteration_clock(times):
+            summary = real_train(targs, run_name=run_name)
+        torch.cuda.synchronize()
+        runs[run_name] = (targs, summary, dict(cuda_build.LAUNCHES), time.time() - t_run,
+                          targs.batch_size / (times[-1] - times[-2]))
+        return summary
+
+    def load(path, device=None):
+        params, cfg = real_load(path, device)
+        loaded.append((path, cfg))
+        return params, cfg
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp, mock.patch.dict(os.environ):
+        os.chdir(tmp)
+        os.environ.pop("CLIP_PPO_CHECKPOINT_DIR", None)
+        cpm.train, loader.load_openai_checkpoint = train, load
+        try:
+            result = drill.main(drill.Args(
+                total_timesteps=DRILL_ITERATIONS * 8 * 128, synthesize_checkpoint=True,
+                checkpoint_dir=os.path.join(tmp, "ckpts"), run_prefix="chip_smoke"))
+            severities = {k: get_disturbance_severity(result[k]).value
+                          for k in ("clean_run", "disturbed_run")}
+        finally:
+            cpm.train, loader.load_openai_checkpoint = real_train, real_load
+            os.chdir(cwd)
+    if [p for p, _ in loaded] != [result["checkpoint"]] * 2 or any(
+            c != CLIP_CONFIGS["ViT-B/32"] for _, c in loaded):
+        fail(f"the drill's runs did not both load the synthesized ViT-B/32 archive: {loaded}")
+    if severities != {"clean_run": "NONE", "disturbed_run": "HARD"}:
+        fail(f"the drill's logs read back severities {severities}, expected NONE (CLEAN) and HARD")
+    for name, (targs, summary, launches, wall, steady) in runs.items():
+        disturbed = targs.clip_config.apply_disturbances
+        want = {k: DRILL_STARTUP.get(k, 0) for k in launches}
+        want["disturb"] = targs.num_steps * targs.num_iterations if disturbed else 0
+        print(f"[drill] {name}: {targs.num_iterations} iterations of {targs.num_envs}x"
+              f"{targs.num_steps} on {targs.env_id}, text modality at ViT-B/32 from the "
+              f"synthesized archive, in {wall:.2f} s wall; text table {summary['table_seconds']:.3f}"
+              f" s; steady (last iteration) {steady:.1f} env-steps/s; launches "
+              f"{ {k: v for k, v in launches.items() if v} } on {card['smi']}")
+        if launches != want:
+            fail(f"the drill's run {name} launched {launches}, expected {want}")
+        _check_scalars(f"[drill] {name}", summary["last_scalars"])
+    values = {k: result[k] for k in ("final_ri", "mean_ri", "clean_auc", "disturbed_auc")}
+    print("[drill] " + ", ".join(f"{k} {v:.6f}" for k, v in values.items())
+          + f"; severities {severities}; phase took {time.time() - t0:.1f} s")
+    if not all(math.isfinite(v) for v in values.values()):
+        fail(f"the drill's RI or AUC is not finite: {values}")
+
+
+def _own_normals(xc, d_seed):
+    """The batched draws ``d_seed`` with the kernel's own normals for its
+    seed: image i's stream, indexed by the NHWC element as the kernel
+    indexes it."""
+    import torch
+
+    from clip_ppo_tpu_torch.ops import disturb_kernel as dk
+    from clip_ppo_tpu_torch.ops.disturbances import DisturbanceDraws
+
+    seed = int(d_seed.seed.item())
+    own = torch.stack([dk.kernel_normals(xc[0].numel(), seed, i, xc.device).view(xc.shape[1:])
+                       for i in range(xc.shape[0])])
+    return DisturbanceDraws(own, d_seed.factor, d_seed.origin)
+
+
+def phase_bench_disturbances(results: list[dict], card: dict) -> None:
+    """12c. ``benchmark_disturbances`` at its defaults (HARD, 84x84x3, batch
+    1 to 64, 50 chained calls): its per-image and batched ms and speed-up,
+    K1's launches (a warm-up chain and a timed one of each batch size), then
+    at each batch size K1 against its plain version on the kernel's own
+    normals, timed beside it with its bound."""
+    import torch
+
+    from clip_ppo_tpu_torch import cuda_build
+    from clip_ppo_tpu_torch.cli import benchmark_disturbances as bench
+    from clip_ppo_tpu_torch.ops import disturb_kernel as dk
+    from clip_ppo_tpu_torch.ops.disturbances import draw
+    from clip_ppo_tpu_torch.ops.severity import DisturbanceSeverity, SEVERITY_CONFIGS
+
+    t0 = time.time()
+    args = bench.BenchArgs()
+    cuda_build.reset_launches()
+    rows = bench.benchmark_disturbances(args)
+    launches = dict(cuda_build.LAUNCHES)
+    want = {k: 0 for k in launches}
+    want["disturb"] = 2 * args.iterations * len(args.batch_sizes)
+    if launches != want or any(r["launches"] != 2 * args.iterations for r in rows):
+        fail(f"benchmark_disturbances launched {launches} ({[r['launches'] for r in rows]} a "
+             f"batch size), expected {want}")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    params = SEVERITY_CONFIGS[DisturbanceSeverity[args.severity]]
+    for r in rows:
+        b = r["batch"]
+        x = torch.rand((b, args.height, args.width, args.channels), generator=gen, device=dev)
+        d = draw(x, params, gen)
+        d_own = _own_normals(x, d)
+        err, rel = _errors(dk.disturb_batched(x, params, d), dk.disturb_batched_plain(x, params, d_own))
+        if not err <= 1e-5:
+            fail(f"K1 at [{b},84,84,3] disagrees with its plain version: {err} > 1e-5")
+        k1 = lambda: dk.disturb_batched(x, params, d)  # noqa: E731
+        ms = time_ms(k1, reps=20, calls=50)
+        dev_ms = device_ms(k1, calls=50, kernel="disturb_kernel")
+        plain_ms = time_ms(lambda: dk.disturb_batched_plain(x, params, d_own), reps=20, calls=50)
+        bound_ms, bound_by = _bound(2 * x.numel() * 4,
+                                    x.numel() * (4 * params.blur_kernel_size + 7), card)
+        print(f"[benchmark_disturbances] batch {b}: per-image {r['per_image_ms']:.3f} ms, batched "
+              f"{r['batched_ms']:.3f} ms (draws and K1, 50 chained calls), speed-up "
+              f"{r['speedup']:.2f}x, K1 launches {r['launches']}; K1 alone {ms:.4f} ms per call "
+              f"over 50 back-to-back calls (device {_fmt_ms(dev_ms)}), plain {plain_ms:.4f} ms, "
+              f"bound {bound_ms:.5f} ms ({bound_by}), max_abs_err {err:.3e} max_rel_err "
+              f"{rel:.3e} (tolerance 1e-5) on {card['smi']}")
+        results.append({
+            "name": "disturb", "route": "cuda", "source": "clip_ppo_tpu_torch/csrc/disturb.cu",
+            "replaces": "clip_ppo_tpu/ops/pallas_disturb.py:76", "shape": f"[{b},84,84,3]",
+            "path": "benchmark_disturbances", "launches": r["launches"], "max_abs_err": err,
+            "max_rel_err": rel, "tolerance": 1e-5, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None, "device_ms": dev_ms,
+            "ctas": dk.CLUSTER_CTAS, "per_image_ms": r["per_image_ms"],
+            "batched_ms": r["batched_ms"], "speedup": r["speedup"],
+        })
+    print(f"[benchmark_disturbances] phase took {time.time() - t0:.1f} s")
+
+
+GRID_RUN = "s0_atari_ALEBreakout-v5_CLIPPPO_SEVERE_image_l1e-05"
+
+
+def phase_grid(card: dict) -> None:
+    """12d. ``run_experiments --dry-run`` lists the 78 runs on the port's
+    modules; then the command ``build_command`` gives for CLIP-PPO SEVERE in
+    the image modality on Breakout (λ 1e-5), cut to 3 iterations of 8 x 128
+    by ``dataclasses.replace``, runs as a subprocess, and the port's metrics
+    read its log; the same flags then run in this process, two iterations
+    one a dispatch, for the configuration's steady env-steps/s and launches."""
+    import contextlib as _cl
+    import io
+    import math
+
+    import clip_ppo_tpu_torch
+    from clip_ppo_tpu_torch.cli import clip_ppo_atari, run_experiments
+    from clip_ppo_tpu_torch.io.tb_reader import EventAccumulator
+    from clip_ppo_tpu_torch.metrics import (
+        compute_auc_metric,
+        compute_success_rate,
+        get_disturbance_severity,
+        load_tensorboard_run,
+    )
+
+    t0 = time.time()
+    out = io.StringIO()
+    with _cl.redirect_stdout(out):
+        run_experiments.main(["--dry-run"])
+    cmds = [ln for ln in out.getvalue().splitlines() if " -m clip_ppo_tpu_torch.cli." in ln]
+    if len(cmds) != 78 or " -m clip_ppo_tpu.cli." in out.getvalue():
+        fail(f"run_experiments --dry-run listed {len(cmds)} commands on the port's modules, "
+             "expected 78 and none on the JAX package's")
+    exp = next(e for e in run_experiments._setup_main_experiments() if e.run_name == GRID_RUN)
+    exp = dataclasses.replace(exp, timesteps=3 * 8 * 128)
+    cmd = run_experiments.build_command(exp)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(clip_ppo_tpu_torch.__file__)))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root, *filter(None, [os.environ.get("PYTHONPATH")])]))
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        t_run = time.time()
+        proc = subprocess.run(cmd, cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
+        wall = time.time() - t_run
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:])
+            print(proc.stderr[-4000:], file=sys.stderr)
+            fail(f"the grid run {exp.run_name} exited with {proc.returncode}")
+        os.chdir(tmp)
+        try:
+            run = os.path.join("runs", exp.run_name)
+            severity = get_disturbance_severity(run).value
+            ts, returns, lengths = load_tensorboard_run(run)
+            auc, success = compute_auc_metric(ts, returns), compute_success_rate(run)
+            sps = [e.value for e in EventAccumulator(run).Reload().Scalars("charts/SPS")]
+            ckpts = os.listdir("checkpoints")
+        finally:
+            os.chdir(cwd)
+    print(f"[grid] {len(cmds)} commands on the port's modules; ran {' '.join(cmd[1:])} as a "
+          f"subprocess in {wall:.2f} s wall: severity {severity}, {len(returns)} episodes, "
+          f"mean return {sum(returns) / max(len(returns), 1):.3f}, AUC {auc:.6f}, success rate "
+          f"{success:.2f}%, charts/SPS by iteration {sps} (the first iteration's warm-up "
+          f"included) on {card['smi']}")
+    if severity != "SEVERE" or not returns or not math.isfinite(auc) or len(sps) != 3:
+        fail(f"the grid run's log reads severity {severity}, {len(returns)} returns, AUC {auc}, "
+             f"{len(sps)} SPS points")
+    if not any(c.endswith("_final.ckpt") for c in ckpts):
+        fail(f"the grid run wrote no final checkpoint: {ckpts}")
+    # One dispatch takes the run's 3 iterations, so its log cannot split
+    # them: the same flags in this process, one iteration a dispatch, clock
+    # the configuration's steady iteration and count its launches.
+    args, summary, launches, _, steady, _ = run_atari_cli(clip_ppo_atari, cmd[3:])
+    per = atari_launches(args)
+    print(f"[grid] the same configuration in this process for {args.num_iterations} iterations, "
+          f"one a dispatch: steady (iteration 2) {steady:.1f} env-steps/s; launches "
+          f"{ {k: v for k, v in launches.items() if v} } (expected per iteration "
+          f"{ {k: v for k, v in per.items() if v} }) on {card['smi']}")
+    for name, n in per.items():
+        if launches[name] != n * args.num_iterations:
+            fail(f"{name} launched {launches[name]} times in the grid's configuration, expected "
+                 f"{n * args.num_iterations}")
+    _check_scalars("[grid]", summary["last_scalars"])
+    print(f"[grid] phase took {time.time() - t0:.1f} s")
+
+
+def phase_panels(card: dict) -> None:
+    """12e. ``disturbances_test``'s panels (HARD, the 256 x 256 test card,
+    every stage on its own and combined) computed on the card, against the
+    same panels on the CPU with the same draws, 1e-5 absolute."""
+    import torch
+
+    from clip_ppo_tpu_torch.cli import disturbances_test as tool
+    from clip_ppo_tpu_torch.utils.tree import tree_map
+
+    t0 = time.time()
+    args = tool.DisturbanceTestArgs()
+    params = tool.resolve_test_params(args)
+    dev = torch.device("cuda", 0)
+    x = torch.as_tensor(tool.test_card(args.size), device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+    draws = tool.draw_panel_inputs(x[None], params, gen)
+    got = tool.compute_panels(x, params, args, draws)
+    ref = tool.compute_panels(x.cpu(), params, args, tree_map(lambda t: t.cpu(), draws))
+    errs = {name: (g.cpu() - r).abs().max().item() for (name, g), (_, r) in zip(got, ref)}
+    print(f"[panels] {args.severity} on the {args.size}x{args.size} test card, card vs CPU: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (tolerance 1e-5); phase took {time.time() - t0:.1f} s")
+    if [n for n, _ in got] != ["original", "noise", "contrast", "blur", "cutout", "combined"]:
+        fail(f"disturbances_test computed the panels {[n for n, _ in got]}")
+    if not all(v <= 1e-5 for v in errs.values()):
+        fail(f"disturbances_test's panels on the card disagree with the CPU: {errs}")
+
+
+def phase_pipeline(results: list[dict], card: dict) -> None:
+    """Phase 12: the experiment pipeline (a-e)."""
+    t0 = time.time()
+    phase_drill(card)
+    phase_ablation(results, card, "FROZEN_CLIP", structured=True)
+    phase_bench_disturbances(results, card)
+    phase_grid(card)
+    phase_panels(card)
+    print(f"[pipeline] phase 12 took {time.time() - t0:.1f} s")
+
+
 def main() -> None:
     try:
         import torch
@@ -2261,6 +2572,7 @@ def main() -> None:
     phase_benchmark(results, card, "bench_bf16", BENCH_BF16, BENCH_BF16_PER_CALL)
     print(f"[benchmark bench_bf16] phase took {time.time() - t0:.1f} s")
     phase_atari(results, card)
+    phase_pipeline(results, card)
     order = ("name", "route", "source", "replaces", "shape", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms")
     for r in results:  # every kernel of a driven path was launched there
@@ -2268,7 +2580,8 @@ def main() -> None:
             fail(f"{r['name']} {r['shape']} was not launched on its path {r['path']}")
     print(f"[done] every phase passed in {time.time() - t_start:.1f} s")
     extra = ("bound_fp32_ms", "device_ms", "library_device_ms", "ctas", "empty_ms",
-             "empty_device_ms", "ms_8_ctas", "device_ms_8_ctas", "f32_kernel_ms")
+             "empty_device_ms", "ms_8_ctas", "device_ms_8_ctas", "f32_kernel_ms",
+             "per_image_ms", "batched_ms", "speedup")
     print(json.dumps({"kernels": [{k: r[k] for k in (*order, *extra) if k in r}
                                   for r in results if r["path"]]}))
     print(card["smi"])

@@ -24,6 +24,11 @@ minibatch of the update), with no CLIP loss; RANDOM_ENCODER aligns the
 latent with fresh normalized Gaussian embeddings drawn each iteration
 instead of CLIP's (λ > 0), and launches no tower kernel.
 
+``--clip-config.structured-frozen-init`` first distills whatever CLIP tower
+the run loads to pixel-PCA features of random-policy observations
+(:mod:`clip_ppo_tpu_torch.models.distill`, plain PyTorch autograd), under
+FROZEN_CLIP and in the image modality alike.
+
 TensorBoard tags (including ``config/disturbance_severity``), checkpoint
 payload and naming, derived batch sizes and the CLI surface match the
 reference. Options that need later slices of the port are rejected with an
@@ -50,7 +55,7 @@ from clip_ppo_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
 from clip_ppo_tpu_torch.io.tb_writer import SummaryWriter, hyperparameters_table
 from clip_ppo_tpu_torch.io.tracking import ProfilerWindow, maybe_init_wandb
 from clip_ppo_tpu_torch.io.video import VideoRecorder
-from clip_ppo_tpu_torch.models import clip_utils
+from clip_ppo_tpu_torch.models import clip_utils, distill
 from clip_ppo_tpu_torch.models.agent import (
     LATENT_DIM,
     AblationMode,
@@ -83,7 +88,8 @@ class MiniGridClipPPOConfig(clip_utils.ClipPPOConfig):
     """moderate disturbances work well for MiniGrid"""
     structured_frozen_init: bool = False
     """no reference equivalent: distill the CLIP visual tower to pixel-PCA
-    features before training (comes with the distillation slice)"""
+    features of random-policy observations before training (FROZEN_CLIP
+    learnability without pretrained weights; models/distill.py)"""
 
 
 @dataclass
@@ -196,8 +202,6 @@ def _reject_later_slices(args: Args, compute_clip: bool) -> None:
     later = [
         (args.num_devices > 1 or args.tp > 1 or args.distributed,
          "--num-devices/--tp > 1 and --distributed", "the multi-GPU slice"),
-        (cc.structured_frozen_init, "--clip-config.structured-frozen-init",
-         "the distillation slice (gradients through the CLIP towers)"),
         (args.mission_conditioning, "--mission-conditioning", "the extensions slice"),
         (compute_clip and not random_mode and not args.text_embed_table
          and cc.clip_modality == "text",
@@ -262,8 +266,23 @@ def train(args: Args, run_name: Optional[str] = None) -> dict:
     frozen_params, embed_images_fn, embed_desc_fn, table_seconds = None, None, None, 0.0
     embed_random_fn, features_fn = None, cnn_features
     frozen_mode = cc.ablation_mode == AblationMode.FROZEN_CLIP
+    distill_losses, distill_seconds = None, 0.0
     if compute_clip or frozen_mode:
         clip_params, clip_cfg = clip_utils.load_clip_model(cc.clip_model, device)
+        if cc.structured_frozen_init:
+            # Whenever a tower is loaded, as the JAX CLI does; each draw from
+            # a generator of its own, off the training stream.
+            print("Distilling CLIP visual tower to pixel-PCA features...")
+            t0 = time.time()
+            obs_samples = distill.collect_random_observations(
+                env, torch.Generator(device=device).manual_seed(args.seed + 2),
+                num_steps=max(256 // args.num_envs, 8))
+            clip_params, distill_losses = distill.distill_visual_tower(
+                torch.Generator(device=device).manual_seed(args.seed + 3), clip_params,
+                clip_cfg, obs_samples)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            distill_seconds = time.time() - t0
     if frozen_mode:
         frozen_params = {"clip": cast_tower(clip_params, torch.bfloat16)}
         features_fn = clip_utils.make_frozen_clip_features_fn(clip_cfg)
@@ -365,6 +384,8 @@ def train(args: Args, run_name: Optional[str] = None) -> dict:
         "recent_returns": logger.last_returns[-100:],
         "run_name": run_name,
         "table_seconds": table_seconds,
+        "distill_losses": distill_losses,
+        "distill_seconds": distill_seconds,
         "view_mode": trainer.view_mode,
         "last_scalars": last_scalars,
     }

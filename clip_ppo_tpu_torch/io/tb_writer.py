@@ -12,6 +12,7 @@ CRC32C of the length, payload, masked CRC32C of the payload) by hand.
 
 from __future__ import annotations
 
+import itertools
 import os
 import socket
 import struct
@@ -100,13 +101,20 @@ def _text_summary(tag: str, text: str) -> bytes:
     return _len_field(1, val)
 
 
+_WRITERS = itertools.count()
+
+
 class SummaryWriter:
     """torch-SummaryWriter-compatible ``add_scalar`` / ``add_text``."""
 
     def __init__(self, log_dir: str):
         self.log_dir = log_dir
         os.makedirs(log_dir, exist_ok=True)
-        name = f"events.out.tfevents.{int(time.time()):010d}.{socket.gethostname()}.{os.getpid()}"
+        # The last field counts this process's writers, as tensorboard's
+        # EventFileWriter does: two writers of one process and one second
+        # (a run resumed in the same process) get files of their own.
+        name = (f"events.out.tfevents.{int(time.time()):010d}.{socket.gethostname()}."
+                f"{os.getpid()}.{next(_WRITERS)}")
         self._file = open(os.path.join(log_dir, name), "wb")
         self._write(_event(time.time(), file_version="brain.Event:2"))
 

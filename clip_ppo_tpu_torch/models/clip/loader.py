@@ -3,7 +3,9 @@
 Port of ``clip_ppo_tpu/models/clip/loader.py`` (reference ``clip.load``,
 `shared/clip_ppo_utils.py:79-97`). An OpenAI TorchScript archive or a raw
 OpenAI-layout state dict loads natively in torch and converts to the params
-dict :mod:`clip_ppo_tpu_torch.models.clip.model` consumes. Checkpoints are
+dict :mod:`clip_ppo_tpu_torch.models.clip.model` consumes; a Hugging Face
+``CLIPModel`` state dict converts through :func:`convert_hf_state_dict`.
+Checkpoints are
 looked up in ``$CLIP_PPO_CHECKPOINT_DIR``; with ``pretrained="auto"`` and
 none there, the towers are randomly initialized from a seed (the
 reference's RANDOM_ENCODER semantics applied to both towers).
@@ -103,6 +105,72 @@ def convert_openai_state_dict(sd: dict, device=None) -> tuple[dict, CLIPConfig]:
     if "logit_scale" in sd:
         params["logit_scale"] = g("logit_scale")
     return params, cfg
+
+
+def _block_from_hf(sd: dict, prefix: str, g) -> dict:
+    """One Hugging Face encoder layer as the params of a resblock: q, k and v
+    concatenated into the fused in-projection."""
+    def cat(kind: str) -> torch.Tensor:
+        return torch.cat([g(f"{prefix}self_attn.{p}_proj.{kind}") for p in "qkv"]).contiguous()
+
+    return {
+        "ln_1": {"scale": g(prefix + "layer_norm1.weight"), "bias": g(prefix + "layer_norm1.bias")},
+        "ln_2": {"scale": g(prefix + "layer_norm2.weight"), "bias": g(prefix + "layer_norm2.bias")},
+        "attn": {
+            "in_proj_w": cat("weight"),
+            "in_proj_b": cat("bias"),
+            "out_proj_w": g(prefix + "self_attn.out_proj.weight"),
+            "out_proj_b": g(prefix + "self_attn.out_proj.bias"),
+        },
+        "mlp": {
+            "fc_w": g(prefix + "mlp.fc1.weight"),
+            "fc_b": g(prefix + "mlp.fc1.bias"),
+            "proj_w": g(prefix + "mlp.fc2.weight"),
+            "proj_b": g(prefix + "mlp.fc2.bias"),
+        },
+    }
+
+
+def convert_hf_state_dict(sd: dict, cfg: CLIPConfig, device=None) -> dict:
+    """Hugging Face ``CLIPModel.state_dict()`` → params, float32 on
+    ``device`` (default: the GPU, raising without one; pass "cpu" for the
+    CPU). HF splits q/k/v and stores the projections as ``Linear`` weights
+    ([out, in], applied as x @ W.T), the convention of the model code, so
+    apart from the qkv concatenation and the two projections' transposes
+    the mapping is mechanical."""
+    device = resolve_device() if device is None else device
+    g = lambda k: torch.as_tensor(sd[k]).detach().to(  # noqa: E731
+        device=device, dtype=torch.float32).contiguous()
+    conv_w = g("vision_model.embeddings.patch_embedding.weight")  # [width, 3, ps, ps]
+    patch_w = conv_w.permute(2, 3, 1, 0).reshape(cfg.patch_size * cfg.patch_size * 3,
+                                                 cfg.vision_width).contiguous()
+    visual = {
+        "patch_embed_w": patch_w,
+        "class_embedding": g("vision_model.embeddings.class_embedding"),
+        "positional_embedding": g("vision_model.embeddings.position_embedding.weight"),
+        "ln_pre": {"scale": g("vision_model.pre_layrnorm.weight"),
+                   "bias": g("vision_model.pre_layrnorm.bias")},
+        "transformer": {"resblocks": [
+            _block_from_hf(sd, f"vision_model.encoder.layers.{i}.", g)
+            for i in range(cfg.vision_layers)]},
+        "ln_post": {"scale": g("vision_model.post_layernorm.weight"),
+                    "bias": g("vision_model.post_layernorm.bias")},
+        "proj": g("visual_projection.weight").T.contiguous(),
+    }
+    text = {
+        "token_embedding": g("text_model.embeddings.token_embedding.weight"),
+        "positional_embedding": g("text_model.embeddings.position_embedding.weight"),
+        "transformer": {"resblocks": [
+            _block_from_hf(sd, f"text_model.encoder.layers.{i}.", g)
+            for i in range(cfg.text_layers)]},
+        "ln_final": {"scale": g("text_model.final_layer_norm.weight"),
+                     "bias": g("text_model.final_layer_norm.bias")},
+        "text_projection": g("text_projection.weight").T.contiguous(),
+    }
+    params = {"visual": visual, "text": text}
+    if "logit_scale" in sd:
+        params["logit_scale"] = g("logit_scale")
+    return params
 
 
 def find_checkpoint(name: str) -> str | None:

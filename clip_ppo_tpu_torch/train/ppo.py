@@ -94,7 +94,12 @@ def clip_by_global_norm(grads, max_norm: float):
 def adam_step(params: dict, grads: dict, state: dict, lr: float, max_grad_norm: float):
     """One optax ``chain(clip_by_global_norm, adam(lr, eps=1e-5))`` step.
     Returns (params, state)."""
-    grads = clip_by_global_norm(grads, max_grad_norm)
+    return adam_update(params, clip_by_global_norm(grads, max_grad_norm), state, lr)
+
+
+def adam_update(params: dict, grads: dict, state: dict, lr: float, eps: float = ADAM_EPS):
+    """One optax ``adam(lr, eps=eps)`` step (b1 0.9, b2 0.999) on the
+    gradients as given. Returns (params, state)."""
     mu = tree_map(lambda g, m: (1 - ADAM_B1) * g + ADAM_B1 * m, grads, state["mu"])
     nu = tree_map(lambda g, v: (1 - ADAM_B2) * (g * g) + ADAM_B2 * v, grads, state["nu"])
     count = state["count"] + 1
@@ -102,7 +107,7 @@ def adam_step(params: dict, grads: dict, state: dict, lr: float, max_grad_norm: 
     corr1 = 1 - torch.tensor(ADAM_B1, device=c.device) ** c
     corr2 = 1 - torch.tensor(ADAM_B2, device=c.device) ** c
     new_params = tree_map(
-        lambda p, m, v: p + (-lr) * ((m / corr1) / (torch.sqrt(v / corr2) + ADAM_EPS)),
+        lambda p, m, v: p + (-lr) * ((m / corr1) / (torch.sqrt(v / corr2) + eps)),
         params, mu, nu)
     return new_params, {"mu": mu, "nu": nu, "count": count}
 

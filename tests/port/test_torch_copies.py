@@ -97,10 +97,48 @@ def test_port_never_imports_jax_or_the_jax_package():
     assert bad == []
 
 
+def _top_level_imports(path: Path):
+    """The modules a file imports when it is imported: its imports outside
+    any function."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    funcs = (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)
+
+    def walk(node):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, funcs):
+                continue
+            if isinstance(child, ast.Import):
+                yield from (a.name for a in child.names)
+            elif isinstance(child, ast.ImportFrom) and child.module and child.level == 0:
+                yield child.module
+            yield from walk(child)
+
+    return list(walk(tree))
+
+
+def test_port_needs_no_tensorboard_pandas_matplotlib_or_pil():
+    """The card machine has none of the four: nothing of the port imports
+    tensorboard or pandas, and matplotlib and PIL are imported only inside
+    the functions that draw or save (the metrics' plots, the disturbance
+    panels), never when a module is imported."""
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    never = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
+             if m.split(".")[0] in ("tensorboard", "pandas")]
+    assert never == []
+    at_import = [(str(f.relative_to(ROOT)), m) for f in files for m in _top_level_imports(f)
+                 if m.split(".")[0] in ("matplotlib", "PIL")]
+    assert at_import == []
+    inside = {str(f.relative_to(ROOT)) for f in files for m in _imports(f)
+              if m.split(".")[0] in ("matplotlib", "PIL")}
+    assert "clip_ppo_tpu_torch/metrics/_plotting.py" in inside
+    assert "clip_ppo_tpu_torch/cli/disturbances_test.py" in inside
+
+
 def test_port_imports_with_jax_blocked():
     code = (
         "import sys, pkgutil, importlib\n"
-        "for m in ('jax', 'jaxlib', 'optax', 'clip_ppo_tpu'):\n"
+        "for m in ('jax', 'jaxlib', 'optax', 'clip_ppo_tpu', 'tensorboard', 'pandas',\n"
+        "          'matplotlib', 'PIL'):\n"
         "    sys.modules[m] = None\n"
         "import clip_ppo_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(clip_ppo_tpu_torch.__path__, 'clip_ppo_tpu_torch.')]\n"
