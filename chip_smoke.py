@@ -14,7 +14,8 @@ non-zero at once:
    and spill nothing, each bf16 instantiation (``BF16_TENSOR_CORE``) its
    own;
 2. kernels — each kernel against its plain PyTorch version on the card, at
-   the shapes the main paths give it: K1 at every severity, at the shapes
+   the shapes the main paths give it (K2 and K3 at [1024,77,512] for the
+   text table and for phase 13's split path): K1 at every severity, at the shapes
    of ``K1_CASES`` (a ragged band, one channel, bands thinner than the
    halo, clusters of 8) and in the main path's mode, noise drawn in the
    kernel, against the plain version fed the kernel's own normals (the
@@ -126,6 +127,23 @@ non-zero at once:
     its log read by the port's metrics; (e) ``disturbances_test``'s panels on
     the card against the CPU. Nothing of it needs tensorboard, pandas,
     matplotlib or PIL.
+
+13. families — the classic MiniGrid families (FourRooms, LavaGap, DistShift,
+    MultiRoom, the crossings, Dynamic-Obstacles, Unlock and its variants,
+    ObstructedMaze-1Dl, KeyCorridor, LockedRoom, RedBlueDoors): (a) the
+    CPU's reset of each family's largest id (``FAMILY_RUNS``, and Unlock),
+    with crafted states facing each success target, stepped 24 times on
+    the card and on the CPU with the same actions and ball draws: views,
+    states and flags equal, rewards equal as float32, a success reached in
+    each; (b) ``ppo_minigrid`` for 2 iterations on each, its steady
+    env-steps/s, and the kernels a rollout step launches (the rollout's bulk
+    reset included) from two short traces; (c) ``clip_ppo_minigrid``
+    in the text modality under HARD on FourRooms (the 1,444-row table, K2
+    and K3 24 times at startup, none an iteration) and on MultiRoom-N6 (the
+    split path, K2 and K3 12 times an iteration), the host's describe and
+    tokenize and the encode timed per iteration; (d) the image modality
+    under HARD on LavaCrossingS9N1. K1 128 times an iteration in (c) and
+    (d).
 
 Besides, phase 2 holds K4–K8 in bf16 (their bf16 entry points) against
 their plain bf16 versions (``BF16_CASES``), K4 and K8 timed beside
@@ -612,6 +630,8 @@ def _source(name: str) -> tuple[str, str]:
 BLOCK_CASES = [  # (kernel, B, T, D, causal, path, timed); rows of no path stay out of the kernels line
     ("attn_block", 1024, 77, 512, True, "text", True),  # text table
     ("mlp_block", 1024, 77, 512, False, "text", True),
+    ("attn_block", 1024, 77, 512, True, "split", True),  # MultiRoom's split path, an iteration
+    ("mlp_block", 1024, 77, 512, False, "split", True),
     ("attn_block", 1024, 50, 768, False, "image", True),  # ViT-B/32 vision
     ("mlp_stream", 1024, 50, 768, False, "image", True),
     ("attn_block", 1024, 77, 768, True, "benchmark", True),  # ViT-L/14 text
@@ -2515,6 +2535,269 @@ def phase_pipeline(results: list[dict], card: dict) -> None:
     print(f"[pipeline] phase 12 took {time.time() - t0:.1f} s")
 
 
+# Phase 13: the classic MiniGrid families. The largest id of each kind (and
+# Unlock's open_door success) for the transition check, the vanilla runs and
+# their trace.
+FAMILY_RUNS = (
+    "MiniGrid-FourRooms-v0", "MiniGrid-LavaGapS7-v0", "MiniGrid-DistShift1-v0",
+    "MiniGrid-MultiRoom-N6-v0", "MiniGrid-SimpleCrossingS11N5-v0",
+    "MiniGrid-LavaCrossingS9N3-v0", "MiniGrid-Dynamic-Obstacles-16x16-v0",
+    "MiniGrid-BlockedUnlockPickup-v0", "MiniGrid-ObstructedMaze-1Dlhb-v1",
+    "MiniGrid-KeyCorridorS6R3-v0", "MiniGrid-LockedRoom-v0", "MiniGrid-RedBlueDoors-8x8-v0",
+)
+FAMILY_STEPS = 24
+HARD_TEXT = ["--clip-config.clip-lambda", "1e-5", "--clip-config.clip-modality", "text",
+             "--clip-config.apply-disturbances", "--clip-config.disturbance-severity", "HARD"]
+# (label, argv, startup launches, launches per iteration, kernels-line path)
+FAMILY_CLIP_RUNS = (
+    ("text table FourRooms", ["--env-id", "MiniGrid-FourRooms-v0", *HARD_TEXT],
+     {"attn_block": 24, "mlp_block": 24}, {"disturb": 128}, None),  # 1,444 rows: 2 batches
+    ("text split MultiRoom-N6", ["--env-id", "MiniGrid-MultiRoom-N6-v0", *HARD_TEXT],
+     {}, {"attn_block": 12, "mlp_block": 12, "disturb": 128}, "split"),
+    ("image LavaCrossingS9N1", ["--env-id", "MiniGrid-LavaCrossingS9N1-v0",
+                                "--clip-config.clip-lambda", "1e-5",
+                                "--clip-config.clip-modality", "image",
+                                "--clip-config.apply-disturbances",
+                                "--clip-config.disturbance-severity", "HARD"],
+     {}, {"attn_block": 12, "mlp_stream": 12, "disturb": 128}, None),
+)
+
+
+def _crafted(core, grids):
+    """Mid-episode states of a few reset grids (numpy), the agent turned to
+    face an object: (grid, pos, dir, carrying, first action) for the goal
+    and lava (forward), a ball (pickup; forward, a collision, under
+    Dynamic-Obstacles), a box (pickup, and toggle), a locked door with its
+    key in hand (toggle) and RedBlueDoors' blue door with the red one open
+    and closed (toggle)."""
+    import numpy as np
+
+    def face(g, target):
+        for d, (dx, dy) in enumerate(core.DIR_TO_VEC):
+            x, y = target[0] - dx, target[1] - dy
+            if 0 <= x < g.shape[0] and 0 <= y < g.shape[1] and g[x, y, 0] in (core.EMPTY,
+                                                                                core.DOOR):
+                if g[x, y, 0] == core.DOOR and g[x, y, 2] != core.OPEN:
+                    continue
+                return (x, y), d
+        return None
+
+    out, none = [], np.zeros(3, np.int8)
+    for g in grids[:3]:
+        wants = [(core.GOAL, None, core.A_FORWARD), (core.LAVA, None, core.A_FORWARD),
+                 (core.BALL, None, core.A_PICKUP), (core.BALL, None, core.A_FORWARD),
+                 (core.BOX, None, core.A_PICKUP), (core.BOX, None, core.A_TOGGLE)]
+        locked = np.argwhere((g[..., 0] == core.DOOR) & (g[..., 2] == core.LOCKED))
+        for obj, _, action in wants:
+            cells = np.argwhere(g[..., 0] == obj)
+            for c in cells[:2]:
+                f = face(g, tuple(c))
+                if f is not None:
+                    out.append((g.copy(), f[0], f[1], none, action))
+        for c in locked[:1]:
+            f = face(g, tuple(c))
+            if f is not None:
+                out.append((g.copy(), f[0], f[1], np.array([core.KEY, g[tuple(c)][1], 0], np.int8),
+                            core.A_TOGGLE))
+        doors = {int(g[tuple(c)][1]): tuple(c) for c in np.argwhere(g[..., 0] == core.DOOR)}
+        if core.RED in doors and core.BLUE in doors:
+            for red_state in (core.OPEN, core.CLOSED):
+                gr = g.copy()
+                gr[doors[core.RED]][2] = red_state
+                f = face(gr, doors[core.BLUE])
+                if f is not None:
+                    out.append((gr, f[0], f[1], none, core.A_TOGGLE))
+    return out
+
+
+def phase_family_transitions(card: dict) -> None:
+    """13a. The CPU's reset of each family's largest id, with crafted
+    mid-episode states, stepped 24 times on the card and on the CPU with the
+    same actions (and the same Dynamic-Obstacles draws): views, states and
+    flags equal, rewards equal as float32; every family reaches its
+    success."""
+    import numpy as np
+    import torch
+
+    from clip_ppo_tpu_torch.envs.minigrid import core
+
+    dev = torch.device("cuda", 0)
+    t0 = time.time()
+    for env_id in (*FAMILY_RUNS, "MiniGrid-Unlock-v0"):
+        p = core.parse_env_id(env_id)
+        gen = torch.Generator()
+        gen.manual_seed(13)
+        st = core.reset(p, 8, gen, "cpu")
+        crafted = _crafted(core, st.grid.numpy())
+        n = 8 + len(crafted)
+        cat = lambda a, b: torch.cat([a, torch.as_tensor(np.stack(b))])  # noqa: E731
+        cpu = core.EnvState(
+            cat(st.grid, [c[0] for c in crafted]), cat(st.agent_pos, [np.array(c[1]) for c in crafted]),
+            cat(st.agent_dir, [np.array(c[2]) for c in crafted]), cat(st.carrying, [c[3] for c in crafted]),
+            torch.cat([st.step_count, torch.full((len(crafted),), p.max_steps // 2, dtype=torch.int32)]))
+        gpu = core.EnvState(*(t.to(dev) for t in dataclasses.astuple(cpu)))
+        rng = np.random.RandomState(13)
+        actions = rng.randint(0, p.num_actions, size=(FAMILY_STEPS, n))
+        actions[0, 8:] = [c[4] for c in crafted]
+        won = 0
+        for t in range(FAMILY_STEPS):
+            a = torch.as_tensor(actions[t])
+            if not torch.equal(core.observe(p, gpu).cpu(), core.observe(p, cpu)):
+                fail(f"{env_id}: the views on the card differ from the CPU's before step {t}")
+            draws = core.obstacle_gumbels(p, n, gen, "cpu") if p.kind == "dynobs" else None
+            cpu, r_c, te_c, tr_c = core.step(p, cpu, a, gumbels=draws)
+            gpu, r_g, te_g, tr_g = core.step(p, gpu, a.to(dev),
+                                             gumbels=None if draws is None else draws.to(dev))
+            for name, x, y in (("reward", r_g, r_c), ("terminated", te_g, te_c),
+                               ("truncated", tr_g, tr_c), *(
+                                   (f.name, getattr(gpu, f.name), getattr(cpu, f.name))
+                                   for f in dataclasses.fields(core.EnvState))):
+                if not torch.equal(x.cpu(), y):
+                    fail(f"{env_id}: {name} on the card differs from the CPU's at step {t}")
+            won += int((r_c > 0).sum())
+        print(f"[families] {env_id} ({p.kind}, success {p.success}): {n} states ({len(crafted)} "
+              f"crafted) x {FAMILY_STEPS} steps on the card equal to the CPU (views, states, "
+              f"flags; rewards as float32); {won} rewarded transitions")
+        if won == 0:
+            fail(f"{env_id}: no transition reached the family's success")
+    print(f"[families] transition checks took {time.time() - t0:.1f} s")
+
+
+def _count_kernels(fn) -> int:
+    """The device kernels ``fn`` launches, from a torch.profiler trace (0
+    where the trace holds no device time)."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in _kernel_events(prof))
+
+
+def phase_family_vanilla(card: dict) -> dict:
+    """13b. ``ppo_minigrid`` for 2 iterations of 8 x 128 on each family's
+    largest id (view mode, no kernel of the port launched, finite losses),
+    its second iteration clocked for the steady env-steps/s; one rollout of
+    128 steps timed alone; and the kernels a rollout step launches, from two
+    short traces (a whole trace of 128 steps takes the profiler minutes to
+    read): a 4-step rollout R4 and the bulk reset W of a 128-step rollout
+    (its launches do not depend on its size), a step then launching
+    (R4 - W) / 4 + W / 128."""
+    import torch
+
+    from clip_ppo_tpu_torch.cli import ppo_minigrid as cli
+    from clip_ppo_tpu_torch.envs.vector import TorchVectorEnv
+    from clip_ppo_tpu_torch.models import agent as agent_mod
+    from clip_ppo_tpu_torch.train.ppo import PPOConfig
+    from clip_ppo_tpu_torch.train.runner import Draws, Trainer
+
+    dev = torch.device("cuda", 0)
+    out = {}
+    for env_id in FAMILY_RUNS:
+        args, summary, launches, wall, steady, _ = run_atari_cli(cli, ["--env-id", env_id])
+        if any(launches.values()):
+            fail(f"vanilla {env_id} launched kernels of the port: {launches}")
+        if not summary["view_mode"]:
+            fail(f"vanilla {env_id} is not in view mode")
+        _check_scalars(f"[families vanilla] {env_id}", summary["last_scalars"])
+        env = TorchVectorEnv(env_id, 8, dev)
+        pgen = torch.Generator()
+        pgen.manual_seed(1)
+        params = agent_mod.init_agent_params(pgen, env.num_actions, dev)
+        trainer = Trainer(PPOConfig(), env, 2)
+        state = trainer.init_state(params, 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer._rollout(state, Draws())
+        torch.cuda.synchronize()
+        rollout_s = time.perf_counter() - t0
+        short = Trainer(PPOConfig(num_steps=4), env, 2)
+        state = short.init_state(params, 1)
+        short._rollout(state, Draws())  # warm-up
+        r4 = _count_kernels(lambda: short._rollout(state, Draws()))
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(1)
+        w = _count_kernels(lambda: env.prepare_resets(state.vec_state, 128, gen))
+        per_step = (r4 - w) / 4 + w / 128 if r4 else None
+        out[env_id] = (steady, per_step)
+        print(f"[families vanilla] {env_id}: 2 iterations of 8x128 in {wall:.2f} s wall, steady "
+              f"{steady:.1f} env-steps/s (second iteration); one rollout alone {rollout_s * 1e3:.1f}"
+              f" ms = {1024 / rollout_s:.1f} env-steps/s; "
+              + (f"a rollout step launches {per_step:.1f} kernels ({(r4 - w) / 4:.1f} for the "
+                 f"policy and the env step, {w} for the rollout's bulk reset of 1,024 envs)"
+                 if r4 else "kernel launches not measured (the trace holds no device time)")
+              + f"; {env.num_actions} actions on {card['smi']}")
+    return out
+
+
+def phase_family_clip(results: list[dict], card: dict) -> None:
+    """13c-d. ``clip_ppo_minigrid`` for 2 iterations, HARD: the text modality
+    on FourRooms (the 1,444-row description table, two batches, K2 and K3 24
+    times at startup and none an iteration) and on MultiRoom-N6 (the split
+    path: K2 and K3 12 times an iteration), the host's describe + tokenize
+    and the encode timed per iteration; the image modality on
+    LavaCrossingS9N1. K1 128 times an iteration in each."""
+    import torch
+
+    from clip_ppo_tpu_torch.cli import clip_ppo_minigrid as cpm
+    from clip_ppo_tpu_torch.envs.minigrid import core
+    from clip_ppo_tpu_torch.models import clip_utils
+
+    for label, argv, startup, per_iter, path in FAMILY_CLIP_RUNS:
+        spans = {"describe": [], "tokenize": [], "encode": []}
+
+        def timed(fn, key, sync=False):
+            def call(*a, **k):
+                if sync:
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **k)
+                if sync:
+                    torch.cuda.synchronize()
+                spans[key].append(time.perf_counter() - t0)
+                return out
+            return call
+
+        with mock.patch.object(core, "describe_rollout", timed(core.describe_rollout, "describe")), \
+                mock.patch.object(clip_utils, "tokenize", timed(clip_utils.tokenize, "tokenize")), \
+                mock.patch.object(clip_utils, "encode_texts",
+                                  timed(clip_utils.encode_texts, "encode", sync=True)):
+            args, summary, launches, wall, steady, _ = run_atari_cli(cpm, argv)
+        want = {k: startup.get(k, 0) + per_iter.get(k, 0) * args.num_iterations for k in launches}
+        print(f"[families clip] {label}: {args.num_iterations} iterations of {args.num_envs}x"
+              f"{args.num_steps} in {wall:.2f} s wall, split path {summary['split_path']}, text "
+              f"table {summary['table_seconds']:.3f} s, steady {steady:.1f} env-steps/s; launches "
+              f"{ {k: v for k, v in launches.items() if v} } on {card['smi']}")
+        if launches != want:
+            fail(f"{label} launched {launches}, expected {want}")
+        if summary["split_path"] is not (path == "split"):
+            fail(f"{label}: split path {summary['split_path']}")
+        _check_scalars(f"[families clip] {label}", summary["last_scalars"])
+        if not float(summary["last_scalars"]["first_clip_loss"]) > 0.0:
+            fail(f"{label}: the CLIP loss did not run")
+        if path == "split":
+            ms = {k: [v * 1e3 for v in vs] for k, vs in spans.items()}
+            enc = [e - t for e, t in zip(ms["encode"], ms["tokenize"][-len(ms["encode"]):])]
+            print(f"[families clip] split path per iteration (host clock): describe "
+                  + ", ".join(f"{v:.2f}" for v in ms["describe"]) + " ms; tokenize "
+                  + ", ".join(f"{v:.2f}" for v in ms["tokenize"]) + " ms; text encode of 1,024 "
+                  "descriptions (K2 + K3, synchronized) " + ", ".join(f"{v:.2f}" for v in enc)
+                  + f" ms on {card['smi']}")
+            for r in results:
+                if r["path"] == "split":
+                    r["launches"] = launches[r["name"]]
+
+
+def phase_families(results: list[dict], card: dict) -> None:
+    """Phase 13: the classic MiniGrid families (a-d)."""
+    t0 = time.time()
+    phase_family_transitions(card)
+    phase_family_vanilla(card)
+    phase_family_clip(results, card)
+    print(f"[families] phase 13 took {time.time() - t0:.1f} s")
+
+
 def main() -> None:
     try:
         import torch
@@ -2573,6 +2856,7 @@ def main() -> None:
     print(f"[benchmark bench_bf16] phase took {time.time() - t0:.1f} s")
     phase_atari(results, card)
     phase_pipeline(results, card)
+    phase_families(results, card)
     order = ("name", "route", "source", "replaces", "shape", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms")
     for r in results:  # every kernel of a driven path was launched there

@@ -63,7 +63,6 @@ from clip_ppo_tpu_torch.models.agent import (
 )
 from clip_ppo_tpu_torch.models.clip import model as clip_model_mod
 from clip_ppo_tpu_torch.models.clip.config import CLIP_CONFIGS
-from clip_ppo_tpu_torch.models.clip.tokenizer import tokenize
 from clip_ppo_tpu_torch.ops.severity import DisturbanceSeverity, resolve_params
 from clip_ppo_tpu_torch.train.ppo import PPOConfig
 from clip_ppo_tpu_torch.train.runner import LogPipeline, Trainer, chunk_length
@@ -237,7 +236,7 @@ def train(args: Args, run_name: Optional[str] = None) -> dict:
     if (compute_clip and not random_mode) or frozen_mode:
         clip_params, clip_cfg = clip_utils.load_clip_model(cc.clip_model, device)
     frozen_params, features_fn = None, cnn_features
-    embed_images_fn = embed_random_fn = encode_tokens = None
+    embed_images_fn = embed_random_fn = text_params = None
     if frozen_mode or (image_modality and not random_mode):
         # The vision tower, cast once to bf16, is the trunk (FROZEN_CLIP) or
         # encodes each iteration's stacks (image modality).
@@ -251,9 +250,7 @@ def train(args: Args, run_name: Optional[str] = None) -> dict:
         embed_random_fn = clip_utils.make_random_embed_fn(
             args.batch_size, frames=4 if cc.clip_modality == "image" else 1)
     elif compute_clip:  # text modality from the live games, float32 tower
-        def encode_tokens(tokens: torch.Tensor, params: dict = clip_params) -> torch.Tensor:
-            with torch.no_grad():
-                return clip_utils.l2_normalize(clip_model_mod.encode_text(params, clip_cfg, tokens))
+        text_params = clip_params
     del clip_params  # the image paths keep only the tower's bf16 copy
 
     cfg = PPOConfig(
@@ -311,16 +308,15 @@ def train(args: Args, run_name: Optional[str] = None) -> dict:
     pipeline = LogPipeline(trainer, logger.handle)
     iteration = start_iteration
     while iteration <= args.num_iterations:
-        if encode_tokens is not None:
+        if text_params is not None:
             # Host tokenization sits between the rollout and the update, so
             # the text modality runs one iteration at a time.
             k = 1
             state, data, stats, _ = trainer.run_rollout_half(state)
             descs = env.describe(state.vec_state)
             descriptions = descs * args.num_steps  # index t·N+n → env n
-            tokens = torch.as_tensor(tokenize(descriptions), device=device)
-            state, scalars = trainer.run_update_half(state, data, iteration,
-                                                     encode_tokens(tokens))
+            state, scalars = trainer.run_update_half(
+                state, data, iteration, clip_utils.encode_texts(text_params, clip_cfg, descriptions))
             logger.handle(iteration, *trainer.fetch_logs(scalars, stats))
         else:
             k = chunk_length(args.iterations_per_dispatch, iteration, args.num_iterations,

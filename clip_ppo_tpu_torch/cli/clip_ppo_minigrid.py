@@ -9,7 +9,13 @@ reference `minigrid_experiments/clip_ppo/clip_ppo_minigrid.py`.
 Runs on the GPU (``--cuda``, the default, raises without one) or on the CPU
 with ``--no-cuda``. The text modality encodes the W·H·4 possible MiniGrid
 descriptions once at startup with the CLIP text tower (K2/K3 kernels on the
-GPU) and gathers rows per step. The image modality
+GPU) and gathers rows per step, where the descriptions' object suffix is the
+same on 16 sampled resets (the static border wall of every bordered layout).
+Where it varies (MultiRoom, whose grid has no border), or with
+``--no-text-embed-table``, the text modality takes the split path of the
+JAX CLI: each iteration's rollout, then its 1,024 descriptions built and
+tokenized on the host and encoded by the text tower (K2/K3 once a layer),
+then the update. The image modality
 (``--clip-config.clip-modality image``) encodes each iteration's stored
 observations with the CLIP vision tower (K2/K5 kernels on the GPU).
 Batched disturbances (K1 on the GPU) apply to each observation before it is
@@ -183,8 +189,8 @@ class Args:
     """training iterations queued back to back before their logs are read"""
     text_embed_table: bool = True
     """text modality: precompute the W·H·4 description-embedding table at
-    startup and gather per step (the per-step host tokenization path comes
-    with a later slice)"""
+    startup and gather per step (falls back to the per-iteration host
+    tokenization path when the description suffix varies across resets)"""
 
     # to be filled in runtime
     batch_size: int = 0
@@ -203,9 +209,6 @@ def _reject_later_slices(args: Args, compute_clip: bool) -> None:
         (args.num_devices > 1 or args.tp > 1 or args.distributed,
          "--num-devices/--tp > 1 and --distributed", "the multi-GPU slice"),
         (args.mission_conditioning, "--mission-conditioning", "the extensions slice"),
-        (compute_clip and not random_mode and not args.text_embed_table
-         and cc.clip_modality == "text",
-         "--no-text-embed-table", "a later slice (the per-step host tokenization path)"),
     ]
     for requested, what, slice_name in later:
         if requested:
@@ -260,10 +263,13 @@ def train(args: Args, run_name: Optional[str] = None) -> dict:
     # modality: the CLIP weights stay in frozen["clip"] and the vision tower
     # encodes each iteration's observations. Text modality: descriptions are
     # f(agent_x, agent_y, dir) + a suffix that is the static border wall on
-    # these layouts (checked over 16 resets), so the W·H·4 description table
-    # is encoded once. RANDOM_ENCODER: fresh normalized Gaussians each
-    # iteration take the place of both.
+    # bordered layouts (checked over 16 resets), so the W·H·4 description
+    # table is encoded once; where the suffix varies, or without the table,
+    # the split path keeps the text tower and encodes each iteration's
+    # descriptions (`clip_ppo_minigrid.py:338-364, 425-428`). RANDOM_ENCODER:
+    # fresh normalized Gaussians each iteration take the place of both.
     frozen_params, embed_images_fn, embed_desc_fn, table_seconds = None, None, None, 0.0
+    text_params = None  # the split path's text tower
     embed_random_fn, features_fn = None, cnn_features
     frozen_mode = cc.ablation_mode == AblationMode.FROZEN_CLIP
     distill_losses, distill_seconds = None, 0.0
@@ -296,19 +302,22 @@ def train(args: Args, run_name: Optional[str] = None) -> dict:
         gen.manual_seed(0)
         grids = minigrid_core.reset(env.params, 16, gen, "cpu").grid.numpy()
         suffixes = {minigrid_core._objects_suffix(g) for g in grids}
-        if len(suffixes) != 1:
-            raise SystemExit(f"{args.env_id}: the description suffix varies across resets; "
-                             "the per-step host tokenization path comes with a later slice")
-        t0 = time.time()
-        table = clip_utils.build_minigrid_text_table(
-            clip_params, clip_cfg, env.params.width, env.params.height, suffixes.pop())
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        table_seconds = time.time() - t0
-        print(f"Text table: {table.shape[0]} descriptions encoded in {table_seconds:.2f} s")
+        if not args.text_embed_table or len(suffixes) != 1:
+            text_params = clip_params
+            print("Text modality on the split path: "
+                  + ("--no-text-embed-table" if not args.text_embed_table else
+                     f"the description suffix varies across resets of {args.env_id}"))
+        else:
+            t0 = time.time()
+            table = clip_utils.build_minigrid_text_table(
+                clip_params, clip_cfg, env.params.width, env.params.height, suffixes.pop())
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            table_seconds = time.time() - t0
+            print(f"Text table: {table.shape[0]} descriptions encoded in {table_seconds:.2f} s")
+            frozen_params = {"text_table": table}
+            embed_desc_fn = clip_utils.make_text_table_embed_fn(env.params.height)
         del clip_params
-        frozen_params = {"text_table": table}
-        embed_desc_fn = clip_utils.make_text_table_embed_fn(env.params.height)
 
     cfg = PPOConfig(
         learning_rate=args.learning_rate, num_envs=args.num_envs, num_steps=args.num_steps,
@@ -357,11 +366,23 @@ def train(args: Args, run_name: Optional[str] = None) -> dict:
     pipeline = LogPipeline(trainer, logger.handle)
     iteration = start_iteration
     while iteration <= args.num_iterations:
-        k = chunk_length(args.iterations_per_dispatch, iteration, args.num_iterations,
-                         (iteration - 1) * args.batch_size, args.batch_size,
-                         args.save_freq, args.save_model)
-        state, packed = trainer.run_iterations(state, iteration, k)
-        pipeline.after_dispatch(iteration, packed)
+        if text_params is not None:
+            # Split path: the host describes and tokenizes between the
+            # rollout and the update, so it runs one iteration at a time.
+            k = 1
+            state, data, stats, desc = trainer.run_rollout_half(state)
+            descriptions = minigrid_core.describe_rollout(
+                state.vec_state.env.grid.cpu().numpy(), desc["agent_pos"].cpu().numpy(),
+                desc["agent_dir"].cpu().numpy())
+            state, scalars = trainer.run_update_half(
+                state, data, iteration, clip_utils.encode_texts(text_params, clip_cfg, descriptions))
+            logger.handle(iteration, *trainer.fetch_logs(scalars, stats))
+        else:
+            k = chunk_length(args.iterations_per_dispatch, iteration, args.num_iterations,
+                             (iteration - 1) * args.batch_size, args.batch_size,
+                             args.save_freq, args.save_model)
+            state, packed = trainer.run_iterations(state, iteration, k)
+            pipeline.after_dispatch(iteration, packed)
         iteration += k
         if args.save_model and ((iteration - 1) * args.batch_size) % args.save_freq == 0:
             pipeline.flush()
@@ -387,6 +408,7 @@ def train(args: Args, run_name: Optional[str] = None) -> dict:
         "distill_losses": distill_losses,
         "distill_seconds": distill_seconds,
         "view_mode": trainer.view_mode,
+        "split_path": text_params is not None,
         "last_scalars": last_scalars,
     }
 

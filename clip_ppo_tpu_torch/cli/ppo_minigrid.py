@@ -326,6 +326,7 @@ def train(args: Args, run_name: Optional[str] = None) -> dict:
         "sps": logger.sps,
         "recent_returns": logger.last_returns[-100:],
         "episodes": len(logger.last_returns),
+        "episode_returns": list(logger.last_returns),
         "run_name": run_name,
         "view_mode": trainer.view_mode,
         "last_scalars": last_scalars,

@@ -1,24 +1,36 @@
-"""MiniGrid as batched tensors: the Empty-* and DoorKey-* families.
+"""MiniGrid as batched tensors: Empty, DoorKey and the classic families.
 
 Port of ``clip_ppo_tpu/envs/minigrid/core.py`` for the families this slice
-runs. The state of all N environments lives in tensors with a leading env
-axis, and ``reset``/``step``/``observe`` are batched functions of them, so
-the rollout never leaves the device. Semantics mirror MiniGrid exactly, as
-the JAX package does: the integer encodings, the 7×7 egocentric view with
-the agent at view cell (3, 6) facing up, out-of-bounds cells read as grey
-walls, shadow-casting visibility where walls are opaque, the action set,
-the goal reward ``1 - 0.9 * step_count / max_steps``, truncation at
-``max_steps``, and DoorKey's door-row quirk of sampling with ``width``.
+runs: Empty[-Random], DoorKey, FourRooms, LavaGap, DistShift, MultiRoom,
+{Simple,Lava}Crossing, Dynamic-Obstacles[-Random], Unlock, UnlockPickup,
+BlockedUnlockPickup, ObstructedMaze-1Dl{,h,hb}, KeyCorridor, LockedRoom and
+RedBlueDoors. The state of all N environments lives in tensors with a
+leading env axis, and ``reset``/``step``/``observe`` are batched functions
+of them, so the rollout never leaves the device and no reset or step asks
+the host anything. Semantics mirror MiniGrid exactly, as the JAX package
+does: the integer encodings, the 7×7 egocentric view with the agent at
+view cell (3, 6) facing up, out-of-bounds cells read as grey walls,
+shadow-casting visibility where walls are opaque, the action set, the goal
+reward ``1 - 0.9 * step_count / max_steps``, truncation at ``max_steps``,
+DoorKey's door-row quirk of sampling with ``width``, and each family's
+success mode (``goal``, ``open_door``, ``pickup_box``, ``pickup_ball``,
+``red_then_blue``).
 
 Random draws come from an explicit ``torch.Generator``; the env state holds
-no key. The other MiniGrid/BabyAI families come with later slices and are
-rejected by :func:`parse_env_id`.
+no key. The rejection loops of the JAX package run in parallel instead of
+one after another: MultiRoom's 64 chain trials (each room's 8 proposals
+together, the first that fits taken) and their keep-best rule, and
+KeyCorridor's connect loop, whose 256 door proposals are drawn at once and
+applied up to the first one after which every room is reachable. The
+mission families, Memory, Playground, ObstructedMaze-2Dl/1Q/2Q/Full and
+BabyAI come with later slices and are refused by :func:`parse_env_id`.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import re
+from typing import Optional
 
 import numpy as np
 import torch
@@ -45,18 +57,42 @@ _AGENT_VIEW_POS = (VIEW_SIZE // 2, VIEW_SIZE - 1)  # (3, 6)
 A_LEFT, A_RIGHT, A_FORWARD, A_PICKUP, A_DROP, A_TOGGLE, A_DONE = range(7)
 NUM_ACTIONS = 7
 
+MULTIROOM_TRIALS = 64       # the keep-best loop's cap (`core.py:1228`)
+MULTIROOM_PROPOSALS = 8     # proposals per room of one trial
+CONNECT_PROPOSALS = 256     # KeyCorridor's connect-loop cap (`core.py:1657`)
+
 
 @dataclasses.dataclass(frozen=True)
 class EnvParams:
     """Static environment configuration."""
 
-    kind: str  # "empty" | "doorkey"
+    kind: str  # "empty" | "doorkey" | "fourrooms" | "lavagap" | "multiroom"
+    #            | "crossing" | "unlock" | "dynobs" | "distshift" | "redblue"
+    #            | "keycorridor" | "lockedroom"
     width: int
     height: int
     max_steps: int
     see_through_walls: bool
-    random_start: bool = False  # Empty-Random variants
-    num_actions: int = NUM_ACTIONS
+    random_start: bool = False  # Empty-Random and Dynamic-Obstacles-Random
+    # MultiRoom-N{n}[-S{s}] family; KeyCorridor keeps its rows in
+    # min_rooms and its room size in max_room_size.
+    min_rooms: int = 0
+    max_rooms: int = 0
+    max_room_size: int = 0
+    # {Simple,Lava}CrossingS{n}N{k} family
+    num_crossings: int = 0
+    obstacle: int = 0  # WALL (SimpleCrossing) or LAVA (LavaCrossing)
+    # Success condition: "goal" (step onto GOAL), "open_door" (a toggle
+    # leaves the door open), "pickup_box", "pickup_ball" (of
+    # ``target_color`` when it is ≥ 0) or "red_then_blue" (the blue door is
+    # open after the step; rewarded iff the red one was open before it).
+    success: str = "goal"
+    strip_row: int = 0         # DistShift: row of the 3-cell lava strip
+    blocked_door: bool = False  # a ball blocks the cell left of the locked door
+    key_in_box: bool = False    # the key hides in a box (toggle reveals it)
+    target_color: int = -1      # pickup_ball's color, −1 = any
+    n_obstacles: int = 0        # Dynamic-Obstacles' moving balls
+    num_actions: int = NUM_ACTIONS  # 3 for Dynamic-Obstacles
 
 
 @dataclasses.dataclass
@@ -70,24 +106,173 @@ class EnvState:
     step_count: torch.Tensor  # [N] int32
 
 
+# Ids the JAX package runs that later slices of the port bring, by slice.
+_LATER_SLICES = (
+    (r"MiniGrid-(GoToDoor|Fetch|GoToObject|PutNear|MemoryS|Playground"
+     r"|ObstructedMaze-(2Dl|1Q|2Q|Full))",
+     "the next environment slice (the mission families GoToDoor, Fetch, GoToObject and "
+     "PutNear, Memory, Playground and ObstructedMaze-2Dl/1Q/2Q/Full, whose states carry a "
+     "mission target)"),
+    (r"BabyAI-", "the BabyAI slice"),
+)
+
+
 def parse_env_id(env_id: str) -> EnvParams:
-    """Map a MiniGrid env id to EnvParams (Empty[-Random]-NxN, DoorKey-NxN)."""
+    """Map a MiniGrid env id to EnvParams.
+
+    Runs ``Empty[-Random]-NxN``, ``DoorKey-NxN``, ``FourRooms``,
+    ``LavaGapSn``, ``DistShift{1,2}``, ``MultiRoom-Nn[-Ss]``,
+    ``{Simple,Lava}CrossingSsNn``, ``Dynamic-Obstacles[-Random]-NxN``,
+    ``Unlock``, ``UnlockPickup``, ``BlockedUnlockPickup``,
+    ``ObstructedMaze-1Dl{,h,hb}``, ``KeyCorridorSsRr``, ``LockedRoom`` and
+    ``RedBlueDoors-NxN`` (each with an optional -vK suffix). The other ids
+    of the JAX package raise, naming the later slice that brings them.
+    """
+    m = re.match(r"MiniGrid-DistShift(1|2)(-v\d+)?$", env_id)
+    if m:
+        # DistShiftEnv(width=9, height=7, strip2_row=2|5): 3-cell lava
+        # strip at x ∈ [3, 5] in row 2 (DistShift1) or 5 (DistShift2),
+        # goal at (width-2, 1), agent (1,1) facing right; deterministic
+        # layout, max_steps = 4·width², see_through_walls=True (upstream
+        # minigrid/envs/distshift.py).
+        return EnvParams("distshift", 9, 7, 4 * 9 * 9, True,
+                         strip_row=2 if m.group(1) == "1" else 5)
+    m = re.match(r"MiniGrid-RedBlueDoors-(\d+)x(\d+)(-v\d+)?$", env_id)
+    if m:
+        # RedBlueDoorEnv(size): 2size×size grid; a size×size room in the
+        # middle (wall_rect(size//2, 0, size, size)) with a red door at a
+        # random y on its left wall and a blue door on its right wall;
+        # agent placed randomly inside the room. Success = opening the
+        # blue door while the red door is already open (upstream
+        # redbluedoors.py step()); max_steps = 20·size² (registered
+        # 6x6 and 8x8).
+        size = int(m.group(1))
+        if size != int(m.group(2)):
+            raise ValueError("only square RedBlueDoors rooms are supported")
+        return EnvParams("redblue", 2 * size, size, 20 * size * size, False,
+                         success="red_then_blue")
+    m = re.match(r"MiniGrid-MultiRoom-N(\d+)(?:-S(\d+))?(-v\d+)?$", env_id)
+    if m:
+        # MultiRoomEnv(minNumRooms=n, maxNumRooms=n, maxRoomSize=s or 10):
+        # 25×25 grid, max_steps = maxNumRooms·20 (upstream multiroom.py;
+        # registered ids N2-S4, N4-S5, N6).
+        n = int(m.group(1))
+        s = int(m.group(2)) if m.group(2) else 10
+        return EnvParams("multiroom", 25, 25, n * 20, False,
+                         min_rooms=n, max_rooms=n, max_room_size=s)
+    m = re.match(r"MiniGrid-(Simple|Lava)CrossingS(\d+)N(\d+)(-v\d+)?$", env_id)
+    if m:
+        # CrossingEnv(size, num_crossings, obstacle_type=Wall|Lava):
+        # max_steps = 4·size² (upstream crossing.py; registered sizes
+        # S9N{1,2,3} and S11N5).
+        size = int(m.group(2))
+        return EnvParams("crossing", size, size, 4 * size * size, False,
+                         num_crossings=int(m.group(3)),
+                         obstacle=WALL if m.group(1) == "Simple" else LAVA)
+    m = re.match(r"MiniGrid-Dynamic-Obstacles(-Random)?-(\d+)x(\d+)(-v\d+)?$", env_id)
+    if m:
+        # DynamicObstaclesEnv(size, agent_start_pos=(1,1)|None,
+        # n_obstacles=size//2): size//2 moving balls; restricted 3-action
+        # space (left/right/forward); max_steps = 4·size²,
+        # see_through_walls=True (upstream dynamicobstacles.py; registered
+        # [Random-]{5x5,6x6,8x8,16x16}).
+        size = int(m.group(2))
+        if size != int(m.group(3)):
+            raise ValueError("only square grids are supported")
+        return EnvParams("dynobs", size, size, 4 * size * size, True,
+                         random_start=m.group(1) is not None,
+                         n_obstacles=size // 2, num_actions=3)
+    m = re.match(r"MiniGrid-KeyCorridorS(\d+)R(\d+)(-v\d+)?$", env_id)
+    if m:
+        # KeyCorridorEnv(room_size=s, num_rows=r): RoomGrid(3 columns ×
+        # r rows of s×s rooms) → ((s-1)·3+1) × ((s-1)·r+1) grid; the
+        # middle column is opened into a corridor, a LOCKED random-color
+        # door hides a ball in a random right-column room, the matching
+        # key sits in a random left-column room, the agent starts in the
+        # middle, and connect_all() adds doors until every room is
+        # reachable. Success = picking the ball up
+        # (upstream minigrid/envs/keycorridor.py; max_steps = 30·s²;
+        # registered S3R{1,2,3}, S{4,5,6}R3).
+        s, r = int(m.group(1)), int(m.group(2))
+        return EnvParams("keycorridor", (s - 1) * 3 + 1, (s - 1) * r + 1, 30 * s * s,
+                         False, min_rooms=r, max_room_size=s, success="pickup_ball")
+    if re.match(r"MiniGrid-Unlock(-v\d+)?$", env_id):
+        # UnlockEnv: RoomGrid(room_size=6, rows=1, cols=2) → 11×6 grid,
+        # locked random-color door on the dividing wall, matching key and
+        # agent placed in the left room; success = toggling the door open
+        # (upstream unlock.py; max_steps = 8·room_size²).
+        return EnvParams("unlock", 11, 6, 8 * 6 * 6, False, success="open_door")
+    if re.match(r"MiniGrid-UnlockPickup(-v\d+)?$", env_id):
+        # UnlockPickupEnv: the Unlock layout plus a random-color box in
+        # the right room; success = picking the box up (upstream
+        # unlockpickup.py; max_steps = 8·room_size²).
+        return EnvParams("unlock", 11, 6, 8 * 6 * 6, False, success="pickup_box")
+    m = re.match(r"MiniGrid-ObstructedMaze-1Dl(h?)(b?)(-v\d+)?$", env_id)
+    if m:
+        # ObstructedMaze_1Dl{,h,hb}: RoomGrid(room_size=6, 1×2 rooms) —
+        # the Unlock layout with the target BLUE ball in the right room;
+        # "h" hides the key inside a box (toggle reveals it), "b" blocks
+        # the locked door with a non-blue ball (the -v1 bugfix colors —
+        # v0's blue blocker was indistinguishable from the target).
+        # Success = picking the blue ball up; max_steps =
+        # 4·num_rooms_visited·room_size² = 288 (upstream
+        # minigrid/envs/obstructedmaze.py).
+        return EnvParams("unlock", 11, 6, 4 * 2 * 36, False, success="pickup_ball",
+                         target_color=BLUE, key_in_box=m.group(1) == "h",
+                         blocked_door=m.group(2) == "b")
+    if re.match(r"MiniGrid-BlockedUnlockPickup(-v\d+)?$", env_id):
+        # BlockedUnlockPickupEnv: UnlockPickup plus a random-color ball
+        # placed directly left of the locked door — the agent must move
+        # it aside before unlocking (upstream blockedunlockpickup.py;
+        # max_steps = 16·room_size²).
+        return EnvParams("unlock", 11, 6, 16 * 6 * 6, False, success="pickup_box",
+                         blocked_door=True)
+    if re.match(r"MiniGrid-FourRooms(-v\d+)?$", env_id):
+        # FourRoomsEnv: 19×19, four rooms with one random gap per shared
+        # wall segment, random agent + goal, max_steps=100 (the env the
+        # reference's eval configs reference, `evaluate_algorithm.py:30`).
+        return EnvParams("fourrooms", 19, 19, 100, False, True)
+    m = re.match(r"MiniGrid-LavaGapS(\d+)(-v\d+)?$", env_id)
+    if m:
+        # LavaGapEnv(size): full-height lava column at a random x with a
+        # single gap; agent (1,1) facing right, goal bottom-right,
+        # max_steps = 4·size², see_through_walls=False (upstream
+        # minigrid lavagap.py; S5/S6/S7 are the registered sizes).
+        size = int(m.group(1))
+        return EnvParams("lavagap", size, size, 4 * size * size, False)
+    if re.match(r"MiniGrid-LockedRoom(-v\d+)?$", env_id):
+        # LockedRoomEnv(size=19): a central hallway flanked by 2×3 rooms;
+        # one room is locked and holds the goal, the key (of the locked
+        # door's color) lies in another room; the agent starts in the
+        # hallway. max_steps = 10·size, see_through_walls=False (upstream
+        # minigrid/envs/lockedroom.py — reconstructed; only size 19 is
+        # registered).
+        return EnvParams("lockedroom", 19, 19, 10 * 19, False)
     m = re.match(r"MiniGrid-(Empty|DoorKey)(-Random)?-(\d+)x(\d+)(-v\d+)?$", env_id)
-    if not m:
-        raise ValueError(
-            f"unsupported MiniGrid env id: {env_id!r}. This slice of the port "
-            "runs MiniGrid-Empty[-Random]-NxN and MiniGrid-DoorKey-NxN; the "
-            "other MiniGrid/BabyAI families come with a later slice."
-        )
-    kind = m.group(1).lower()
-    size = int(m.group(3))
-    if size != int(m.group(4)):
-        raise ValueError("only square grids are supported")
-    if kind == "empty":
-        # EmptyEnv: max_steps = 4 * size**2, see_through_walls=True.
-        return EnvParams("empty", size, size, 4 * size * size, True, m.group(2) is not None)
-    # DoorKeyEnv: max_steps = 10 * size**2, see_through_walls=False.
-    return EnvParams("doorkey", size, size, 10 * size * size, False)
+    if m:
+        kind = m.group(1).lower()
+        size = int(m.group(3))
+        if size != int(m.group(4)):
+            raise ValueError("only square grids are supported")
+        if kind == "empty":
+            # EmptyEnv: max_steps = 4 * size**2, see_through_walls=True.
+            return EnvParams("empty", size, size, 4 * size * size, True, m.group(2) is not None)
+        # DoorKeyEnv: max_steps = 10 * size**2, see_through_walls=False.
+        return EnvParams("doorkey", size, size, 10 * size * size, False)
+    for pattern, slice_name in _LATER_SLICES:
+        if re.match(pattern, env_id):
+            raise ValueError(f"{env_id!r} is not ported yet: it comes with a later slice of the "
+                             f"PyTorch/CUDA port, {slice_name}")
+    raise ValueError(
+        f"unsupported MiniGrid env id: {env_id!r}. This slice of the port runs "
+        "MiniGrid-Empty[-Random]-NxN, MiniGrid-DoorKey-NxN, MiniGrid-FourRooms, "
+        "MiniGrid-LavaGapSn, MiniGrid-DistShift{1,2}, MiniGrid-MultiRoom-Nn[-Ss], "
+        "MiniGrid-{Simple,Lava}CrossingSsNn, MiniGrid-Dynamic-Obstacles[-Random]-NxN, "
+        "MiniGrid-Unlock, MiniGrid-UnlockPickup, MiniGrid-BlockedUnlockPickup, "
+        "MiniGrid-ObstructedMaze-1Dl{,h,hb}, MiniGrid-KeyCorridorSsRr, MiniGrid-LockedRoom "
+        "and MiniGrid-RedBlueDoors-NxN (each with an optional -vK suffix); the mission "
+        "families and BabyAI come with a later slice."
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -95,9 +280,26 @@ def parse_env_id(env_id: str) -> EnvParams:
 # ---------------------------------------------------------------------------
 
 
-def _base_grid(params: EnvParams, n: int, device) -> torch.Tensor:
-    """[N, W, H, 3] bordered empty grids with the goal in the bottom-right
-    interior cell."""
+def _cell(obj, color, state, device) -> torch.Tensor:
+    """One [3] int8 cell, or [N, 3] where any of the three is an [N] tensor."""
+    parts = [torch.as_tensor(v, device=device).to(torch.int8) for v in (obj, color, state)]
+    return torch.stack(torch.broadcast_tensors(*parts), dim=-1)
+
+
+def _coords(w: int, h: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """[1, W, 1] x and [1, 1, H] y coordinates."""
+    return (torch.arange(w, device=device).reshape(1, w, 1),
+            torch.arange(h, device=device).reshape(1, 1, h))
+
+
+def _at(xs: torch.Tensor, ys: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """[N, W, H] mask of the cell ``pos`` [N, 2] of each env."""
+    return (xs == pos[:, 0].reshape(-1, 1, 1)) & (ys == pos[:, 1].reshape(-1, 1, 1))
+
+
+def _base_grid(params: EnvParams, n: int, device, goal: bool = True) -> torch.Tensor:
+    """[N, W, H, 3] bordered empty grids, with the goal in the bottom-right
+    interior cell unless ``goal`` is false."""
     w, h = params.width, params.height
     grid = np.zeros((w, h, 3), dtype=np.int8)
     grid[..., 0] = EMPTY
@@ -105,43 +307,63 @@ def _base_grid(params: EnvParams, n: int, device) -> torch.Tensor:
     grid[w - 1, :, :] = [WALL, GREY, 0]
     grid[:, 0, :] = [WALL, GREY, 0]
     grid[:, h - 1, :] = [WALL, GREY, 0]
-    grid[w - 2, h - 2, :] = [GOAL, GREEN, 0]
+    if goal:
+        grid[w - 2, h - 2, :] = [GOAL, GREEN, 0]
     return torch.as_tensor(grid, device=device).expand(n, w, h, 3).clone()
 
 
 def _sample_free_cell(free: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
-    """One uniform cell among ``free`` [N, W, H] per env → [N, 2] (x, y)."""
+    """One uniform cell among ``free`` [N, W, H] per env → [N, 2] (x, y).
+    An env with no free cell gets cell (0, 0), as the JAX package's
+    categorical over all −inf logits does."""
     n, _, h = free.shape
-    idx = torch.multinomial(free.reshape(n, -1).float(), 1, generator=gen)[:, 0]
+    weights = free.reshape(n, -1).float()
+    weights[:, 0] += weights.sum(1) == 0
+    idx = torch.multinomial(weights, 1, generator=gen)[:, 0]
     return torch.stack([idx // h, idx % h], dim=-1)
 
 
-def _randint(lo: int, hi: int, n: int, gen: torch.Generator, device) -> torch.Tensor:
-    return torch.randint(lo, hi, (n,), generator=gen, device=device)
+def _randint(lo: int, hi: int, n, gen: torch.Generator, device) -> torch.Tensor:
+    shape = (n,) if isinstance(n, int) else tuple(n)
+    return torch.randint(lo, hi, shape, generator=gen, device=device)
+
+
+def _rand_between(lo: torch.Tensor, hi: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
+    """Uniform integers in [lo, hi) elementwise (lo where hi <= lo)."""
+    span = (hi - lo).clamp_min(1)
+    u = torch.rand(span.shape, generator=gen, device=span.device)
+    return lo + torch.minimum((u * span).long(), span - 1)
+
+
+def _state(grid, agent_pos, agent_dir) -> EnvState:
+    n, device = grid.shape[0], grid.device
+    return EnvState(grid, agent_pos.long(), agent_dir.long(),
+                    torch.zeros((n, 3), dtype=torch.int8, device=device),
+                    torch.zeros(n, dtype=torch.int32, device=device))
+
+
+def _fixed_start(n: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """Agent at (1, 1) facing right."""
+    return (torch.ones((n, 2), dtype=torch.int64, device=device),
+            torch.zeros(n, dtype=torch.int64, device=device))
 
 
 def _reset_empty(params: EnvParams, n: int, gen: torch.Generator, device) -> EnvState:
     grid = _base_grid(params, n, device)
     if params.random_start:
         pos = _sample_free_cell(grid[..., 0] == EMPTY, gen)
-        agent_dir = _randint(0, 4, n, gen, device)
-    else:
-        pos = torch.tensor([[1, 1]], device=device).expand(n, 2).clone()
-        agent_dir = torch.zeros(n, dtype=torch.int64, device=device)
-    return EnvState(grid, pos, agent_dir, torch.zeros((n, 3), dtype=torch.int8, device=device),
-                    torch.zeros(n, dtype=torch.int32, device=device))
+        return _state(grid, pos, _randint(0, 4, n, gen, device))
+    return _state(grid, *_fixed_start(n, device))
 
 
 def _reset_doorkey(params: EnvParams, n: int, gen: torch.Generator, device) -> EnvState:
     w, h = params.width, params.height
     grid = _base_grid(params, n, device)
-    xs = torch.arange(w, device=device).reshape(1, w, 1)
-    ys = torch.arange(h, device=device).reshape(1, 1, h)
+    xs, ys = _coords(w, h, device)
 
     # Splitting wall column: rand in [2, width-3].
     split = _randint(2, w - 2, n, gen, device).reshape(n, 1, 1)
-    wall = torch.tensor([WALL, GREY, 0], dtype=torch.int8, device=device)
-    grid = torch.where((xs == split)[..., None], wall, grid)
+    grid = torch.where((xs == split)[..., None], _cell(WALL, GREY, 0, device), grid)
 
     # Agent: uniform over empty cells strictly left of the wall.
     agent_pos = _sample_free_cell((grid[..., 0] == EMPTY) & (xs < split), gen)
@@ -151,25 +373,518 @@ def _reset_doorkey(params: EnvParams, n: int, gen: torch.Generator, device) -> E
     # (MiniGrid's DoorKey uses `width` here — replicated for parity).
     door_y = _randint(1, w - 2, n, gen, device)
     env = torch.arange(n, device=device)
-    grid[env, split.reshape(n), door_y] = torch.tensor([DOOR, YELLOW, LOCKED], dtype=torch.int8,
-                                                        device=device)
+    grid[env, split.reshape(n), door_y] = _cell(DOOR, YELLOW, LOCKED, device)
 
     # Yellow key: empty cell left of the wall, not the agent's cell.
-    on_agent = (xs == agent_pos[:, 0].reshape(n, 1, 1)) & (ys == agent_pos[:, 1].reshape(n, 1, 1))
-    key_pos = _sample_free_cell((grid[..., 0] == EMPTY) & (xs < split) & ~on_agent, gen)
-    grid[env, key_pos[:, 0], key_pos[:, 1]] = torch.tensor([KEY, YELLOW, 0], dtype=torch.int8,
-                                                           device=device)
-    return EnvState(grid, agent_pos, agent_dir, torch.zeros((n, 3), dtype=torch.int8, device=device),
-                    torch.zeros(n, dtype=torch.int32, device=device))
+    key_pos = _sample_free_cell(
+        (grid[..., 0] == EMPTY) & (xs < split) & ~_at(xs, ys, agent_pos), gen)
+    grid[env, key_pos[:, 0], key_pos[:, 1]] = _cell(KEY, YELLOW, 0, device)
+    return _state(grid, agent_pos, agent_dir)
+
+
+def _reset_fourrooms(params: EnvParams, n: int, gen: torch.Generator, device) -> EnvState:
+    """FourRooms: central cross walls with one gap per half-segment,
+    random goal cell, random agent position/direction."""
+    w, h = params.width, params.height
+    mx, my = w // 2, h // 2
+    grid = _base_grid(params, n, device, goal=False)
+    xs, ys = _coords(w, h, device)
+    grid = torch.where(((xs == mx) | (ys == my))[..., None], _cell(WALL, GREY, 0, device), grid)
+    # One gap per half of each central wall.
+    env = torch.arange(n, device=device)
+    empty = _cell(EMPTY, 0, 0, device)
+    grid[env, mx, _randint(1, my, n, gen, device)] = empty
+    grid[env, mx, _randint(my + 1, h - 1, n, gen, device)] = empty
+    grid[env, _randint(1, mx, n, gen, device), my] = empty
+    grid[env, _randint(mx + 1, w - 1, n, gen, device), my] = empty
+
+    free = grid[..., 0] == EMPTY
+    goal_pos = _sample_free_cell(free, gen)
+    grid[env, goal_pos[:, 0], goal_pos[:, 1]] = _cell(GOAL, GREEN, 0, device)
+    agent_pos = _sample_free_cell(free & ~_at(xs, ys, goal_pos), gen)
+    return _state(grid, agent_pos, _randint(0, 4, n, gen, device))
+
+
+def _reset_lavagap(params: EnvParams, n: int, gen: torch.Generator, device) -> EnvState:
+    """LavaGap: vertical lava strip spanning rows 1..h-2 at a random
+    column x ∈ [2, w-3], with one empty gap at a random row y ∈ [1, h-2];
+    agent fixed at (1,1) facing right, goal at (w-2, h-2) (upstream
+    minigrid `lavagap.py:_gen_grid`)."""
+    w, h = params.width, params.height
+    grid = _base_grid(params, n, device)
+    xs, ys = _coords(w, h, device)
+    gap_x = _randint(2, w - 2, n, gen, device)
+    gap_y = _randint(1, h - 1, n, gen, device)
+    lava_col = (xs == gap_x.reshape(n, 1, 1)) & (ys >= 1) & (ys <= h - 2)
+    grid = torch.where(lava_col[..., None], _cell(LAVA, RED, 0, device), grid)
+    grid[torch.arange(n, device=device), gap_x, gap_y] = _cell(EMPTY, 0, 0, device)
+    return _state(grid, *_fixed_start(n, device))
+
+
+def _reset_distshift(params: EnvParams, n: int, gen: torch.Generator, device) -> EnvState:
+    """DistShiftEnv: deterministic 9×7 layout — goal at (width-2, 1), a
+    3-cell lava strip at x ∈ [3, width-4] in ``strip_row``, agent (1, 1)
+    facing right (upstream minigrid/envs/distshift.py _gen_grid)."""
+    del gen
+    w, h = params.width, params.height
+    grid = np.zeros((w, h, 3), dtype=np.int8)
+    grid[..., 0] = EMPTY
+    grid[0, :, :] = grid[w - 1, :, :] = [WALL, GREY, 0]
+    grid[:, 0, :] = grid[:, h - 1, :] = [WALL, GREY, 0]
+    grid[w - 2, 1, :] = [GOAL, GREEN, 0]
+    grid[3:w - 3, params.strip_row, :] = [LAVA, RED, 0]
+    grid = torch.as_tensor(grid, device=device).expand(n, w, h, 3).clone()
+    return _state(grid, *_fixed_start(n, device))
+
+
+def _reset_redblue(params: EnvParams, n: int, gen: torch.Generator, device) -> EnvState:
+    """RedBlueDoorEnv: a size×size room centered in a 2size×size grid
+    (walls at x = size//2 and x = size//2 + size - 1), a CLOSED red door
+    at a random y on the left room wall, a closed blue door on the right
+    room wall, agent on a random free room cell with a random direction
+    (upstream redbluedoors.py _gen_grid)."""
+    size = params.height
+    lx, rx = size // 2, size // 2 + size - 1
+    grid = _base_grid(params, n, device, goal=False)
+    xs, ys = _coords(params.width, params.height, device)
+    grid = torch.where(((xs == lx) | (xs == rx))[..., None], _cell(WALL, GREY, 0, device), grid)
+    env = torch.arange(n, device=device)
+    grid[env, lx, _randint(1, size - 1, n, gen, device)] = _cell(DOOR, RED, CLOSED, device)
+    grid[env, rx, _randint(1, size - 1, n, gen, device)] = _cell(DOOR, BLUE, CLOSED, device)
+    room = (xs > lx) & (xs < rx) & (ys >= 1) & (ys <= size - 2)
+    agent_pos = _sample_free_cell((grid[..., 0] == EMPTY) & room, gen)
+    return _state(grid, agent_pos, _randint(0, 4, n, gen, device))
+
+
+def _reset_lockedroom(params: EnvParams, n: int, gen: torch.Generator, device) -> EnvState:
+    """LockedRoomEnv (size 19): vertical hallway walls at width//2 ± 2,
+    three room rows per side split at y = n·(height−1)//3, one door per
+    room at (wall, row+3); a uniformly chosen room is LOCKED and holds
+    the goal, the matching-color key sits in a different room, door
+    colors are a uniform permutation; the agent starts on a free hallway
+    cell (upstream minigrid/envs/lockedroom.py _gen_grid —
+    reconstructed)."""
+    w, h = params.width, params.height
+    lwall, rwall = w // 2 - 2, w // 2 + 2
+    grid = np.zeros((w, h, 3), dtype=np.int8)
+    grid[..., 0] = EMPTY
+    grid[0, :, :] = grid[w - 1, :, :] = [WALL, GREY, 0]
+    grid[:, 0, :] = grid[:, h - 1, :] = [WALL, GREY, 0]
+    grid[lwall, :, :] = grid[rwall, :, :] = [WALL, GREY, 0]
+    rooms = []  # (top_x, top_y, door_x, door_y) in upstream's order
+    for i in range(3):
+        j = i * (h - 1) // 3
+        grid[:lwall, j, :] = [WALL, GREY, 0]
+        grid[rwall:, j, :] = [WALL, GREY, 0]
+        rooms.append((0, j, lwall, j + 3))
+        rooms.append((rwall, j, rwall, j + 3))
+    grid = torch.as_tensor(grid, device=device).expand(n, w, h, 3).clone()
+    rooms = torch.as_tensor(rooms, device=device)
+    room_w, room_h = lwall + 1, h // 3 + 1
+    env = torch.arange(n, device=device)
+
+    def rand_pos(room_idx):
+        # upstream LockedRoom.rand_pos: uniform over the room interior
+        return (rooms[room_idx, 0] + _randint(1, room_w - 1, n, gen, device),
+                rooms[room_idx, 1] + _randint(1, room_h - 1, n, gen, device))
+
+    locked = _randint(0, 6, n, gen, device)
+    gx, gy = rand_pos(locked)
+    grid[env, gx, gy] = _cell(GOAL, GREEN, 0, device)
+    # Door colors: sequential draws without replacement == a permutation.
+    colors = torch.argsort(torch.rand((n, 6), generator=gen, device=device), dim=1)
+    for i in range(6):
+        state = torch.where(locked == i, LOCKED, CLOSED)
+        grid[env, rooms[i, 2], rooms[i, 3]] = _cell(DOOR, colors[:, i], state, device)
+    # Key of the locked door's color in a uniformly chosen OTHER room.
+    k0 = _randint(0, 5, n, gen, device)
+    kx, ky = rand_pos(k0 + (k0 >= locked).long())
+    grid[env, kx, ky] = _cell(KEY, colors[env, locked], 0, device)
+    # Agent on a free hallway cell.
+    xs, _ = _coords(w, h, device)
+    agent_pos = _sample_free_cell((grid[..., 0] == EMPTY) & (xs >= lwall) & (xs < rwall), gen)
+    return _state(grid, agent_pos, _randint(0, 4, n, gen, device))
+
+
+def _reset_crossing(params: EnvParams, n: int, gen: torch.Generator, device) -> EnvState:
+    """{Simple,Lava}CrossingS{s}N{n}: ``n`` wall/lava rivers on even rows/
+    columns with one opening each along a sampled room-to-room path
+    (upstream minigrid crossing.py: candidate rivers at every even
+    row/column in [2, size-3], shuffled, first ``n`` kept; openings placed
+    by walking a shuffled h/v move sequence through the room lattice)."""
+    w, h = params.width, params.height
+    k = params.num_crossings
+    grid = _base_grid(params, n, device)
+    xs, ys = _coords(w, h, device)
+    env = torch.arange(n, device=device)
+    cand = torch.arange(2, h - 2, 2, device=device)
+    cv = cand.numel()
+    if k > 2 * cv:
+        raise ValueError(f"num_crossings={k} too large for size {w}")
+
+    # Shuffle the 2·cv candidates (ids < cv vertical, else horizontal) and
+    # keep the first k; ascending candidate order == upstream's sort.
+    perm = torch.argsort(torch.rand((n, 2 * cv), generator=gen, device=device), dim=1)
+    sel = torch.zeros((n, 2 * cv), dtype=torch.bool, device=device)
+    sel.scatter_(1, perm[:, :k], True)
+    v_mask, h_mask = sel[:, :cv], sel[:, cv:]
+    nv = v_mask.sum(1)
+    col_river = torch.zeros((n, w), dtype=torch.bool, device=device)
+    col_river[:, cand] = v_mask
+    row_river = torch.zeros((n, h), dtype=torch.bool, device=device)
+    row_river[:, cand] = h_mask
+    vert = col_river[:, :, None] & (ys >= 1) & (ys <= h - 2)
+    horz = row_river[:, None, :] & (xs >= 1) & (xs <= w - 2)
+    obstacle = _cell(params.obstacle, GREY if params.obstacle == WALL else RED, 0, device)
+    grid = torch.where((vert | horz)[..., None], obstacle, grid)
+
+    # Room-lattice limits: [0, sorted selected rivers..., size-1].
+    big = 10 ** 6
+    limits_v = torch.zeros((n, cv + 2), dtype=torch.int64, device=device)
+    limits_v[:, 1:cv + 1] = torch.sort(torch.where(v_mask, cand, big), dim=1).values
+    limits_v[env, nv + 1] = h - 1
+    limits_h = torch.zeros((n, cv + 2), dtype=torch.int64, device=device)
+    limits_h[:, 1:cv + 1] = torch.sort(torch.where(h_mask, cand, big), dim=1).values
+    limits_h[env, k - nv + 1] = w - 1
+
+    # Path: nv horizontal moves (each crossing a vertical river) + the
+    # rest vertical, shuffled; one opening per move.
+    path_h = torch.argsort(torch.rand((n, k), generator=gen, device=device), dim=1) < nv[:, None]
+    room_i = torch.zeros(n, dtype=torch.int64, device=device)
+    room_j = torch.zeros(n, dtype=torch.int64, device=device)
+    for t in range(k):
+        is_h = path_h[:, t]
+        u = torch.rand(n, generator=gen, device=device)
+        lo_h, hi_h = limits_h[env, room_j] + 1, limits_h[env, room_j + 1]
+        lo_v, hi_v = limits_v[env, room_i] + 1, limits_v[env, room_i + 1]
+        j_h = lo_h + torch.minimum((u * (hi_h - lo_h).clamp_min(1)).long(),
+                                   (hi_h - lo_h).clamp_min(1) - 1)
+        i_v = lo_v + torch.minimum((u * (hi_v - lo_v).clamp_min(1)).long(),
+                                   (hi_v - lo_v).clamp_min(1) - 1)
+        oi = torch.where(is_h, limits_v[env, room_i + 1], i_v)
+        oj = torch.where(is_h, j_h, limits_h[env, room_j + 1])
+        grid[env, oi, oj] = _cell(EMPTY, 0, 0, device)
+        room_i = room_i + is_h.long()
+        room_j = room_j + (~is_h).long()
+    return _state(grid, *_fixed_start(n, device))
+
+
+def _reset_dynobs(params: EnvParams, n: int, gen: torch.Generator, device) -> EnvState:
+    """DynamicObstaclesEnv: empty room with the goal bottom-right, agent
+    at (1,1) facing right (Random variants: uniform pos/dir), and
+    ``n_obstacles`` blue balls on distinct free cells (upstream
+    dynamicobstacles.py _gen_grid; sequential place_obj → uniform over
+    remaining free cells, agent cell excluded)."""
+    grid = _base_grid(params, n, device)
+    if params.random_start:
+        pos = _sample_free_cell(grid[..., 0] == EMPTY, gen)
+        agent_dir = _randint(0, 4, n, gen, device)
+    else:
+        pos, agent_dir = _fixed_start(n, device)
+    xs, ys = _coords(params.width, params.height, device)
+    not_agent = ~_at(xs, ys, pos)
+    env = torch.arange(n, device=device)
+    for _ in range(params.n_obstacles):
+        bp = _sample_free_cell((grid[..., 0] == EMPTY) & not_agent, gen)
+        grid[env, bp[:, 0], bp[:, 1]] = _cell(BALL, BLUE, 0, device)
+    return _state(grid, pos, agent_dir)
+
+
+def _reset_unlock(params: EnvParams, n: int, gen: torch.Generator, device) -> EnvState:
+    """UnlockEnv: RoomGrid(room_size=6, 1×2 rooms) → an 11×6 grid split by
+    a wall at x=5 with one LOCKED random-color door (y ∈ [1, 4]); a key of
+    the door's color and the agent (random dir) placed on random free
+    cells of the left room. No goal square — success is toggling the door
+    open (upstream minigrid/envs/unlock.py). UnlockPickup (``pickup_box``)
+    adds a random-color box in the right room; ObstructedMaze-1Dl
+    (``pickup_ball``) the target blue ball there; ``blocked_door`` drops a
+    ball directly left of the locked door (never of the target's color);
+    ``key_in_box`` hides the key in a random-color box, its state channel
+    1 + the key's color."""
+    w, h = params.width, params.height
+    grid = _base_grid(params, n, device, goal=False)
+    xs, ys = _coords(w, h, device)
+    grid = torch.where((xs == 5)[..., None], _cell(WALL, GREY, 0, device), grid)
+    env = torch.arange(n, device=device)
+    door_y = _randint(1, h - 1, n, gen, device)
+    color = _randint(0, 6, n, gen, device)
+    grid[env, 5, door_y] = _cell(DOOR, color, LOCKED, device)
+    left_room = (xs >= 1) & (xs <= 4) & (ys >= 1) & (ys <= 4)
+    right_room = (xs >= 6) & (xs <= 9) & (ys >= 1) & (ys <= 4)
+
+    if params.success == "pickup_box":
+        pos = _sample_free_cell((grid[..., 0] == EMPTY) & right_room, gen)
+        grid[env, pos[:, 0], pos[:, 1]] = _cell(BOX, _randint(0, 6, n, gen, device), 0, device)
+    if params.success == "pickup_ball":
+        pos = _sample_free_cell((grid[..., 0] == EMPTY) & right_room, gen)
+        grid[env, pos[:, 0], pos[:, 1]] = _cell(BALL, BLUE, 0, device)
+    if params.blocked_door:
+        if params.target_color >= 0:
+            c0 = _randint(0, 5, n, gen, device)
+            ball_color = c0 + (c0 >= params.target_color).long()
+        else:
+            ball_color = _randint(0, 6, n, gen, device)
+        grid[env, 4, door_y] = _cell(BALL, ball_color, 0, device)
+
+    key_pos = _sample_free_cell((grid[..., 0] == EMPTY) & left_room, gen)
+    if params.key_in_box:
+        key_cell = _cell(BOX, _randint(0, 6, n, gen, device), color + 1, device)
+    else:
+        key_cell = _cell(KEY, color, 0, device)
+    grid[env, key_pos[:, 0], key_pos[:, 1]] = key_cell
+    agent_pos = _sample_free_cell((grid[..., 0] == EMPTY) & left_room, gen)
+    return _state(grid, agent_pos, _randint(0, 4, n, gen, device))
+
+
+def _minimax_reach(wh: torch.Tensor, wv: torch.Tensor) -> torch.Tensor:
+    """The least time at which every room of a cols×rows room graph is
+    reachable from room (0, 0): ``wh`` [N, cols-1, rows] and ``wv``
+    [N, cols, rows-1] give the time each connection opens (−1 open from
+    the start, inf never). A room's time is the minimax path weight from
+    room (0, 0), relaxed cols·rows times (the graph-diameter bound);
+    returns [N] (inf where some room is never reachable)."""
+    n, cols, rows = wv.shape[0], wv.shape[1], wh.shape[2]
+    d = torch.full((n, cols, rows), float("inf"), device=wh.device)
+    d[:, 0, 0] = -1.0
+    for _ in range(cols * rows):
+        nd = d.clone()
+        nd[:, 1:, :] = torch.minimum(nd[:, 1:, :], torch.maximum(d[:, :-1, :], wh))
+        nd[:, :-1, :] = torch.minimum(nd[:, :-1, :], torch.maximum(d[:, 1:, :], wh))
+        nd[:, :, 1:] = torch.minimum(nd[:, :, 1:], torch.maximum(d[:, :, :-1], wv))
+        nd[:, :, :-1] = torch.minimum(nd[:, :, :-1], torch.maximum(d[:, :, 1:], wv))
+        d = nd
+    return d.amax(dim=(1, 2))
+
+
+def _reset_keycorridor(params: EnvParams, n: int, gen: torch.Generator, device) -> EnvState:
+    """KeyCorridorEnv: RoomGrid(room_size=S, 3 columns × R rows). The
+    middle column's horizontal separators are removed (a corridor), a
+    LOCKED random-color door on the left wall of a random right-column
+    room hides a random-color ball, the matching key lies in a random
+    left-column room, the agent starts in the middle room (row R//2,
+    random cell/dir), and doors are added at random walls until every
+    room is reachable from room (0, 0) — upstream keycorridor.py
+    _gen_grid + roomgrid.py connect_all. The JAX package's bounded connect
+    loop (``n < 256``) runs here on all 256 proposals at once: a proposal
+    is applied when its wall is in range, touches no wall of the locked
+    room, is not open yet and was not proposed before, and comes no later
+    than the first proposal after which every room is reachable."""
+    s, r = params.max_room_size, params.min_rooms
+    w, h = params.width, params.height
+    grid = np.zeros((w, h, 3), dtype=np.int8)
+    grid[..., 0] = EMPTY
+    for i in range(4):
+        grid[i * (s - 1), :, :] = [WALL, GREY, 0]
+    for j in range(r + 1):
+        grid[:, j * (s - 1), :] = [WALL, GREY, 0]
+    for j in range(1, r):  # remove_wall(1, j, 3): open the corridor
+        grid[s:2 * (s - 1), j * (s - 1), :] = [EMPTY, 0, 0]
+    grid = torch.as_tensor(grid, device=device).expand(n, w, h, 3).clone()
+    xs, ys = _coords(w, h, device)
+    env = torch.arange(n, device=device)
+
+    def room_interior(i, j):
+        i = torch.as_tensor(i, device=device).reshape(-1, 1, 1)
+        j = torch.as_tensor(j, device=device).reshape(-1, 1, 1)
+        return ((xs > i * (s - 1)) & (xs < (i + 1) * (s - 1))
+                & (ys > j * (s - 1)) & (ys < (j + 1) * (s - 1)))
+
+    # Locked door + ball room (right column, random row).
+    room_idx = _randint(0, r, n, gen, device)
+    door_color = _randint(0, 6, n, gen, device)
+    door_y = room_idx * (s - 1) + _randint(1, s - 1, n, gen, device)
+    grid[env, 2 * (s - 1), door_y] = _cell(DOOR, door_color, LOCKED, device)
+    ball = _sample_free_cell((grid[..., 0] == EMPTY) & room_interior(2, room_idx), gen)
+    grid[env, ball[:, 0], ball[:, 1]] = _cell(BALL, _randint(0, 6, n, gen, device), 0, device)
+    # Matching key in a random left-column room.
+    key = _sample_free_cell(
+        (grid[..., 0] == EMPTY) & room_interior(0, _randint(0, r, n, gen, device)), gen)
+    grid[env, key[:, 0], key[:, 1]] = _cell(KEY, door_color, 0, device)
+    # Agent in the middle room of the corridor.
+    agent_pos = _sample_free_cell((grid[..., 0] == EMPTY) & room_interior(1, r // 2), gen)
+    agent_dir = _randint(0, 4, n, gen, device)
+
+    # connect_all(): every proposal (room (i, j), wall d, door offset and
+    # color) drawn at once. Connections are numbered: h(i, j) joins rooms
+    # (i, j) and (i+1, j) (ids i·R + j), v(i, j) joins (i, j) and (i, j+1)
+    # (ids 2R + i·(R-1) + j); id E is a sink for walls out of range.
+    p = CONNECT_PROPOSALS
+    e = 2 * r + 3 * (r - 1)
+    pi, pj = _randint(0, 3, (n, p), gen, device), _randint(0, r, (n, p), gen, device)
+    pd = _randint(0, 4, (n, p), gen, device)
+    off = _randint(1, s - 1, (n, p), gen, device)
+    pcolor = _randint(0, 6, (n, p), gen, device)
+    dvec = torch.as_tensor(DIR_TO_VEC, device=device)[pd]
+    ni, nj = pi + dvec[..., 0], pj + dvec[..., 1]
+    in_range = (ni >= 0) & (ni < 3) & (nj >= 0) & (nj < r)
+    edge = torch.where(pd == 0, pi * r + pj,
+           torch.where(pd == 2, (pi - 1) * r + pj,
+           torch.where(pd == 1, 2 * r + pi * (r - 1) + pj, 2 * r + pi * (r - 1) + pj - 1)))
+    locked_room = (((pi == 2) & (pj == room_idx[:, None]))
+                   | ((ni == 2) & (nj == room_idx[:, None])))
+    # Open from the start: the corridor and the locked door.
+    open0 = torch.zeros((n, e + 1), dtype=torch.bool, device=device)
+    open0[:, 2 * r + (r - 1):2 * r + 2 * (r - 1)] = True
+    open0[env, r + room_idx] = True
+    edge = torch.where(in_range, edge, e)
+    ok = in_range & ~locked_room & ~open0.gather(1, edge)
+    t = torch.arange(p, device=device).expand(n, p)
+    first = torch.full((n, e + 1), p, dtype=torch.int64, device=device)
+    first.scatter_reduce_(1, torch.where(ok, edge, e), t, "amin")
+    valid = ok & (first.gather(1, edge) == t)
+    # Each connection's opening time: -1 from the start, its first valid
+    # proposal, or never (inf).
+    when = torch.where(first[:, :e] < p, first[:, :e].float(), float("inf"))
+    when = torch.where(open0[:, :e], -1.0, when)
+    wh = when[:, :2 * r].reshape(n, 2, r)
+    wv = when[:, 2 * r:].reshape(n, 3, r - 1)
+    last = _minimax_reach(wh, wv).clamp(max=p - 1)
+    applied = valid & (t <= last[:, None])
+    # Doors of the applied proposals (distinct walls, so distinct cells).
+    x = torch.where(pd == 0, (pi + 1) * (s - 1),
+                    torch.where(pd == 2, pi * (s - 1), pi * (s - 1) + off))
+    y = torch.where(pd == 1, (pj + 1) * (s - 1),
+                    torch.where(pd == 3, pj * (s - 1), pj * (s - 1) + off))
+    flat = torch.where(applied, x * h + y, w * h)
+    cells = torch.cat([grid.reshape(n, w * h, 3),
+                       torch.zeros((n, 1, 3), dtype=torch.int8, device=device)], dim=1)
+    cells[env[:, None], flat] = _cell(DOOR, pcolor, CLOSED, device)
+    grid = cells[:, :w * h].reshape(n, w, h, 3)
+    return _state(grid, agent_pos, agent_dir)
+
+
+def _multiroom_trials(params: EnvParams, n: int, gen: torch.Generator, device):
+    """All 64 chain-placement trials of the MultiRoom generator at once.
+
+    Mirrors upstream ``MultiRoomEnv._placeRoom`` as the JAX package's
+    ``_multiroom_trial`` does: a greedy chain where each next room gets up
+    to 8 (exit-door, size, offset) proposals, checked for bounds (the
+    asymmetric ``> width`` / ``>= height`` quirk included) and overlap
+    against all rooms but the immediately previous one; the first proposal
+    that fits is committed. The 8 proposals of a room are evaluated
+    together. Returns (count [N, T], rooms [N, T, Nmax, 4] as (topX, topY,
+    sizeX, sizeY), doors [N, T, Nmax, 2])."""
+    w, h = params.width, params.height
+    n_max, s_max = params.max_rooms, params.max_room_size
+    tr, a = MULTIROOM_TRIALS, MULTIROOM_PROPOSALS
+    entry = _randint(0, w - 2, (n, tr, 2), gen, device)
+    sx = _randint(4, s_max + 1, (n, tr), gen, device)
+    sy = _randint(4, s_max + 1, (n, tr), gen, device)
+    ok0 = (entry[..., 0] + sx <= w) & (entry[..., 1] + sy < h)
+    rooms = torch.zeros((n, tr, n_max, 4), dtype=torch.int64, device=device)
+    rooms[:, :, 0] = torch.stack([entry[..., 0], entry[..., 1], sx, sy], dim=-1)
+    walls = torch.zeros((n, tr, n_max), dtype=torch.int64, device=device)
+    walls[:, :, 0] = 2  # entryDoorWall=2
+    doors = torch.zeros((n, tr, n_max, 2), dtype=torch.int64, device=device)
+    doors[:, :, 0] = entry
+    count = ok0.long()
+    for i in range(1, n_max):
+        ptx, pty, psx, psy = (rooms[:, :, i - 1, k, None] for k in range(4))
+        # exit wall: uniform over sorted({0,1,2,3} - {entry wall}).
+        rw = _randint(0, 3, (n, tr, a), gen, device)
+        exit_wall = rw + (rw >= walls[:, :, i - 1, None]).long()
+        next_wall = (exit_wall + 2) % 4
+        # exit door on the chosen wall of the previous room.
+        dx = ptx + _rand_between(torch.ones_like(rw), (psx - 1).expand_as(rw), gen)
+        dy = pty + _rand_between(torch.ones_like(rw), (psy - 1).expand_as(rw), gen)
+        ex = torch.where(exit_wall == 0, ptx + psx - 1, torch.where(exit_wall == 2, ptx, dx))
+        ey = torch.where(exit_wall == 1, pty + psy - 1, torch.where(exit_wall == 3, pty, dy))
+        # next room size + top-left per its entry wall (upstream ranges:
+        # _rand_int(c - size + 2, c) → [c-size+2, c-1]).
+        nsx = _randint(4, s_max + 1, (n, tr, a), gen, device)
+        nsy = _randint(4, s_max + 1, (n, tr, a), gen, device)
+        rand_tx = _rand_between(ex - nsx + 2, ex, gen)
+        rand_ty = _rand_between(ey - nsy + 2, ey, gen)
+        ntx = torch.where(next_wall == 0, ex - nsx + 1, torch.where(next_wall == 2, ex, rand_tx))
+        nty = torch.where(next_wall == 1, ey - nsy + 1, torch.where(next_wall == 3, ey, rand_ty))
+        ok = (ntx >= 0) & (nty >= 0) & (ntx + nsx <= w) & (nty + nsy < h)
+        if i > 1:
+            # overlap vs all rooms but the previous (asymmetric < / <= kept).
+            o = rooms[:, :, None, :i - 1]  # [N, T, 1, i-1, 4]
+            otx, oty, osx, osy = o[..., 0], o[..., 1], o[..., 2], o[..., 3]
+            c = lambda v: v[..., None]  # noqa: E731
+            non_overlap = ((c(ntx) + c(nsx) < otx) | (otx + osx <= c(ntx))
+                           | (c(nty) + c(nsy) < oty) | (oty + osy <= c(nty)))
+            ok = ok & non_overlap.all(-1)
+        pick = ok.to(torch.uint8).argmax(-1, keepdim=True)  # the first that fits
+        commit = ok.any(-1) & (count == i)
+        take = lambda v: v.gather(-1, pick)[..., 0]  # noqa: E731
+        new_room = torch.stack([take(ntx), take(nty), take(nsx), take(nsy)], dim=-1)
+        rooms[:, :, i] = torch.where(commit[..., None], new_room, rooms[:, :, i])
+        walls[:, :, i] = torch.where(commit, take(next_wall), walls[:, :, i])
+        doors[:, :, i] = torch.where(commit[..., None],
+                                     torch.stack([take(ex), take(ey)], dim=-1), doors[:, :, i])
+        count = torch.where(commit, i + 1, count)
+    return count, rooms, doors
+
+
+def _reset_multiroom(params: EnvParams, n: int, gen: torch.Generator, device) -> EnvState:
+    """MultiRoom-N{n}[-S{s}]: a chain of connected rooms with colored doors
+    (upstream minigrid multiroom.py; 25×25 grid, no outer border — the
+    rooms' own walls enclose the agent). The JAX package's keep-best loop
+    (at most 64 trials, stopping at the first with every room) keeps the
+    first trial with the most rooms; the 64 trials run here together and
+    the same one is kept."""
+    w, h = params.width, params.height
+    n_max = params.max_rooms
+    counts, all_rooms, all_doors = _multiroom_trials(params, n, gen, device)
+    env = torch.arange(n, device=device)
+    best = counts.argmax(dim=1)  # the first trial of the largest count
+    count, rooms, doors = counts[env, best], all_rooms[env, best], all_doors[env, best]
+
+    # Render: empty grid (no border), room wall rectangles in placement
+    # order, each room's entry door set right after its walls.
+    grid = torch.zeros((n, w, h, 3), dtype=torch.int8, device=device)
+    grid[..., 0] = EMPTY
+    xs, ys = _coords(w, h, device)
+    wall = _cell(WALL, GREY, 0, device)
+
+    def inside(room):
+        tx, ty, sx, sy = (room[:, k].reshape(n, 1, 1) for k in range(4))
+        return (xs >= tx) & (xs < tx + sx) & (ys >= ty) & (ys < ty + sy), (tx, ty, sx, sy)
+
+    prev_color = None
+    for i in range(n_max):
+        ins, (tx, ty, sx, sy) = inside(rooms[:, i])
+        border = ins & ((xs == tx) | (xs == tx + sx - 1) | (ys == ty) | (ys == ty + sy - 1))
+        valid = count > i
+        grid = torch.where((border & valid.reshape(n, 1, 1))[..., None], wall, grid)
+        if i > 0:
+            # door color ≠ previous door's color (uniform over the rest).
+            if prev_color is None:
+                color = _randint(0, 6, n, gen, device)
+            else:
+                color = _randint(0, 5, n, gen, device)
+                color = color + (color >= prev_color).long()
+            dx, dy = doors[:, i, 0], doors[:, i, 1]
+            grid[env, dx, dy] = torch.where(valid[:, None], _cell(DOOR, color, CLOSED, device),
+                                            grid[env, dx, dy])
+            prev_color = color
+
+    # Agent: uniform over empty cells of the first room; goal: uniform over
+    # empty cells of the last room, not the agent's cell.
+    empty = grid[..., 0] == EMPTY
+    agent_pos = _sample_free_cell(inside(rooms[:, 0])[0] & empty, gen)
+    agent_dir = _randint(0, 4, n, gen, device)
+    last = rooms[env, (count - 1).clamp_min(0)]
+    goal = _sample_free_cell(inside(last)[0] & empty & ~_at(xs, ys, agent_pos), gen)
+    grid[env, goal[:, 0], goal[:, 1]] = _cell(GOAL, GREEN, 0, device)
+    return _state(grid, agent_pos, agent_dir)
+
+
+_RESETS = {
+    "empty": _reset_empty, "doorkey": _reset_doorkey, "fourrooms": _reset_fourrooms,
+    "lavagap": _reset_lavagap, "distshift": _reset_distshift, "redblue": _reset_redblue,
+    "lockedroom": _reset_lockedroom, "crossing": _reset_crossing, "dynobs": _reset_dynobs,
+    "unlock": _reset_unlock, "keycorridor": _reset_keycorridor, "multiroom": _reset_multiroom,
+}
 
 
 def reset(params: EnvParams, n: int, gen: torch.Generator, device) -> EnvState:
     """Fresh states for ``n`` environments."""
-    if params.kind == "empty":
-        return _reset_empty(params, n, gen, device)
-    if params.kind == "doorkey":
-        return _reset_doorkey(params, n, gen, device)
-    raise ValueError(params.kind)
+    if params.kind not in _RESETS:
+        raise ValueError(params.kind)
+    return _RESETS[params.kind](params, n, gen, device)
 
 
 def select(mask: torch.Tensor, a: EnvState, b: EnvState) -> EnvState:
@@ -179,6 +894,11 @@ def select(mask: torch.Tensor, a: EnvState, b: EnvState) -> EnvState:
 
     return EnvState(*(pick(getattr(a, f.name), getattr(b, f.name))
                       for f in dataclasses.fields(EnvState)))
+
+
+def take(state: EnvState, start: int, stop: int) -> EnvState:
+    """Envs ``start:stop`` of ``state`` (views, no copy)."""
+    return EnvState(*(getattr(state, f.name)[start:stop] for f in dataclasses.fields(EnvState)))
 
 
 # ---------------------------------------------------------------------------
@@ -192,16 +912,96 @@ def _can_overlap(cell: torch.Tensor) -> torch.Tensor:
             | ((obj == DOOR) & (state == OPEN)))
 
 
-def step(params: EnvParams, state: EnvState, action: torch.Tensor):
+_NEIGHBORHOOD = [(dx, dy) for dx in (-1, 0, 1) for dy in (-1, 0, 1)]
+
+
+def obstacle_gumbels(params: EnvParams, n: int, gen: torch.Generator, device) -> torch.Tensor:
+    """One step's Dynamic-Obstacles draws: [N, n_obstacles, 9] standard
+    Gumbel noise, one per ball and cell of its 3×3 neighborhood (x-major,
+    as the JAX package's ``jax.random.categorical`` draws it)."""
+    u = torch.rand((n, params.n_obstacles, len(_NEIGHBORHOOD)), generator=gen, device=device)
+    return -torch.log(-torch.log(u.clamp_min(float(np.finfo(np.float32).tiny))))
+
+
+def _move_obstacles(params: EnvParams, state: EnvState, gumbels: torch.Tensor) -> torch.Tensor:
+    """Dynamic-Obstacles pre-step: each ball moves to a uniformly random
+    free cell of its 3×3 neighborhood (own cell and the agent's excluded,
+    like upstream's ``place_obj(top=old-1, size=(3,3))`` rejection loop);
+    a fully blocked ball stays. Balls move one after another in x-major
+    order of their cells before the step, each seeing the earlier balls'
+    new positions (upstream dynamicobstacles.py step()). The pick is the
+    argmax of ``gumbels`` over the free cells. Returns the new grid."""
+    grid = state.grid.clone()
+    n, w, h = grid.shape[:3]
+    device = grid.device
+    env = torch.arange(n, device=device)
+    # Ball cells in x-major order (cell 0 for missing balls, as the JAX
+    # package's nonzero(size=n_obstacles, fill_value=0) gives).
+    is_ball = (grid[..., 0] == BALL).reshape(n, -1)
+    order = torch.argsort((~is_ball).to(torch.uint8), dim=1, stable=True)[:, :params.n_obstacles]
+    have = torch.arange(params.n_obstacles, device=device) < is_ball.sum(1, keepdim=True)
+    ball_idx = torch.where(have, order, 0)
+    offs = torch.as_tensor(_NEIGHBORHOOD, device=device)
+    ax, ay = state.agent_pos[:, 0, None], state.agent_pos[:, 1, None]
+    empty, ball = _cell(EMPTY, 0, 0, device), _cell(BALL, BLUE, 0, device)
+    for i in range(params.n_obstacles):
+        bx, by = ball_idx[:, i] // h, ball_idx[:, i] % h
+        raw_x, raw_y = bx[:, None] + offs[:, 0], by[:, None] + offs[:, 1]
+        cx, cy = raw_x.clamp(0, w - 1), raw_y.clamp(0, h - 1)
+        valid = ((raw_x == cx) & (raw_y == cy) & (grid[env[:, None], cx, cy, 0] == EMPTY)
+                 & ~((cx == ax) & (cy == ay)))
+        any_valid = valid.any(1)
+        pick = torch.where(valid, gumbels[:, i], float("-inf")).argmax(1)
+        nx = torch.where(any_valid, cx[env, pick], bx)
+        ny = torch.where(any_valid, cy[env, pick], by)
+        grid[env, bx, by] = torch.where(any_valid[:, None], empty, grid[env, bx, by])
+        grid[env, nx, ny] = ball
+    return grid
+
+
+def _door_open(grid: torch.Tensor, color: int) -> torch.Tensor:
+    """[N]: some door of ``color`` is open."""
+    return ((grid[..., 0] == DOOR) & (grid[..., 1] == color) & (grid[..., 2] == OPEN)).flatten(1).any(1)
+
+
+def _time_reward(step_count: torch.Tensor, max_steps: int) -> torch.Tensor:
+    """``1 - 0.9 * step_count / max_steps`` in float32 as the JAX package's
+    compiled step computes it: ``1 - step_count * k`` with ``k =
+    f32(0.9) / f32(max_steps)``, rounded once (a fused multiply-subtract),
+    which float64 holds exactly."""
+    k = float(np.float32(0.9) / np.float32(max_steps))
+    return (1.0 - step_count.double() * k).float()
+
+
+def step(params: EnvParams, state: EnvState, action: torch.Tensor,
+         gumbels: Optional[torch.Tensor] = None, gen: Optional[torch.Generator] = None):
     """One transition of every env. Returns (state, reward f32 [N],
-    terminated bool [N], truncated bool [N])."""
+    terminated bool [N], truncated bool [N]).
+
+    Dynamic-Obstacles moves its balls first, by the [N, n_obstacles, 9]
+    Gumbel draws ``gumbels`` (:func:`obstacle_gumbels`), drawn from ``gen``
+    when not given."""
     device = state.grid.device
     n = state.grid.shape[0]
     env = torch.arange(n, device=device)
     action = action.long()
     step_count = state.step_count + 1
-
     dir_vec = torch.as_tensor(DIR_TO_VEC, device=device)
+
+    if params.kind == "dynobs":
+        # Upstream wraps out-of-range actions to 0 (the 3-action space).
+        action = torch.where(action >= params.num_actions, 0, action)
+        # Collision check uses the PRE-move grid: forward into ANY
+        # occupied non-goal cell (walls included — upstream quirk)
+        # terminates with −1 after the normal transition.
+        pre = state.agent_pos + dir_vec[state.agent_dir]
+        pre_obj = state.grid[env, pre[:, 0].clamp(0, params.width - 1),
+                             pre[:, 1].clamp(0, params.height - 1), 0]
+        not_clear = (pre_obj != EMPTY) & (pre_obj != GOAL)
+        if gumbels is None:
+            gumbels = obstacle_gumbels(params, n, gen, device)
+        state = dataclasses.replace(state, grid=_move_obstacles(params, state, gumbels))
+
     agent_dir = state.agent_dir
     fwd = state.agent_pos + dir_vec[agent_dir]
     fx = fwd[:, 0].clamp(0, params.width - 1)
@@ -218,9 +1018,8 @@ def step(params: EnvParams, state: EnvState, action: torch.Tensor):
     new_pos = torch.where(moves[:, None], fwd, state.agent_pos)
     reached_goal = (action == A_FORWARD) & (fobj == GOAL)
     hit_lava = (action == A_FORWARD) & (fobj == LAVA)
-    terminated = reached_goal | hit_lava
-    time_reward = 1.0 - 0.9 * (step_count.float() / params.max_steps)
-    reward = torch.where(reached_goal, time_reward, torch.zeros_like(time_reward))
+    time_reward = _time_reward(step_count, params.max_steps)
+    zero = torch.zeros_like(time_reward)
 
     # -- pickup / drop
     carrying_none = state.carrying[:, 0] == 0
@@ -252,6 +1051,42 @@ def step(params: EnvParams, state: EnvState, action: torch.Tensor):
                                 torch.where(does_toggle_box[:, None], box_contents, fwd_cell))))
     grid = state.grid.clone()
     grid[env, fx, fy] = new_fwd_cell
+
+    if params.success == "open_door":
+        # Unlock: a toggle that leaves the door open terminates with the
+        # time-scaled reward; there is no goal square (upstream unlock.py).
+        won = does_toggle & (new_door_state == OPEN)
+        terminated = won | hit_lava
+    elif params.success == "pickup_box":
+        # UnlockPickup: picking the box up (upstream unlockpickup.py).
+        won = does_pickup & (fobj == BOX)
+        terminated = won | hit_lava
+    elif params.success == "pickup_ball":
+        # KeyCorridor / ObstructedMaze: picking the target ball up;
+        # ``target_color`` tells it from ObstructedMaze's door blocker.
+        won = does_pickup & (fobj == BALL)
+        if params.target_color >= 0:
+            won = won & (fcol == params.target_color)
+        terminated = won | hit_lava
+    elif params.success == "red_then_blue":
+        # RedBlueDoors (upstream redbluedoors.py step()): the episode ends
+        # whenever the blue door is open after the transition — rewarded
+        # iff the red door was open BEFORE it; opening red while blue was
+        # already open also terminates with 0.
+        red_before, blue_before = _door_open(state.grid, RED), _door_open(state.grid, BLUE)
+        red_after, blue_after = _door_open(grid, RED), _door_open(grid, BLUE)
+        won = blue_after & red_before
+        terminated = won | (blue_after & ~red_before) | (red_after & ~red_before & blue_before)
+    else:
+        won = reached_goal
+        terminated = reached_goal | hit_lava
+    reward = torch.where(won, time_reward, zero)
+
+    if params.kind == "dynobs":
+        # Forward into a pre-move-occupied non-goal cell → −1, episode over.
+        collided = (action == A_FORWARD) & not_clear
+        terminated = terminated | collided
+        reward = torch.where(collided, torch.full_like(reward, -1.0), reward)
 
     carrying = torch.where(does_pickup[:, None], fwd_cell,
                            torch.where(does_drop[:, None], torch.zeros_like(fwd_cell),
@@ -377,6 +1212,38 @@ def render_rgb(params: EnvParams, grid: torch.Tensor, agent_pos: torch.Tensor,
     return img.to(torch.uint8)
 
 
+# ---------------------------------------------------------------------------
+# Text descriptions (host numpy)
+# ---------------------------------------------------------------------------
+
+
+def describe_rollout(grids: np.ndarray, agent_pos: np.ndarray, agent_dir: np.ndarray) -> list[str]:
+    """Descriptions for a whole rollout, flattened t-major to match the
+    training batch layout ([T, N] → index t·N + n).
+
+    ``grids`` is one [N, W, H, 3] snapshot (not per-step): the description's
+    object list is the first 3 non-empty cells in x-major scan order, which
+    on any bordered MiniGrid grid are the static border walls at
+    (0,0),(0,1),(0,2) — so any snapshot of the same episode yields the
+    identical list the reference computes per step
+    (`clip_ppo_minigrid.py:164-211`). The grid scan therefore runs once
+    per env (N), not once per sample (T·N).
+
+    Known approximation, the JAX package's own and kept for parity: where
+    the suffix varies across episodes (MultiRoom, whose grid has no
+    border; GoToDoor), every step of the rollout takes its env's suffix
+    from this last snapshot, so the steps before a mid-rollout autoreset
+    carry the next episode's suffix.
+    """
+    t, n = agent_dir.shape
+    grids = np.asarray(grids)
+    suffixes = [_objects_suffix(grids[i]) for i in range(n)]
+    agent_pos = np.asarray(agent_pos).reshape(t * n, 2)
+    agent_dir = np.asarray(agent_dir).reshape(t * n)
+    return [f"agent at ({int(agent_pos[i][0])},{int(agent_pos[i][1])}) "
+            f"facing {DIR_NAMES[int(agent_dir[i])]}" + suffixes[i % n] for i in range(t * n)]
+
+
 def _objects_suffix(grid: np.ndarray, max_objects: int = 3) -> str:
     """", objects: ..." suffix from one grid's first non-empty cells."""
     objs = []
@@ -389,3 +1256,15 @@ def _objects_suffix(grid: np.ndarray, max_objects: int = 3) -> str:
                 if len(objs) >= max_objects:
                     return f", objects: {', '.join(objs)}"
     return f", objects: {', '.join(objs)}" if objs else ""
+
+
+def describe_states(grids: np.ndarray, agent_pos: np.ndarray, agent_dir: np.ndarray,
+                    max_objects: int = 3) -> list[str]:
+    """Symbolic text descriptions from batched env state (host-side), the
+    reference's `_get_symbolic_descriptions` (`clip_ppo_minigrid.py:164-211`):
+    agent position/direction plus the first ``max_objects`` non-empty cells
+    in x-major scan order."""
+    grids, agent_pos, agent_dir = np.asarray(grids), np.asarray(agent_pos), np.asarray(agent_dir)
+    return [f"agent at ({int(agent_pos[b][0])},{int(agent_pos[b][1])}) "
+            f"facing {DIR_NAMES[int(agent_dir[b])]}" + _objects_suffix(grids[b], max_objects)
+            for b in range(grids.shape[0])]

@@ -7,14 +7,21 @@ observation to the host.
 
 Autoreset is *same-step*: the post-done observation is the next episode's
 first observation, and the final return/length surface through the info
-tensors (RecordEpisodeStatistics semantics). Fresh states are drawn for
+tensors (RecordEpisodeStatistics semantics). A fresh state is ready for
 every env on every step and selected where an episode ended, so the step
-never asks the host whether any episode ended.
+never asks the host whether any episode ended. The rollout makes them in
+bulk: :meth:`TorchVectorEnv.prepare_resets` resets T·N envs in one batched
+call before a rollout of T steps, and step t takes its N fresh states from
+that bank by a view. A reset costs the same launches at any batch size, so
+the layouts whose generators run many launches (MultiRoom's trials,
+KeyCorridor's connect loop) cost them once a rollout and not once a step.
+A step of a state with no bank draws its N fresh states itself.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -29,6 +36,10 @@ class VecState:
     env: minigrid_core.EnvState
     episode_return: torch.Tensor  # [N] float32 running return
     episode_length: torch.Tensor  # [N] int32 running length
+    # Fresh states for the steps ahead (:meth:`TorchVectorEnv.prepare_resets`):
+    # [K·N] states, step k of the K taking envs k·N .. (k+1)·N; None once used.
+    reset_bank: Optional[minigrid_core.EnvState] = None
+    reset_step: int = 0
 
 
 class TorchVectorEnv:
@@ -78,16 +89,35 @@ class TorchVectorEnv:
         )
         return state, self.observe_fn(state)
 
+    def prepare_resets(self, state: VecState, num_steps: int, gen: torch.Generator) -> VecState:
+        """``state`` with a bank of fresh states for its next ``num_steps``
+        steps, made by one batched reset of num_steps·N envs."""
+        bank = minigrid_core.reset(self.params, num_steps * self.num_envs, gen, self.device)
+        return dataclasses.replace(state, reset_bank=bank, reset_step=0)
+
+    def _fresh(self, state: VecState, gen: torch.Generator):
+        """This step's N fresh states and the bank left for the next."""
+        bank, n = state.reset_bank, self.num_envs
+        if bank is None:
+            return minigrid_core.reset(self.params, n, gen, self.device), None
+        k = state.reset_step
+        fresh = minigrid_core.take(bank, k * n, (k + 1) * n)
+        return fresh, (bank if (k + 2) * n <= bank.grid.shape[0] else None)
+
     def step_fn(self, state: VecState, actions: torch.Tensor, gen: torch.Generator,
-                small_obs: bool = False):
+                small_obs: bool = False, draws: Optional[torch.Tensor] = None):
         """Returns (state, obs, reward, terminated, truncated, info) with
         ``info`` holding done_mask / episode_return / episode_length; with
-        ``small_obs`` the obs are the raw [N, 7, 7, 3] views."""
-        env, reward, terminated, truncated = minigrid_core.step(self.params, state.env, actions)
+        ``small_obs`` the obs are the raw [N, 7, 7, 3] views. Dynamic-Obstacles
+        moves its balls by ``draws``, the step's [N, n_obstacles, 9] Gumbel
+        noise (``minigrid_core.obstacle_gumbels``), drawn from ``gen`` when
+        not given."""
+        env, reward, terminated, truncated = minigrid_core.step(
+            self.params, state.env, actions, gumbels=draws, gen=gen)
         done = terminated | truncated
         ep_return = state.episode_return + reward
         ep_length = state.episode_length + 1
-        fresh = minigrid_core.reset(self.params, self.num_envs, gen, self.device)
+        fresh, bank = self._fresh(state, gen)
         env = minigrid_core.select(done, fresh, env)
         zero_f = torch.zeros_like(ep_return)
         zero_i = torch.zeros_like(ep_length)
@@ -95,6 +125,8 @@ class TorchVectorEnv:
             env=env,
             episode_return=torch.where(done, zero_f, ep_return),
             episode_length=torch.where(done, zero_i, ep_length),
+            reset_bank=bank,
+            reset_step=state.reset_step + 1 if bank is not None else 0,
         )
         info = {
             "done_mask": done,

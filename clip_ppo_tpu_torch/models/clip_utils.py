@@ -10,6 +10,7 @@ Atari multi-frame features (`clip_ppo_atari.py:211-299`) included.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -103,6 +104,18 @@ def make_text_table_embed_fn(height: int):
     return embed
 
 
+def encode_texts(clip_params: dict, cfg: CLIPConfig, descriptions: Sequence[str],
+                 compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Host tokenization, the text tower (K2 and K3 on the GPU) and L2 norm
+    (`clip_ppo_utils.py:132-139`): [B, embed_dim] float32 on the weights'
+    device. Forward only."""
+    device = clip_params["text"]["token_embedding"].device
+    tokens = torch.as_tensor(tokenize(list(descriptions)), device=device)
+    with torch.no_grad():
+        feats = clip_model_mod.encode_text(clip_params, cfg, tokens, compute_dtype)
+        return l2_normalize(feats.float())
+
+
 def encode_images(clip_params: dict, cfg: CLIPConfig, images_uint8: torch.Tensor) -> torch.Tensor:
     """uint8 [B, H, W, 3] → L2-normalized [B, embed_dim] float32 CLIP
     features: /255, antialiased bilinear resize to ``cfg.image_size``, CLIP
@@ -122,6 +135,31 @@ def make_encode_images_fn(cfg: CLIPConfig):
         return encode_images(frozen["clip"], cfg, obs)
 
     return embed
+
+
+def generate_clip_embeddings(ablation_mode: AblationMode, clip_params: Optional[dict],
+                             cfg: Optional[CLIPConfig], modality: str, batch_size: int,
+                             gen: Optional[torch.Generator] = None,
+                             descriptions: Optional[Sequence[str]] = None,
+                             images: Optional[torch.Tensor] = None, embed_dim: int = 512,
+                             compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Dispatch on ablation mode and modality (`clip_ppo_utils.py:100-167`):
+    RANDOM_ENCODER → normalized Gaussian embeddings drawn from ``gen``;
+    text → tokenize + encode; image → preprocess + encode. Always
+    L2-normalized float32."""
+    if ablation_mode == AblationMode.RANDOM_ENCODER:
+        if gen is None:
+            raise ValueError("RANDOM_ENCODER needs a generator")
+        return make_random_embed_fn(batch_size, embed_dim)(gen)
+    if modality == "text":
+        if descriptions is None:
+            raise ValueError("descriptions required for text modality")
+        return encode_texts(clip_params, cfg, descriptions, compute_dtype)
+    if modality == "image":
+        if images is None:
+            raise ValueError("images required for image modality")
+        return encode_images(clip_params, cfg, images)
+    raise ValueError(f"Invalid modality: {modality}. Must be 'image' or 'text'")
 
 
 def get_frozen_clip_features(clip_params: dict, cfg: CLIPConfig, x: torch.Tensor,

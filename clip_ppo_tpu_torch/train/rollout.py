@@ -10,10 +10,12 @@ The random draws are explicit: the whole rollout's categorical noise is one
 [T, N, A] Gumbel batch, each step's disturbance takes its
 :class:`~clip_ppo_tpu_torch.ops.disturbances.DisturbanceDraws` (a tuple of
 one a frame under the Atari ``stack_frames`` semantics), and each env step
-may take the env's own draws (the Atari games' serves and spawns). All are
-drawn from the run's generator unless the caller passes them. The rollout
-stores the disturbed observation and acts on it; the env's own stack stays
-clean.
+may take the env's own draws (the Atari games' serves and spawns,
+Dynamic-Obstacles' ball moves). All are drawn from the run's generator
+unless the caller passes them. An env with ``prepare_resets`` (MiniGrid)
+makes the rollout's fresh states in one batched reset before its first
+step. The rollout stores the disturbed observation and acts on it; the
+env's own stack stays clean.
 
 A feature trunk may offer ``fixed(params)``, a copy of itself for params
 that do not change; the rollout calls it once, so the view fast path's
@@ -87,6 +89,9 @@ def collect_rollout(
     n = obs.shape[0]
     if gumbels is None:
         gumbels = agent_mod.gumbel_like((num_steps, n, env.num_actions), gen, device)
+    prepare = getattr(env, "prepare_resets", None)
+    if prepare is not None:  # the rollout's fresh env states, made in bulk
+        vec_state = prepare(vec_state, num_steps, gen)
     obs_t = torch.empty((num_steps,) + tuple(obs.shape), dtype=torch.uint8, device=device)
     packed = torch.empty((num_steps, n, 8), device=device)
     desc: dict = {}

@@ -12,10 +12,13 @@ RANDOM_ENCODER's fresh Gaussian embeddings each iteration
 (``embed_random_fn``). Nothing in an iteration waits for the host;
 logs are packed on the device and fetched one chunk behind
 (:class:`LogPipeline`), so the fetch of chunk *k* overlaps the queued work
-of chunk *k+1*. The Atari text modality encodes descriptions of the live
-games between the rollout and the update on the host: it runs the split
-path (:meth:`Trainer.run_rollout_half`, :meth:`Trainer.run_update_half`,
-:meth:`Trainer.fetch_logs`), one iteration at a time.
+of chunk *k+1*. The text modalities that describe states on the host —
+Atari's live games, and MiniGrid where the description table does not
+apply (a suffix that varies across episodes, as MultiRoom's, or
+``--no-text-embed-table``) — encode the descriptions between the rollout
+and the update: they run the split path (:meth:`Trainer.run_rollout_half`,
+:meth:`Trainer.run_update_half`, :meth:`Trainer.fetch_logs`), one iteration
+at a time.
 
 Every random draw comes from the ``torch.Generator`` in the
 :class:`TrainState`, unless the caller passes them to :meth:`Trainer.iteration`
@@ -64,7 +67,7 @@ class Draws(NamedTuple):
     permutations, RANDOM_ENCODER's [batch_size·frames, embed_dim] standard
     normals (drawn after the rollout and before the permutations, as the
     JAX package splits its key), and the env's own draws, one per step (the
-    Atari games' serves and spawns)."""
+    Atari games' serves and spawns, Dynamic-Obstacles' ball moves)."""
 
     gumbels: Optional[torch.Tensor] = None
     disturb: Optional[Sequence[DisturbanceDraws]] = None
@@ -189,11 +192,12 @@ class Trainer:
 
     # -- one iteration -------------------------------------------------------
 
-    def _rollout(self, state: TrainState, draws: Draws):
+    def _rollout(self, state: TrainState, draws: Draws, collect_desc: bool = False):
         vec_state, obs, next_done, batch = rollout_mod.collect_rollout(
             state.params, self.env, state.vec_state, state.obs, state.next_done, state.gen,
             self.cfg.num_steps, self.disturbance, self.disturbance_semantics, self.features_fn,
-            self.capture_env0, self.frozen_params, collect_desc=self.embed_desc_fn is not None,
+            self.capture_env0, self.frozen_params,
+            collect_desc=collect_desc or self.embed_desc_fn is not None,
             gumbels=draws.gumbels, disturb_draws=draws.disturb, small_obs=self.view_mode,
             env_draws=draws.env,
         )
@@ -320,8 +324,10 @@ class Trainer:
     def run_rollout_half(self, state: TrainState, draws: Draws = Draws()):
         """Rollout and GAE. Returns (state, data, episode_stats, desc):
         ``data`` is the update's payload for :meth:`run_update_half`
-        (rollout layout [T, N, ...])."""
-        state, batch = self._rollout(state, draws)
+        (rollout layout [T, N, ...]) and ``desc`` the per-step state
+        snapshots the host describes (MiniGrid's agent positions and
+        directions; none for Atari)."""
+        state, batch = self._rollout(state, draws, collect_desc=True)
         data = self._data2d(state, batch)
         return state, data, self._stats(batch, data), batch.desc
 

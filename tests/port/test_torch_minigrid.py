@@ -185,5 +185,6 @@ def test_doorkey_reset_statistics():
 
 
 def test_parse_env_id_rejects_later_families():
-    with pytest.raises(ValueError, match="later slice"):
-        tmg.parse_env_id("MiniGrid-FourRooms-v0")
+    for env_id in ("MiniGrid-GoToDoor-8x8-v0", "BabyAI-GoToRedBall-v0"):
+        with pytest.raises(ValueError, match="later slice"):
+            tmg.parse_env_id(env_id)

@@ -232,13 +232,33 @@ def test_cli_cuda_flag_needs_a_gpu(tmp_path, monkeypatch):
     (["--tp", "2"], "multi-GPU"),
     (["--distributed"], "multi-GPU"),
     (["--mission-conditioning"], "extensions"),
-    (["--clip-config.clip-lambda", "1e-5", "--no-text-embed-table"], "later slice"),
 ])
 def test_cli_rejects_later_slices(tmp_path, monkeypatch, argv, match):
     monkeypatch.chdir(tmp_path)
     args = flags.parse(tcli.Args, ["--no-cuda", "--no-capture-video", *argv])
     with pytest.raises(SystemExit, match=match):
         tcli.train(args, run_name="x")
+
+
+def test_cli_no_text_embed_table_runs_the_split_path(tmp_path, monkeypatch):
+    """``--no-text-embed-table`` encodes each iteration's descriptions
+    (2 × 16 here) on the split path, one iteration a dispatch, with no
+    table built."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(tcu, "load_clip_model", _tiny_clip)
+    encoded = []
+    real = tcu.encode_texts
+    monkeypatch.setattr(tcu, "encode_texts",
+                        lambda *a, **k: encoded.append(list(a[2])) or real(*a, **k))
+    args = flags.parse(tcli.Args, ["--no-cuda", "--no-capture-video", "--env-id", ENV_ID,
+                                   "--num-envs", "2", "--num-steps", "16", "--total-timesteps",
+                                   "64", "--clip-config.clip-lambda", "1e-5",
+                                   "--no-text-embed-table", "--no-save-model"])
+    out = tcli.train(args, run_name="x")
+    assert out["split_path"] and out["table_seconds"] == 0.0 and out["global_step"] == 64
+    assert [len(e) for e in encoded] == [32, 32]
+    assert all(d.endswith(SUFFIX) and d.startswith("agent at (") for e in encoded for d in e)
+    assert float(out["last_scalars"]["first_clip_loss"]) > 0.0
 
 
 def test_video_capture_records_env0_renders(tmp_path):

@@ -3,13 +3,16 @@
 A port of ``benchmarks/learning_checks.py`` through the port's
 ``cli/ppo_minigrid.train`` (the path ``python -m
 clip_ppo_tpu_torch.cli.ppo_minigrid`` drives): a real training run per env
-id and seed, reporting wall-clock SPS and the mean of the last 100 episodic
-returns, so learning (or its absence) shows in one line. The default is
+id and seed, reporting wall-clock SPS, the mean of the last 100 episodic
+returns and, as the JAX tool reports them, the means of the first and of the
+last k episodes (k = min(200, half the episodes)), so learning (or its
+absence) shows in one line. The default is
 ``BASELINE.json`` config 1: MiniGrid-Empty-16x16-v0, 8 envs, 250k steps,
 seeds 1, 2 and 3.
 
     python tools/learning_checks.py                       # on the GPU
     python tools/learning_checks.py MiniGrid-Empty-5x5-v0=4096 --no-cuda --seeds 1
+    python tools/learning_checks.py MiniGrid-KeyCorridorS3R1-v0=1000000 --seeds 1
 
 Each positional argument is ``env_id[=total_timesteps]`` (default 250k
 steps). Runs go one after another in one process, each in a temporary
@@ -73,12 +76,16 @@ def main(argv: list[str] | None = None) -> list[dict]:
                 finally:
                     os.chdir(cwd)
             ret = out["recent_returns"]
+            every = out["episode_returns"]
+            k = min(200, max(len(every) // 2, 1))
             line = {
                 "metric": "learning_check", "env_id": env_id, "seed": seed, "steps": steps,
                 "global_step": out["global_step"], "sps": out["sps"], "wall_s": wall,
                 "episodes": out["episodes"],
                 "last100_mean": sum(ret) / max(len(ret), 1),
                 "last100_min": min(ret, default=0.0),
+                "first_mean": sum(every[:k]) / max(len(every[:k]), 1),
+                "last_mean": sum(every[-k:]) / max(len(every[-k:]), 1), "k": k,
                 "device": _device(opts.cuda),
             }
             print(json.dumps(line), flush=True)
