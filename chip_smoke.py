@@ -145,6 +145,24 @@ non-zero at once:
     under HARD on LavaCrossingS9N1. K1 128 times an iteration in (c) and
     (d).
 
+14. missions — the mission families (GoToDoor, Fetch, GoToObject,
+    PutNear), Memory, Playground and the full ObstructedMaze, and
+    ``--recurrent``: (a) as 13a on the largest id of each
+    (``MISSION_RUNS``), the crafted states facing each mission's target
+    (``done`` at GoToDoor's door and GoToObject's object, Fetch's pickup,
+    PutNear's drop beside its near object, Memory's success cell) with
+    ``EnvState.target`` carried, a success reached in each but Playground,
+    which has none; (b) as 13b on each; (c) ``ppo_minigrid --recurrent`` on
+    MemoryS7 (the LSTM agent, no kernel) for 2 iterations, and one steady
+    iteration's rollout and update timed apart, with the kernels each
+    launches (from traces of 4- and 8-step iterations, extrapolated to 128
+    steps); (d) ``clip_ppo_minigrid`` in the text modality under HARD on
+    GoToDoor-8x8, whose left-wall door varies the description's suffix:
+    the split path, K2 and K3 at [1024,77,512] 12 times an iteration and K1
+    128 times, each held against its plain version in phase 2 (path
+    ``gotodoor``); (e) the image modality under HARD on
+    ObstructedMaze-1Q (opaque walls).
+
 Besides, phase 2 holds K4–K8 in bf16 (their bf16 entry points) against
 their plain bf16 versions (``BF16_CASES``), K4 and K8 timed beside
 ``scaled_dot_product_attention`` in bf16 and K7 beside K5; phase 5 also runs
@@ -561,6 +579,8 @@ def phase_kernels(card: dict) -> list[dict]:
         "empty_ms": empty_ms, "empty_device_ms": empty_device_ms,
         "ms_8_ctas": timed[8][0], "device_ms_8_ctas": timed[8][1],
     })
+    # the same shape and mode on GoToDoor-8x8's split path (phase 14)
+    results.append(dict(results[-1], path="gotodoor"))
     # One frame of the Atari rollout's [8, 84, 84, 4] stacks under
     # stack_frames (4 launches a step), HARD, noise drawn in the kernel.
     x1 = torch.rand((8, 84, 84, 1), generator=gen, device=dev)
@@ -632,6 +652,8 @@ BLOCK_CASES = [  # (kernel, B, T, D, causal, path, timed); rows of no path stay 
     ("mlp_block", 1024, 77, 512, False, "text", True),
     ("attn_block", 1024, 77, 512, True, "split", True),  # MultiRoom's split path, an iteration
     ("mlp_block", 1024, 77, 512, False, "split", True),
+    ("attn_block", 1024, 77, 512, True, "gotodoor", True),  # GoToDoor-8x8's split path
+    ("mlp_block", 1024, 77, 512, False, "gotodoor", True),
     ("attn_block", 1024, 50, 768, False, "image", True),  # ViT-B/32 vision
     ("mlp_stream", 1024, 50, 768, False, "image", True),
     ("attn_block", 1024, 77, 768, True, "benchmark", True),  # ViT-L/14 text
@@ -2548,28 +2570,30 @@ FAMILY_RUNS = (
 FAMILY_STEPS = 24
 HARD_TEXT = ["--clip-config.clip-lambda", "1e-5", "--clip-config.clip-modality", "text",
              "--clip-config.apply-disturbances", "--clip-config.disturbance-severity", "HARD"]
-# (label, argv, startup launches, launches per iteration, kernels-line path)
+HARD_IMAGE = ["--clip-config.clip-lambda", "1e-5", "--clip-config.clip-modality", "image",
+              "--clip-config.apply-disturbances", "--clip-config.disturbance-severity", "HARD"]
+# (label, argv, startup launches, launches per iteration, kernels-line path
+# whose rows take the run's launches, split path expected)
 FAMILY_CLIP_RUNS = (
     ("text table FourRooms", ["--env-id", "MiniGrid-FourRooms-v0", *HARD_TEXT],
-     {"attn_block": 24, "mlp_block": 24}, {"disturb": 128}, None),  # 1,444 rows: 2 batches
+     {"attn_block": 24, "mlp_block": 24}, {"disturb": 128}, None, False),  # 1,444 rows: 2 batches
     ("text split MultiRoom-N6", ["--env-id", "MiniGrid-MultiRoom-N6-v0", *HARD_TEXT],
-     {}, {"attn_block": 12, "mlp_block": 12, "disturb": 128}, "split"),
-    ("image LavaCrossingS9N1", ["--env-id", "MiniGrid-LavaCrossingS9N1-v0",
-                                "--clip-config.clip-lambda", "1e-5",
-                                "--clip-config.clip-modality", "image",
-                                "--clip-config.apply-disturbances",
-                                "--clip-config.disturbance-severity", "HARD"],
-     {}, {"attn_block": 12, "mlp_stream": 12, "disturb": 128}, None),
+     {}, {"attn_block": 12, "mlp_block": 12, "disturb": 128}, "split", True),
+    ("image LavaCrossingS9N1", ["--env-id", "MiniGrid-LavaCrossingS9N1-v0", *HARD_IMAGE],
+     {}, {"attn_block": 12, "mlp_stream": 12, "disturb": 128}, None, False),
 )
 
 
-def _crafted(core, grids):
+def _crafted(core, grids, targets=None, kind: str = ""):
     """Mid-episode states of a few reset grids (numpy), the agent turned to
-    face an object: (grid, pos, dir, carrying, first action) for the goal
-    and lava (forward), a ball (pickup; forward, a collision, under
+    face an object: (grid, pos, dir, carrying, first action, target) for
+    the goal and lava (forward), a ball (pickup; forward, a collision, under
     Dynamic-Obstacles), a box (pickup, and toggle), a locked door with its
     key in hand (toggle) and RedBlueDoors' blue door with the red one open
-    and closed (toggle)."""
+    and closed (toggle); with the grids' mission ``targets`` [N, 8], also
+    ``done`` facing the target cell (GoToDoor, GoToObject), a pickup of the
+    target's (type, color) (Fetch), Memory's step onto its success cell and
+    PutNear's drop of the move object beside its near object."""
     import numpy as np
 
     def face(g, target):
@@ -2583,7 +2607,10 @@ def _crafted(core, grids):
         return None
 
     out, none = [], np.zeros(3, np.int8)
-    for g in grids[:3]:
+    for i, g in enumerate(grids[:3]):
+        t = np.zeros(8, np.int32) if targets is None else targets[i]
+        if t.any():
+            out += _mission_crafted(core, kind, g, t, face, none)
         wants = [(core.GOAL, None, core.A_FORWARD), (core.LAVA, None, core.A_FORWARD),
                  (core.BALL, None, core.A_PICKUP), (core.BALL, None, core.A_FORWARD),
                  (core.BOX, None, core.A_PICKUP), (core.BOX, None, core.A_TOGGLE)]
@@ -2593,12 +2620,12 @@ def _crafted(core, grids):
             for c in cells[:2]:
                 f = face(g, tuple(c))
                 if f is not None:
-                    out.append((g.copy(), f[0], f[1], none, action))
+                    out.append((g.copy(), f[0], f[1], none, action, t))
         for c in locked[:1]:
             f = face(g, tuple(c))
             if f is not None:
                 out.append((g.copy(), f[0], f[1], np.array([core.KEY, g[tuple(c)][1], 0], np.int8),
-                            core.A_TOGGLE))
+                            core.A_TOGGLE, t))
         doors = {int(g[tuple(c)][1]): tuple(c) for c in np.argwhere(g[..., 0] == core.DOOR)}
         if core.RED in doors and core.BLUE in doors:
             for red_state in (core.OPEN, core.CLOSED):
@@ -2606,16 +2633,54 @@ def _crafted(core, grids):
                 gr[doors[core.RED]][2] = red_state
                 f = face(gr, doors[core.BLUE])
                 if f is not None:
-                    out.append((gr, f[0], f[1], none, core.A_TOGGLE))
+                    out.append((gr, f[0], f[1], none, core.A_TOGGLE, t))
     return out
 
 
-def phase_family_transitions(card: dict) -> None:
+def _mission_crafted(core, kind, g, t, face, none):
+    """The mission modes' crafted states of one grid ``g`` of the family
+    ``kind`` and its target ``t`` (see :func:`_crafted`)."""
+    import numpy as np
+
+    out = []
+    objs = [tuple(c) for c in np.argwhere(np.isin(g[..., 0], [core.KEY, core.BALL, core.BOX]))]
+    if kind in ("gotodoor", "gotoobject"):  # done beside the target
+        f = face(g, (int(t[2]), int(t[3])))
+        if f is not None:
+            out.append((g.copy(), f[0], f[1], none, core.A_DONE, t))
+    if kind == "fetch":  # the mission's (type, color) picked up
+        for c in objs:
+            if (g[c][0], g[c][1]) == (t[0], t[1]):
+                f = face(g, c)
+                if f is not None:
+                    out.append((g.copy(), f[0], f[1], none, core.A_PICKUP, t))
+    if kind == "memory":  # onto the success cell
+        mid = g.shape[1] // 2
+        out.append((g.copy(), (int(t[0]), mid), 3 if t[1] < mid else 1, none, core.A_FORWARD, t))
+    if kind == "putnear":  # the move object dropped beside the near object
+        held = g.copy()
+        for c in objs:
+            if (g[c][0], g[c][1]) == (t[0], t[1]):
+                held[c] = [core.EMPTY, 0, 0]
+        for dx in (-1, 0, 1):
+            for dy in (-1, 0, 1):
+                c = (int(t[4]) + dx, int(t[5]) + dy)
+                if held[c][0] == core.EMPTY:
+                    f = face(held, c)
+                    if f is not None and held[f[0]][0] == core.EMPTY:
+                        out.append((held, f[0], f[1], np.array([t[0], t[1], 0], np.int8),
+                                    core.A_DROP, t))
+                        return out
+    return out
+
+
+def phase_family_transitions(card: dict, env_ids=(*FAMILY_RUNS, "MiniGrid-Unlock-v0"),
+                             tag: str = "families") -> None:
     """13a. The CPU's reset of each family's largest id, with crafted
     mid-episode states, stepped 24 times on the card and on the CPU with the
-    same actions (and the same Dynamic-Obstacles draws): views, states and
-    flags equal, rewards equal as float32; every family reaches its
-    success."""
+    same actions (and the same Dynamic-Obstacles draws): views, states
+    (``target`` included) and flags equal, rewards equal as float32; every
+    family reaches its success, but Playground, which has none."""
     import numpy as np
     import torch
 
@@ -2623,18 +2688,19 @@ def phase_family_transitions(card: dict) -> None:
 
     dev = torch.device("cuda", 0)
     t0 = time.time()
-    for env_id in (*FAMILY_RUNS, "MiniGrid-Unlock-v0"):
+    for env_id in env_ids:
         p = core.parse_env_id(env_id)
         gen = torch.Generator()
         gen.manual_seed(13)
         st = core.reset(p, 8, gen, "cpu")
-        crafted = _crafted(core, st.grid.numpy())
+        crafted = _crafted(core, st.grid.numpy(), st.target.numpy(), p.kind)
         n = 8 + len(crafted)
         cat = lambda a, b: torch.cat([a, torch.as_tensor(np.stack(b))])  # noqa: E731
         cpu = core.EnvState(
             cat(st.grid, [c[0] for c in crafted]), cat(st.agent_pos, [np.array(c[1]) for c in crafted]),
             cat(st.agent_dir, [np.array(c[2]) for c in crafted]), cat(st.carrying, [c[3] for c in crafted]),
-            torch.cat([st.step_count, torch.full((len(crafted),), p.max_steps // 2, dtype=torch.int32)]))
+            torch.cat([st.step_count, torch.full((len(crafted),), p.max_steps // 2, dtype=torch.int32)]),
+            cat(st.target, [np.asarray(c[5], np.int32) for c in crafted]))
         gpu = core.EnvState(*(t.to(dev) for t in dataclasses.astuple(cpu)))
         rng = np.random.RandomState(13)
         actions = rng.randint(0, p.num_actions, size=(FAMILY_STEPS, n))
@@ -2655,12 +2721,14 @@ def phase_family_transitions(card: dict) -> None:
                 if not torch.equal(x.cpu(), y):
                     fail(f"{env_id}: {name} on the card differs from the CPU's at step {t}")
             won += int((r_c > 0).sum())
-        print(f"[families] {env_id} ({p.kind}, success {p.success}): {n} states ({len(crafted)} "
+        print(f"[{tag}] {env_id} ({p.kind}, success {p.success}): {n} states ({len(crafted)} "
               f"crafted) x {FAMILY_STEPS} steps on the card equal to the CPU (views, states, "
               f"flags; rewards as float32); {won} rewarded transitions")
-        if won == 0:
+        if won == 0 and p.kind != "playground":
             fail(f"{env_id}: no transition reached the family's success")
-    print(f"[families] transition checks took {time.time() - t0:.1f} s")
+        if won and p.kind == "playground":
+            fail(f"{env_id}: Playground has no reward, yet {won} transitions were rewarded")
+    print(f"[{tag}] transition checks took {time.time() - t0:.1f} s")
 
 
 def _count_kernels(fn) -> int:
@@ -2675,7 +2743,7 @@ def _count_kernels(fn) -> int:
     return sum(e.count for e in _kernel_events(prof))
 
 
-def phase_family_vanilla(card: dict) -> dict:
+def phase_family_vanilla(card: dict, env_ids=FAMILY_RUNS, tag: str = "families vanilla") -> dict:
     """13b. ``ppo_minigrid`` for 2 iterations of 8 x 128 on each family's
     largest id (view mode, no kernel of the port launched, finite losses),
     its second iteration clocked for the steady env-steps/s; one rollout of
@@ -2694,13 +2762,13 @@ def phase_family_vanilla(card: dict) -> dict:
 
     dev = torch.device("cuda", 0)
     out = {}
-    for env_id in FAMILY_RUNS:
+    for env_id in env_ids:
         args, summary, launches, wall, steady, _ = run_atari_cli(cli, ["--env-id", env_id])
         if any(launches.values()):
             fail(f"vanilla {env_id} launched kernels of the port: {launches}")
         if not summary["view_mode"]:
             fail(f"vanilla {env_id} is not in view mode")
-        _check_scalars(f"[families vanilla] {env_id}", summary["last_scalars"])
+        _check_scalars(f"[{tag}] {env_id}", summary["last_scalars"])
         env = TorchVectorEnv(env_id, 8, dev)
         pgen = torch.Generator()
         pgen.manual_seed(1)
@@ -2721,7 +2789,7 @@ def phase_family_vanilla(card: dict) -> dict:
         w = _count_kernels(lambda: env.prepare_resets(state.vec_state, 128, gen))
         per_step = (r4 - w) / 4 + w / 128 if r4 else None
         out[env_id] = (steady, per_step)
-        print(f"[families vanilla] {env_id}: 2 iterations of 8x128 in {wall:.2f} s wall, steady "
+        print(f"[{tag}] {env_id}: 2 iterations of 8x128 in {wall:.2f} s wall, steady "
               f"{steady:.1f} env-steps/s (second iteration); one rollout alone {rollout_s * 1e3:.1f}"
               f" ms = {1024 / rollout_s:.1f} env-steps/s; "
               + (f"a rollout step launches {per_step:.1f} kernels ({(r4 - w) / 4:.1f} for the "
@@ -2731,7 +2799,8 @@ def phase_family_vanilla(card: dict) -> dict:
     return out
 
 
-def phase_family_clip(results: list[dict], card: dict) -> None:
+def phase_family_clip(results: list[dict], card: dict, runs=FAMILY_CLIP_RUNS,
+                      tag: str = "families clip") -> None:
     """13c-d. ``clip_ppo_minigrid`` for 2 iterations, HARD: the text modality
     on FourRooms (the 1,444-row description table, two batches, K2 and K3 24
     times at startup and none an iteration) and on MultiRoom-N6 (the split
@@ -2744,7 +2813,7 @@ def phase_family_clip(results: list[dict], card: dict) -> None:
     from clip_ppo_tpu_torch.envs.minigrid import core
     from clip_ppo_tpu_torch.models import clip_utils
 
-    for label, argv, startup, per_iter, path in FAMILY_CLIP_RUNS:
+    for label, argv, startup, per_iter, path, split in runs:
         spans = {"describe": [], "tokenize": [], "encode": []}
 
         def timed(fn, key, sync=False):
@@ -2765,28 +2834,28 @@ def phase_family_clip(results: list[dict], card: dict) -> None:
                                   timed(clip_utils.encode_texts, "encode", sync=True)):
             args, summary, launches, wall, steady, _ = run_atari_cli(cpm, argv)
         want = {k: startup.get(k, 0) + per_iter.get(k, 0) * args.num_iterations for k in launches}
-        print(f"[families clip] {label}: {args.num_iterations} iterations of {args.num_envs}x"
+        print(f"[{tag}] {label}: {args.num_iterations} iterations of {args.num_envs}x"
               f"{args.num_steps} in {wall:.2f} s wall, split path {summary['split_path']}, text "
               f"table {summary['table_seconds']:.3f} s, steady {steady:.1f} env-steps/s; launches "
               f"{ {k: v for k, v in launches.items() if v} } on {card['smi']}")
         if launches != want:
             fail(f"{label} launched {launches}, expected {want}")
-        if summary["split_path"] is not (path == "split"):
+        if summary["split_path"] is not split:
             fail(f"{label}: split path {summary['split_path']}")
-        _check_scalars(f"[families clip] {label}", summary["last_scalars"])
+        _check_scalars(f"[{tag}] {label}", summary["last_scalars"])
         if not float(summary["last_scalars"]["first_clip_loss"]) > 0.0:
             fail(f"{label}: the CLIP loss did not run")
-        if path == "split":
+        if split:
             ms = {k: [v * 1e3 for v in vs] for k, vs in spans.items()}
             enc = [e - t for e, t in zip(ms["encode"], ms["tokenize"][-len(ms["encode"]):])]
-            print(f"[families clip] split path per iteration (host clock): describe "
+            print(f"[{tag}] {label}: split path per iteration (host clock): describe "
                   + ", ".join(f"{v:.2f}" for v in ms["describe"]) + " ms; tokenize "
                   + ", ".join(f"{v:.2f}" for v in ms["tokenize"]) + " ms; text encode of 1,024 "
                   "descriptions (K2 + K3, synchronized) " + ", ".join(f"{v:.2f}" for v in enc)
                   + f" ms on {card['smi']}")
-            for r in results:
-                if r["path"] == "split":
-                    r["launches"] = launches[r["name"]]
+        for r in results:
+            if path is not None and r["path"] == path:
+                r["launches"] = launches[r["name"]]
 
 
 def phase_families(results: list[dict], card: dict) -> None:
@@ -2796,6 +2865,109 @@ def phase_families(results: list[dict], card: dict) -> None:
     phase_family_vanilla(card)
     phase_family_clip(results, card)
     print(f"[families] phase 13 took {time.time() - t0:.1f} s")
+
+
+# Phase 14: the mission families, Memory, Playground and the full
+# ObstructedMaze (the largest id of each), and --recurrent.
+MISSION_RUNS = (
+    "MiniGrid-ObstructedMaze-Full-v0", "MiniGrid-Playground-v0", "MiniGrid-MemoryS17Random-v0",
+    "MiniGrid-GoToDoor-8x8-v0", "MiniGrid-Fetch-8x8-N3-v0", "MiniGrid-GoToObject-8x8-N2-v0",
+    "MiniGrid-PutNear-8x8-N3-v0",
+)
+MISSION_CLIP_RUNS = (  # as FAMILY_CLIP_RUNS
+    ("text split GoToDoor-8x8", ["--env-id", "MiniGrid-GoToDoor-8x8-v0", *HARD_TEXT],
+     {}, {"attn_block": 12, "mlp_block": 12, "disturb": 128}, "gotodoor", True),
+    ("image ObstructedMaze-1Q", ["--env-id", "MiniGrid-ObstructedMaze-1Q-v1", *HARD_IMAGE],
+     {}, {"attn_block": 12, "mlp_stream": 12, "disturb": 128}, None, False),
+)
+RECURRENT_ID = "MiniGrid-MemoryS7-v0"
+
+
+def phase_recurrent(card: dict) -> None:
+    """14c. ``ppo_minigrid --recurrent`` on MemoryS7 for 2 iterations of
+    8 x 128 (view mode, no kernel of the port, finite losses), then one
+    steady iteration's rollout, GAE and update timed apart (synchronized),
+    and the kernels the rollout and the update launch: both are linear in
+    the rollout's length (the rollout's bulk reset and the update's
+    per-minibatch work are fixed, each step adds the same), so traces of
+    4- and 8-step iterations give the 128-step counts."""
+    import torch
+
+    from clip_ppo_tpu_torch.cli import ppo_minigrid as cli
+    from clip_ppo_tpu_torch.envs.vector import TorchVectorEnv
+    from clip_ppo_tpu_torch.models import recurrent as rec
+    from clip_ppo_tpu_torch.train.ppo import PPOConfig
+    from clip_ppo_tpu_torch.train.runner import Draws, Trainer
+
+    dev = torch.device("cuda", 0)
+    args, summary, launches, wall, steady, _ = run_atari_cli(
+        cli, ["--env-id", RECURRENT_ID, "--recurrent"])
+    if any(launches.values()):
+        fail(f"--recurrent launched kernels of the port: {launches}")
+    if not (summary["recurrent"] and summary["view_mode"]):
+        fail(f"--recurrent: recurrent {summary['recurrent']}, view mode {summary['view_mode']}")
+    _check_scalars("[recurrent]", summary["last_scalars"])
+    env = TorchVectorEnv(RECURRENT_ID, 8, dev)
+    pgen = torch.Generator()
+    pgen.manual_seed(1)
+    params = rec.init_agent_params_recurrent(pgen, env.num_actions, dev)
+
+    def parts(num_steps: int, count: bool):
+        trainer = Trainer(PPOConfig(num_steps=num_steps), env, 4, recurrent=True)
+        state, *_ = trainer.iteration(trainer.init_state(params, 1), 1)  # warm-up
+        torch.cuda.synchronize()
+        init, out, ms = state.lstm_state, {}, {}
+
+        def rollout():
+            out["state"], out["batch"] = trainer._rollout(state, Draws())
+
+        def update():
+            trainer._update(out["state"], out["data"], 2, None, Draws(), init)
+
+        t0 = time.perf_counter()
+        n_roll = _count_kernels(rollout) if count else rollout()
+        torch.cuda.synchronize()
+        ms["rollout"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        out["data"] = trainer._data2d(out["state"], out["batch"])
+        torch.cuda.synchronize()
+        ms["gae"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        n_upd = _count_kernels(update) if count else update()
+        torch.cuda.synchronize()
+        ms["update"] = (time.perf_counter() - t0) * 1e3
+        return ms, n_roll, n_upd
+
+    ms, _, _ = parts(128, False)
+    total = sum(ms.values())
+    _, r4, u4 = parts(4, True)
+    _, r8, u8 = parts(8, True)
+    counts = ""
+    if r4 and u4:
+        roll = r4 + (r8 - r4) / 4 * 124
+        upd = u4 + (u8 - u4) / 4 * 124
+        counts = (f"; kernels of a 128-step iteration {roll + upd:.0f}: rollout {roll:.0f} "
+                  f"({(r8 - r4) / 4:.1f} a step), update {upd:.0f} ({(u8 - u4) / 4 / 16:.1f} a "
+                  f"replayed step of a minibatch, forward and backward; traced 4 and 8 steps: "
+                  f"rollout {r4}, {r8}, update {u4}, {u8})")
+    print(f"[recurrent] {RECURRENT_ID}, LSTM hidden {args.lstm_hidden}: 2 iterations of 8x128 in "
+          f"{wall:.2f} s wall, steady {steady:.1f} env-steps/s (second iteration); one steady "
+          f"iteration by part (host clock, synchronized): rollout {ms['rollout']:.1f} ms, GAE "
+          f"{ms['gae']:.1f} ms, update {ms['update']:.1f} ms (16 minibatches of 2 envs x 128 "
+          f"steps replayed), total {total:.1f} ms = {1024 / total * 1e3:.1f} env-steps/s"
+          f"{counts or '; kernel launches not measured (the trace holds no device time)'} on "
+          f"{card['smi']}")
+
+
+def phase_missions(results: list[dict], card: dict) -> None:
+    """Phase 14: the mission families, Memory, Playground, the full
+    ObstructedMaze and --recurrent (a-e)."""
+    t0 = time.time()
+    phase_family_transitions(card, MISSION_RUNS, "missions")
+    phase_family_vanilla(card, MISSION_RUNS, "missions vanilla")
+    phase_recurrent(card)
+    phase_family_clip(results, card, MISSION_CLIP_RUNS, "missions clip")
+    print(f"[missions] phase 14 took {time.time() - t0:.1f} s")
 
 
 def main() -> None:
@@ -2857,6 +3029,7 @@ def main() -> None:
     phase_atari(results, card)
     phase_pipeline(results, card)
     phase_families(results, card)
+    phase_missions(results, card)
     order = ("name", "route", "source", "replaces", "shape", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms")
     for r in results:  # every kernel of a driven path was launched there

@@ -13,13 +13,20 @@ which never reaches the batched K1 kernel.
 
 TensorBoard tags, checkpoint payload and naming, derived batch sizes, the
 save-frequency divisibility quirk and the CLI surface match the reference.
+``--recurrent`` puts an LSTM between the trunk and the heads
+(``models/recurrent.py``; ``--lstm-hidden`` wide), the agent the Memory
+family needs; its update minibatches over envs, so ``--num-envs`` must be
+divisible by ``--num-minibatches``.
+
 Checkpoints also carry the loop state (env state, observations,
-``next_done`` and the generator's state) as ``torch_loop_state``, so
-``--resume-checkpoint`` continues bit-identically with an uninterrupted
-run. A JAX vanilla checkpoint resumes too: params, optimizer, iteration,
-global step and the env state of its ``loop_state``, with the generator
-seeded from ``--seed`` (the JAX key has no counterpart). Options that need
-later slices of the port are refused by name before any work.
+``next_done`` and the generator's state) as ``torch_loop_state``, and under
+``--recurrent`` the cell's carried (h, c) as ``lstm_carry_state``, the JAX
+CLI's name, so ``--resume-checkpoint`` continues bit-identically with an
+uninterrupted run. A JAX vanilla checkpoint resumes too: params, optimizer,
+iteration, global step, the env state of its ``loop_state`` and its
+``lstm_carry``, with the generator seeded from ``--seed`` (the JAX key has
+no counterpart). Options that need later slices of the port are refused by
+name before any work.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ from clip_ppo_tpu_torch.io.tb_writer import SummaryWriter, hyperparameters_table
 from clip_ppo_tpu_torch.io.tracking import ProfilerWindow, maybe_init_wandb
 from clip_ppo_tpu_torch.io.video import VideoRecorder
 from clip_ppo_tpu_torch.models.agent import init_agent_params
+from clip_ppo_tpu_torch.models.recurrent import init_agent_params_recurrent
 from clip_ppo_tpu_torch.ops.severity import DisturbanceSeverity, resolve_params
 from clip_ppo_tpu_torch.train.ppo import PPOConfig
 from clip_ppo_tpu_torch.train.runner import LogPipeline, Trainer, TrainState, chunk_length
@@ -127,13 +135,16 @@ class Args:
     disturbance_severity: str = "MILD"
     """disturbance severity level: MILD, MODERATE, SEVERE"""
 
-    # Options of the JAX package beyond the reference; each comes with a
-    # later slice of the port and is refused until then.
+    # Recurrent agent (no reference equivalent: its agents are all
+    # feed-forward; the Memory family needs recurrence)
     recurrent: bool = False
     """insert an LSTM between the CNN trunk and the actor/critic heads
-    (comes with the extensions slice)"""
+    (CleanRL ppo_atari_lstm-style; the agent MiniGrid-Memory needs)"""
     lstm_hidden: int = 128
     """LSTM hidden size for --recurrent"""
+
+    # Options of the JAX package beyond the reference that come with a
+    # later slice of the port and are refused until then.
     mission_conditioning: bool = False
     """FiLM-condition the policy on the env's structured instruction
     (comes with the extensions slice)"""
@@ -163,7 +174,6 @@ class Args:
 
 def _reject_later_slices(args: Args) -> None:
     later = [
-        (args.recurrent, "--recurrent", "the extensions slice"),
         (args.mission_conditioning, "--mission-conditioning", "the extensions slice"),
         (args.exploration_bonus > 0.0, "--exploration-bonus > 0", "the extensions slice"),
         (args.episodic_bonus > 0.0, "--episodic-bonus > 0", "the extensions slice"),
@@ -175,6 +185,9 @@ def _reject_later_slices(args: Args) -> None:
         if requested:
             raise SystemExit(f"{what} is not ported yet: it comes with {slice_name} of "
                              "the PyTorch/CUDA port")
+    if args.recurrent and args.num_envs % args.num_minibatches:
+        raise SystemExit(f"--recurrent minibatches over envs: --num-envs {args.num_envs} is not "
+                         f"divisible by --num-minibatches {args.num_minibatches}")
 
 
 # -- the loop state a checkpoint carries (``torch_loop_state``) ---------------
@@ -195,11 +208,17 @@ def _loop_tree(state: TrainState) -> dict:
 
 
 def _with_loop(state: TrainState, loop: dict) -> TrainState:
+    """The loop state of a checkpoint of this CLI; one written before the
+    env state carried ``target`` restores the zeros every earlier family
+    holds."""
     vs = loop["vec_state"]
+    env = dict(vs["env"])
+    if "target" not in env:
+        env["target"] = torch.zeros_like(state.vec_state.env.target)
     state.gen.set_state(loop["gen"])
     return dataclasses.replace(
         state,
-        vec_state=VecState(env=EnvState(**vs["env"]), episode_return=vs["episode_return"],
+        vec_state=VecState(env=EnvState(**env), episode_return=vs["episode_return"],
                            episode_length=vs["episode_length"]),
         obs=loop["obs"], next_done=loop["next_done"],
     )
@@ -261,11 +280,25 @@ def train(args: Args, run_name: Optional[str] = None) -> dict:
         print("Disturbances disabled")
 
     trainer = Trainer(cfg, env, num_iterations=args.num_iterations, disturbance=disturbance,
-                      disturbance_semantics="per_image", capture_env0=args.capture_video)
+                      disturbance_semantics="per_image", capture_env0=args.capture_video,
+                      recurrent=args.recurrent)
     param_gen = torch.Generator()
     param_gen.manual_seed(args.seed)
-    params = init_agent_params(param_gen, env.num_actions, device, in_channels=3)
+    if args.recurrent:
+        params = init_agent_params_recurrent(param_gen, env.num_actions, device, in_channels=3,
+                                             lstm_hidden=args.lstm_hidden)
+    else:
+        params = init_agent_params(param_gen, env.num_actions, device, in_channels=3)
     state = trainer.init_state(params, args.seed)
+
+    def extras(st: TrainState) -> dict:
+        """The checkpoint's payload beyond params and optimizer: the loop
+        state, and the LSTM agent's carried (h, c) under the JAX CLI's
+        name ``lstm_carry``."""
+        out = {"torch_loop": _loop_tree(st)}
+        if st.lstm_state is not None:
+            out["lstm_carry"] = st.lstm_state
+        return out
 
     checkpoint_path = None
     if args.save_model:
@@ -276,13 +309,15 @@ def train(args: Args, run_name: Optional[str] = None) -> dict:
     if args.resume_checkpoint:
         params, opt_state, it, global_step, raw = load_checkpoint(
             args.resume_checkpoint, state.params, state.opt_state, device,
-            extra_templates={"torch_loop": _loop_tree(state)})
+            extra_templates=extras(state))
         state = dataclasses.replace(state, params=params, opt_state=opt_state)
-        extras = raw.get("extras", {})
-        if "torch_loop" in extras:
-            state = _with_loop(state, extras["torch_loop"])
+        restored = raw.get("extras", {})
+        if "torch_loop" in restored:
+            state = _with_loop(state, restored["torch_loop"])
         elif raw.get("loop_state") is not None:
             state = _with_jax_loop(state, raw["loop_state"], trainer, args.seed)
+        if "lstm_carry" in restored:
+            state = dataclasses.replace(state, lstm_state=tuple(restored["lstm_carry"]))
         start_iteration = it + 1
 
     last_scalars: dict = {}
@@ -297,7 +332,7 @@ def train(args: Args, run_name: Optional[str] = None) -> dict:
         save_checkpoint(checkpoint_path, state.params, state.opt_state, iteration,
                         logger.global_step, args, b_returns=logger.b_returns, final=final,
                         learning_rate=trainer.learning_rate(iteration),
-                        extra_models={"torch_loop": _loop_tree(state)})
+                        extra_models=extras(state))
 
     # Iterations queued back to back in chunks that end at checkpoint
     # boundaries, each chunk's logs fetched after the next is queued.
@@ -329,6 +364,7 @@ def train(args: Args, run_name: Optional[str] = None) -> dict:
         "episode_returns": list(logger.last_returns),
         "run_name": run_name,
         "view_mode": trainer.view_mode,
+        "recurrent": trainer.recurrent,
         "last_scalars": last_scalars,
     }
 

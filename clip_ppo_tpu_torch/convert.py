@@ -11,9 +11,9 @@ jax. Outputs are the port's tensors on ``device``:
   ``chain(clip_by_global_norm, inject_hyperparams(adam))`` state →
   ``{"mu", "nu", "count"}`` with ``mu``/``nu`` converted like the params.
 * :func:`env_state` / :func:`vec_state` — MiniGrid ``EnvState`` /
-  ``VecState`` (batched over envs). The JAX state's PRNG key and the
-  mission fields of other families have no counterpart here and are
-  dropped. In a JAX checkpoint's pickle these classes are read as the
+  ``VecState`` (batched over envs), the mission ``target`` included. The
+  JAX state's PRNG key and BabyAI's instruction fields have no counterpart
+  here and are dropped. In a JAX checkpoint's pickle these classes are read as the
   stand-ins of :data:`JAX_STATE_CLASSES`.
 * :func:`atari_vec_state` — the Atari vector env's ``AtariVecState`` with
   its batched game state (Breakout, Pong or Seaquest), field by field; the
@@ -152,12 +152,19 @@ def jax_adam_state(state: dict, learning_rate: float) -> tuple:
 
 
 def env_state(st: Any, device="cpu") -> EnvState:
+    """A MiniGrid ``EnvState``; its mission ``target`` [N, 8] is carried,
+    and a state without one (written before the port carried it) gets the
+    zeros every family without a mission holds."""
+    target = getattr(st, "target", None)
+    if target is None:
+        target = np.zeros(np.shape(st.step_count) + (8,), np.int32)
     return EnvState(
         grid=_t(st.grid, device, torch.int8),
         agent_pos=_t(st.agent_pos, device, torch.int64),
         agent_dir=_t(st.agent_dir, device, torch.int64),
         carrying=_t(st.carrying, device, torch.int8),
         step_count=_t(st.step_count, device, torch.int32),
+        target=_t(target, device, torch.int32),
     )
 
 

@@ -1,29 +1,33 @@
-"""MiniGrid as batched tensors: Empty, DoorKey and the classic families.
+"""MiniGrid as batched tensors: every classic family of the JAX package.
 
-Port of ``clip_ppo_tpu/envs/minigrid/core.py`` for the families this slice
+Port of ``clip_ppo_tpu/envs/minigrid/core.py`` for the families this port
 runs: Empty[-Random], DoorKey, FourRooms, LavaGap, DistShift, MultiRoom,
 {Simple,Lava}Crossing, Dynamic-Obstacles[-Random], Unlock, UnlockPickup,
-BlockedUnlockPickup, ObstructedMaze-1Dl{,h,hb}, KeyCorridor, LockedRoom and
-RedBlueDoors. The state of all N environments lives in tensors with a
-leading env axis, and ``reset``/``step``/``observe`` are batched functions
-of them, so the rollout never leaves the device and no reset or step asks
-the host anything. Semantics mirror MiniGrid exactly, as the JAX package
-does: the integer encodings, the 7×7 egocentric view with the agent at
-view cell (3, 6) facing up, out-of-bounds cells read as grey walls,
-shadow-casting visibility where walls are opaque, the action set, the goal
-reward ``1 - 0.9 * step_count / max_steps``, truncation at ``max_steps``,
+BlockedUnlockPickup, ObstructedMaze (1Dl{,h,hb}, 2Dl{,h,hb}, 1Q, 2Q, Full),
+KeyCorridor, LockedRoom, RedBlueDoors, Memory, Playground and the mission
+families GoToDoor, Fetch, GoToObject and PutNear. The state of all N
+environments lives in tensors with a leading env axis, and
+``reset``/``step``/``observe`` are batched functions of them, so the rollout
+never leaves the device and no reset or step asks the host anything.
+Semantics mirror MiniGrid exactly, as the JAX package does: the integer
+encodings, the 7×7 egocentric view with the agent at view cell (3, 6)
+facing up, out-of-bounds cells read as grey walls, shadow-casting
+visibility where walls are opaque, the action set, the goal reward
+``1 - 0.9 * step_count / max_steps``, truncation at ``max_steps``,
 DoorKey's door-row quirk of sampling with ``width``, and each family's
 success mode (``goal``, ``open_door``, ``pickup_box``, ``pickup_ball``,
-``red_then_blue``).
+``red_then_blue``, ``memory``, ``goto_door``, ``fetch``, ``goto_object``,
+``putnear``). The mission families and Memory keep their episode's target
+in ``EnvState.target`` (zeros for every other family), in the JAX
+package's layout.
 
 Random draws come from an explicit ``torch.Generator``; the env state holds
 no key. The rejection loops of the JAX package run in parallel instead of
 one after another: MultiRoom's 64 chain trials (each room's 8 proposals
 together, the first that fits taken) and their keep-best rule, and
 KeyCorridor's connect loop, whose 256 door proposals are drawn at once and
-applied up to the first one after which every room is reachable. The
-mission families, Memory, Playground, ObstructedMaze-2Dl/1Q/2Q/Full and
-BabyAI come with later slices and are refused by :func:`parse_env_id`.
+applied up to the first one after which every room is reachable. BabyAI
+comes with a later slice and is refused by :func:`parse_env_id`.
 """
 
 from __future__ import annotations
@@ -68,7 +72,9 @@ class EnvParams:
 
     kind: str  # "empty" | "doorkey" | "fourrooms" | "lavagap" | "multiroom"
     #            | "crossing" | "unlock" | "dynobs" | "distshift" | "redblue"
-    #            | "keycorridor" | "lockedroom"
+    #            | "keycorridor" | "lockedroom" | "obstructedfull"
+    #            | "playground" | "memory" | "gotodoor" | "fetch"
+    #            | "gotoobject" | "putnear"
     width: int
     height: int
     max_steps: int
@@ -84,8 +90,10 @@ class EnvParams:
     obstacle: int = 0  # WALL (SimpleCrossing) or LAVA (LavaCrossing)
     # Success condition: "goal" (step onto GOAL), "open_door" (a toggle
     # leaves the door open), "pickup_box", "pickup_ball" (of
-    # ``target_color`` when it is ≥ 0) or "red_then_blue" (the blue door is
-    # open after the step; rewarded iff the red one was open before it).
+    # ``target_color`` when it is ≥ 0), "red_then_blue" (the blue door is
+    # open after the step; rewarded iff the red one was open before it),
+    # or one that reads ``EnvState.target``: "memory", "goto_door",
+    # "fetch", "goto_object" or "putnear" (see :func:`step`).
     success: str = "goal"
     strip_row: int = 0         # DistShift: row of the 3-cell lava strip
     blocked_door: bool = False  # a ball blocks the cell left of the locked door
@@ -93,6 +101,13 @@ class EnvParams:
     target_color: int = -1      # pickup_ball's color, −1 = any
     n_obstacles: int = 0        # Dynamic-Obstacles' moving balls
     num_actions: int = NUM_ACTIONS  # 3 for Dynamic-Obstacles
+    # Fetch / GoToObject / PutNear: the candidate objects of the mission.
+    num_objs: int = 0
+    # MemoryS{n}Random: the hallway length is drawn per episode.
+    random_length: bool = False
+    # ObstructedMaze 2Dl*/1Q/2Q/Full: the (col, row) of the agent's start
+    # room; the number of quarters rides ``min_rooms``.
+    agent_room: tuple[int, int] = (0, 0)
 
 
 @dataclasses.dataclass
@@ -104,15 +119,15 @@ class EnvState:
     agent_dir: torch.Tensor   # [N] int64
     carrying: torch.Tensor    # [N, 3] int8; object == 0 → nothing
     step_count: torch.Tensor  # [N] int32
+    # [N, 8] int32 mission target, zeros for the families without one:
+    # GoToDoor/GoToObject [obj, color, x, y, 0…]; Fetch [obj, color, 0…];
+    # PutNear [move_obj, move_color, near_obj, near_color, near_x, near_y,
+    # 0, 0]; Memory [sx, sy, fx, fy, 0…] (the success and failure cells).
+    target: torch.Tensor
 
 
 # Ids the JAX package runs that later slices of the port bring, by slice.
 _LATER_SLICES = (
-    (r"MiniGrid-(GoToDoor|Fetch|GoToObject|PutNear|MemoryS|Playground"
-     r"|ObstructedMaze-(2Dl|1Q|2Q|Full))",
-     "the next environment slice (the mission families GoToDoor, Fetch, GoToObject and "
-     "PutNear, Memory, Playground and ObstructedMaze-2Dl/1Q/2Q/Full, whose states carry a "
-     "mission target)"),
     (r"BabyAI-", "the BabyAI slice"),
 )
 
@@ -124,9 +139,12 @@ def parse_env_id(env_id: str) -> EnvParams:
     ``LavaGapSn``, ``DistShift{1,2}``, ``MultiRoom-Nn[-Ss]``,
     ``{Simple,Lava}CrossingSsNn``, ``Dynamic-Obstacles[-Random]-NxN``,
     ``Unlock``, ``UnlockPickup``, ``BlockedUnlockPickup``,
-    ``ObstructedMaze-1Dl{,h,hb}``, ``KeyCorridorSsRr``, ``LockedRoom`` and
-    ``RedBlueDoors-NxN`` (each with an optional -vK suffix). The other ids
-    of the JAX package raise, naming the later slice that brings them.
+    ``ObstructedMaze-1Dl{,h,hb}``, ``ObstructedMaze-2Dl{,h,hb}``,
+    ``ObstructedMaze-{1Q,2Q,Full}``, ``Playground``, ``KeyCorridorSsRr``,
+    ``LockedRoom``, ``RedBlueDoors-NxN``, ``MemoryS{n}[Random]``,
+    ``GoToDoor-NxN``, ``Fetch-NxN-Nk``, ``GoToObject-NxN-Nk`` and
+    ``PutNear-NxN-Nk`` (each with an optional -vK suffix). BabyAI's ids
+    raise, naming the later slice that brings them.
     """
     m = re.match(r"MiniGrid-DistShift(1|2)(-v\d+)?$", env_id)
     if m:
@@ -220,6 +238,39 @@ def parse_env_id(env_id: str) -> EnvParams:
         return EnvParams("unlock", 11, 6, 4 * 2 * 36, False, success="pickup_ball",
                          target_color=BLUE, key_in_box=m.group(1) == "h",
                          blocked_door=m.group(2) == "b")
+    m = re.match(r"MiniGrid-ObstructedMaze-2Dl(h?)(b?)(-v\d+)?$", env_id)
+    if m:
+        # ObstructedMaze_2Dl{,h,hb}: the Full maze restricted to one
+        # quarter with the agent starting in the side room (2, 1) —
+        # upstream ObstructedMaze_Full((2, 1), key_in_box, blocked,
+        # num_quarters=1, num_rooms_visited=4); max_steps =
+        # 4·num_rooms_visited·room_size² = 576 (upstream
+        # minigrid/envs/obstructedmaze.py).
+        return EnvParams("obstructedfull", 16, 16, 4 * 4 * 36, False, success="pickup_ball",
+                         target_color=BLUE, key_in_box=m.group(1) == "h",
+                         blocked_door=m.group(2) == "b", min_rooms=1, agent_room=(2, 1))
+    m = re.match(r"MiniGrid-ObstructedMaze-(1Q|2Q|Full)(-v\d+)?$", env_id)
+    if m:
+        # ObstructedMaze_{1Q,2Q,Full}: a 3×3 RoomGrid of 6×6 rooms; the
+        # agent starts in the middle room, which opens onto
+        # ``num_quarters`` side rooms; each side room has two LOCKED doors
+        # toward its corners with the keys hidden in boxes and the doors
+        # blocked by balls; the target BLUE ball sits in one of the first
+        # ``num_quarters`` corner rooms. max_steps =
+        # 4·num_rooms_visited·room_size² with num_rooms_visited
+        # ∈ {1Q: 5, 2Q: 11, Full: 25} (upstream obstructedmaze.py).
+        q = {"1Q": 1, "2Q": 2, "Full": 4}[m.group(1)]
+        visited = {"1Q": 5, "2Q": 11, "Full": 25}[m.group(1)]
+        return EnvParams("obstructedfull", 16, 16, 4 * visited * 36, False,
+                         success="pickup_ball", target_color=BLUE, key_in_box=True,
+                         blocked_door=True, min_rooms=q, agent_room=(1, 1))
+    if re.match(r"MiniGrid-Playground(-v\d+)?$", env_id):
+        # PlaygroundEnv: 19×19 split into 3×3 rooms of 6×6, one CLOSED
+        # random-color door per internal wall segment (12 doors), twelve
+        # random key/ball/box objects of random colors, random agent
+        # start. No goal and no reward — episodes only truncate at
+        # max_steps=100 (upstream minigrid/envs/playground.py).
+        return EnvParams("playground", 19, 19, 100, False)
     if re.match(r"MiniGrid-BlockedUnlockPickup(-v\d+)?$", env_id):
         # BlockedUnlockPickupEnv: UnlockPickup plus a random-color ball
         # placed directly left of the locked door — the agent must move
@@ -248,6 +299,71 @@ def parse_env_id(env_id: str) -> EnvParams:
         # minigrid/envs/lockedroom.py — reconstructed; only size 19 is
         # registered).
         return EnvParams("lockedroom", 19, 19, 10 * 19, False)
+    m = re.match(r"MiniGrid-MemoryS(\d+)(Random)?(-v\d+)?$", env_id)
+    if m:
+        # MemoryEnv(size): the agent starts in a small room holding one
+        # green key-or-ball, walks a hallway, and must step onto the cell
+        # in front of the matching object at the fork (the wrong side
+        # terminates with 0); the two cells live in EnvState.target.
+        # max_steps = 5·size², see_through_walls=False (upstream
+        # minigrid/envs/memory.py). Registered: S7, S9, S11, S13,
+        # S13Random, S17Random.
+        size = int(m.group(1))
+        if size % 2 != 1 or size < 7:
+            raise ValueError("Memory needs an odd size of at least 7")
+        return EnvParams("memory", size, size, 5 * size * size, False,
+                         random_length=bool(m.group(2)), success="memory")
+    m = re.match(r"MiniGrid-GoToDoor-(\d+)x(\d+)(-v\d+)?$", env_id)
+    if m:
+        # GoToDoorEnv(size): the room's width and height are drawn per
+        # episode in [5, size]; four CLOSED doors of distinct colors, one
+        # per wall; the mission names one of them and ``done`` next to it
+        # earns the time-scaled reward; any toggle ends the episode.
+        # max_steps = 4·size², see_through_walls=True (upstream
+        # minigrid/envs/gotodoor.py). Registered: 5x5, 6x6, 8x8.
+        size = int(m.group(1))
+        if size != int(m.group(2)) or size < 5:
+            raise ValueError("GoToDoor needs a square grid of size at least 5")
+        return EnvParams("gotodoor", size, size, 4 * size * size, True, success="goto_door")
+    m = re.match(r"MiniGrid-Fetch-(\d+)x(\d+)-N(\d+)(-v\d+)?$", env_id)
+    if m:
+        # FetchEnv(size, numObjs): numObjs keys/balls of random colors
+        # (duplicate type+color pairs allowed); the mission names one
+        # (type, color) and picking ANY object ends the episode, with the
+        # time-scaled reward iff it matches. max_steps = 5·size²,
+        # see_through_walls=True (upstream fetch.py). Registered: 5x5-N2,
+        # 6x6-N2, 8x8-N3.
+        size = int(m.group(1))
+        if size != int(m.group(2)):
+            raise ValueError("only square Fetch grids are supported")
+        return EnvParams("fetch", size, size, 5 * size * size, True, success="fetch",
+                         num_objs=int(m.group(3)))
+    m = re.match(r"MiniGrid-GoToObject-(\d+)x(\d+)-N(\d+)(-v\d+)?$", env_id)
+    if m:
+        # GoToObjectEnv(size, numObjs): numObjs distinct (type, color)
+        # key/ball/box objects; ``done`` within Chebyshev distance 1 of the
+        # mission's target earns the time-scaled reward and ends the
+        # episode either way. max_steps = 5·size², see_through_walls=True
+        # (upstream gotoobject.py). Registered: 6x6-N2, 8x8-N2.
+        size = int(m.group(1))
+        if size != int(m.group(2)):
+            raise ValueError("only square GoToObject grids are supported")
+        return EnvParams("gotoobject", size, size, 5 * size * size, True,
+                         success="goto_object", num_objs=int(m.group(3)))
+    m = re.match(r"MiniGrid-PutNear-(\d+)x(\d+)-N(\d+)(-v\d+)?$", env_id)
+    if m:
+        # PutNearEnv(size, numObjs): numObjs distinct (type, color)
+        # key/ball/box objects, no two adjacent; the mission asks to put
+        # object A near object B — dropping A within Chebyshev distance 1
+        # of B earns the time-scaled reward; any drop of a carried object
+        # ends the episode, as does picking up the wrong object.
+        # max_steps = 5·size (a short horizon), see_through_walls=True
+        # (upstream putnear.py). Registered: 6x6-N2, 8x8-N3.
+        size = int(m.group(1))
+        if size != int(m.group(2)):
+            raise ValueError("only square PutNear grids are supported")
+        return EnvParams("putnear", size, size, 5 * size, True, success="putnear",
+                         num_objs=int(m.group(3)))
     m = re.match(r"MiniGrid-(Empty|DoorKey)(-Random)?-(\d+)x(\d+)(-v\d+)?$", env_id)
     if m:
         kind = m.group(1).lower()
@@ -264,14 +380,16 @@ def parse_env_id(env_id: str) -> EnvParams:
             raise ValueError(f"{env_id!r} is not ported yet: it comes with a later slice of the "
                              f"PyTorch/CUDA port, {slice_name}")
     raise ValueError(
-        f"unsupported MiniGrid env id: {env_id!r}. This slice of the port runs "
+        f"unsupported MiniGrid env id: {env_id!r}. The port runs "
         "MiniGrid-Empty[-Random]-NxN, MiniGrid-DoorKey-NxN, MiniGrid-FourRooms, "
         "MiniGrid-LavaGapSn, MiniGrid-DistShift{1,2}, MiniGrid-MultiRoom-Nn[-Ss], "
         "MiniGrid-{Simple,Lava}CrossingSsNn, MiniGrid-Dynamic-Obstacles[-Random]-NxN, "
         "MiniGrid-Unlock, MiniGrid-UnlockPickup, MiniGrid-BlockedUnlockPickup, "
-        "MiniGrid-ObstructedMaze-1Dl{,h,hb}, MiniGrid-KeyCorridorSsRr, MiniGrid-LockedRoom "
-        "and MiniGrid-RedBlueDoors-NxN (each with an optional -vK suffix); the mission "
-        "families and BabyAI come with a later slice."
+        "MiniGrid-ObstructedMaze-{1Dl,2Dl}{,h,hb}, MiniGrid-ObstructedMaze-{1Q,2Q,Full}, "
+        "MiniGrid-Playground, MiniGrid-KeyCorridorSsRr, MiniGrid-LockedRoom, "
+        "MiniGrid-RedBlueDoors-NxN, MiniGrid-MemoryS{n}[Random], MiniGrid-GoToDoor-NxN, "
+        "MiniGrid-Fetch-NxN-Nk, MiniGrid-GoToObject-NxN-Nk and MiniGrid-PutNear-NxN-Nk "
+        "(each with an optional -vK suffix); BabyAI comes with a later slice."
     )
 
 
@@ -335,11 +453,22 @@ def _rand_between(lo: torch.Tensor, hi: torch.Tensor, gen: torch.Generator) -> t
     return lo + torch.minimum((u * span).long(), span - 1)
 
 
-def _state(grid, agent_pos, agent_dir) -> EnvState:
+def _state(grid, agent_pos, agent_dir, target=None) -> EnvState:
+    """A fresh state: nothing carried, step 0, ``target`` [N, 8] or zeros."""
     n, device = grid.shape[0], grid.device
+    if target is None:
+        target = torch.zeros((n, 8), dtype=torch.int32, device=device)
     return EnvState(grid, agent_pos.long(), agent_dir.long(),
                     torch.zeros((n, 3), dtype=torch.int8, device=device),
-                    torch.zeros(n, dtype=torch.int32, device=device))
+                    torch.zeros(n, dtype=torch.int32, device=device), target.to(torch.int32))
+
+
+def _target(n: int, device, *columns) -> torch.Tensor:
+    """[N, 8] int32 mission target: ``columns`` ([N] each) first, zeros after."""
+    target = torch.zeros((n, 8), dtype=torch.int32, device=device)
+    for i, c in enumerate(columns):
+        target[:, i] = c
+    return target
 
 
 def _fixed_start(n: int, device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -872,11 +1001,270 @@ def _reset_multiroom(params: EnvParams, n: int, gen: torch.Generator, device) ->
     return _state(grid, agent_pos, agent_dir)
 
 
+def _reset_obstructedfull(params: EnvParams, n: int, gen: torch.Generator, device) -> EnvState:
+    """ObstructedMaze 2Dl*/1Q/2Q/Full: a 3×3 RoomGrid of 6×6 rooms (16×16
+    grid, walls at multiples of 5). Door colors are a permutation of the
+    six; for each of the first ``min_rooms`` quarters ``i`` the middle room
+    (1, 1) gets a CLOSED door on wall ``i`` (color ``i``) onto side room
+    ``SIDE[i]``, and the side room gets LOCKED doors on walls (i±1) % 4
+    with colors (i±1) % 6, each optionally blocked by a ball, never blue
+    (``c0 + (c0 ≥ BLUE)``), on the side-room cell before it. All doors and
+    blockers are placed before any key; the keys (optionally in a box whose
+    state is color + 1) go on free cells of the side room. The target BLUE
+    ball sits in one of the first ``min_rooms`` corners; the agent starts
+    in ``agent_room`` (the JAX package's ``_reset_obstructedfull``)."""
+    w, h = params.width, params.height
+    side = ((2, 1), (1, 2), (0, 1), (1, 0))
+    corner = ((2, 0), (2, 2), (0, 2), (0, 0))
+    grid = np.zeros((w, h, 3), dtype=np.int8)
+    grid[..., 0] = EMPTY
+    for t in range(4):
+        grid[t * 5, :, :] = [WALL, GREY, 0]
+        grid[:, t * 5, :] = [WALL, GREY, 0]
+    grid = torch.as_tensor(grid, device=device).expand(n, w, h, 3).clone()
+    xs, ys = _coords(w, h, device)
+    env = torch.arange(n, device=device)
+
+    def room_interior(i, j):
+        return (xs > i * 5) & (xs < (i + 1) * 5) & (ys > j * 5) & (ys < (j + 1) * 5)
+
+    def door_pos(i, j, d):
+        # wall ``d`` (DIR_TO_VEC order) of room (i, j) at an offset in [1, 4]
+        off = _randint(1, 5, n, gen, device)
+        if d == 0:
+            return torch.full_like(off, (i + 1) * 5), j * 5 + off
+        if d == 1:
+            return i * 5 + off, torch.full_like(off, (j + 1) * 5)
+        if d == 2:
+            return torch.full_like(off, i * 5), j * 5 + off
+        return i * 5 + off, torch.full_like(off, j * 5)
+
+    colors = torch.argsort(torch.rand((n, 6), generator=gen, device=device), dim=1)
+    for i in range(params.min_rooms):
+        si, sj = side[i]
+        x, y = door_pos(1, 1, i)
+        grid[env, x, y] = _cell(DOOR, colors[:, i], CLOSED, device)
+        for k in (-1, 1):
+            d = (i + k) % 4
+            x, y = door_pos(si, sj, d)
+            grid[env, x, y] = _cell(DOOR, colors[:, (i + k) % 6], LOCKED, device)
+            if params.blocked_door:
+                c0 = _randint(0, 5, n, gen, device)
+                grid[env, x - int(DIR_TO_VEC[d][0]), y - int(DIR_TO_VEC[d][1])] = _cell(
+                    BALL, c0 + (c0 >= BLUE).long(), 0, device)
+        for k in (-1, 1):
+            color = colors[:, (i + k) % 6]
+            kpos = _sample_free_cell((grid[..., 0] == EMPTY) & room_interior(si, sj), gen)
+            if params.key_in_box:
+                cell = _cell(BOX, _randint(0, 6, n, gen, device), color + 1, device)
+            else:
+                cell = _cell(KEY, color, 0, device)
+            grid[env, kpos[:, 0], kpos[:, 1]] = cell
+    ball_room = _randint(0, params.min_rooms, n, gen, device)
+    corners = torch.cat([room_interior(*corner[t]) for t in range(params.min_rooms)])
+    ball = _sample_free_cell(corners[ball_room] & (grid[..., 0] == EMPTY), gen)
+    grid[env, ball[:, 0], ball[:, 1]] = _cell(BALL, BLUE, 0, device)
+    agent_pos = _sample_free_cell((grid[..., 0] == EMPTY) & room_interior(*params.agent_room), gen)
+    return _state(grid, agent_pos, _randint(0, 4, n, gen, device))
+
+
+def _reset_playground(params: EnvParams, n: int, gen: torch.Generator, device) -> EnvState:
+    """PlaygroundEnv: 19×19, 3×3 rooms of 6×6 (walls at x, y ∈ {6, 12}),
+    one CLOSED random-color door per internal wall segment (12 doors, at
+    offsets 1–5 of their segment), the agent on any free cell first, then
+    12 random key/ball/box objects of random colors on free cells other
+    than the agent's. No goal, no reward (the JAX package's
+    ``_reset_playground``)."""
+    w, h = params.width, params.height
+    grid = np.zeros((w, h, 3), dtype=np.int8)
+    grid[..., 0] = EMPTY
+    for t in (0, 6, 12, w - 1):
+        grid[t, :, :] = [WALL, GREY, 0]
+        grid[:, t, :] = [WALL, GREY, 0]
+    grid = torch.as_tensor(grid, device=device).expand(n, w, h, 3).clone()
+    env = torch.arange(n, device=device)
+    for i in range(2):
+        for j in range(3):
+            off, color = _randint(1, 6, n, gen, device), _randint(0, 6, n, gen, device)
+            grid[env, (i + 1) * 6, j * 6 + off] = _cell(DOOR, color, CLOSED, device)
+            off, color = _randint(1, 6, n, gen, device), _randint(0, 6, n, gen, device)
+            grid[env, j * 6 + off, (i + 1) * 6] = _cell(DOOR, color, CLOSED, device)
+    xs, ys = _coords(w, h, device)
+    agent_pos = _sample_free_cell(grid[..., 0] == EMPTY, gen)
+    not_agent = ~_at(xs, ys, agent_pos)
+    types = torch.tensor([KEY, BALL, BOX], device=device)
+    for _ in range(12):
+        obj = types[_randint(0, 3, n, gen, device)]
+        color = _randint(0, 6, n, gen, device)
+        pos = _sample_free_cell((grid[..., 0] == EMPTY) & not_agent, gen)
+        grid[env, pos[:, 0], pos[:, 1]] = _cell(obj, color, 0, device)
+    return _state(grid, agent_pos, _randint(0, 4, n, gen, device))
+
+
+def _reset_memory(params: EnvParams, n: int, gen: torch.Generator, device) -> EnvState:
+    """MemoryEnv: a start room holding one green key-or-ball, a hallway to a
+    T-fork with a green ball and a green key on the far side of the
+    vertical wall at ``hallway_end`` (``w − 3``, or drawn in [4, w − 3] per
+    episode for the Random ids); the agent starts at a random x in
+    [1, hallway_end] of the middle row, facing right. The cell in front of
+    the object matching the start room's is the success cell, the other
+    side's the failure cell: ``target`` = [sx, sy, fx, fy, 0…] (the JAX
+    package's ``_reset_memory``)."""
+    w, h = params.width, params.height
+    mid = h // 2
+    upper, lower = mid - 2, mid + 2
+    if params.random_length:
+        hallway_end = _randint(4, w - 2, n, gen, device)
+    else:
+        hallway_end = torch.full((n,), w - 3, dtype=torch.int64, device=device)
+    he = hallway_end.reshape(n, 1, 1)
+    xs, ys = _coords(w, h, device)
+    border = (xs == 0) | (xs == w - 1) | (ys == 0) | (ys == h - 1)
+    start_room = ((ys == upper) | (ys == lower)) & (xs >= 1) & (xs <= 4)
+    start_corner = (xs == 4) & ((ys == upper + 1) | (ys == lower - 1))
+    hallway = ((ys == upper + 1) | (ys == lower - 1)) & (xs >= 5) & (xs < he)
+    vertical = (xs == he) & (ys != mid)
+    wall = border | start_room | start_corner | hallway | vertical
+    grid = torch.where(wall[..., None], _cell(WALL, GREY, 0, device), _cell(EMPTY, 0, 0, device))
+    env = torch.arange(n, device=device)
+    start_obj = torch.where(_randint(0, 2, n, gen, device) == 0, KEY, BALL)
+    grid[env, 1, mid - 1] = _cell(start_obj, GREEN, 0, device)
+    top_is_ball = _randint(0, 2, n, gen, device) == 0
+    top_obj = torch.where(top_is_ball, BALL, KEY)
+    bot_obj = torch.where(top_is_ball, KEY, BALL)
+    grid[env, hallway_end + 1, mid - 2] = _cell(top_obj, GREEN, 0, device)
+    grid[env, hallway_end + 1, mid + 2] = _cell(bot_obj, GREEN, 0, device)
+    top_matches = top_obj == start_obj
+    sx = hallway_end + 1
+    sy = torch.where(top_matches, mid - 1, mid + 1)
+    fy = torch.where(top_matches, mid + 1, mid - 1)
+    agent_x = _rand_between(torch.ones_like(hallway_end), hallway_end + 1, gen)
+    agent_pos = torch.stack([agent_x, torch.full_like(agent_x, mid)], dim=-1)
+    return _state(grid, agent_pos, torch.zeros(n, dtype=torch.int64, device=device),
+                  _target(n, device, sx, sy, sx, fy))
+
+
+def _reset_gotodoor(params: EnvParams, n: int, gen: torch.Generator, device) -> EnvState:
+    """GoToDoorEnv: the room's width and height are drawn per episode in
+    [5, size], and cells outside the room stay EMPTY; four CLOSED doors
+    (top, bottom, left, right, at offsets in [2, r − 3]) take the first 4
+    colors of a permutation; the agent starts on a free room cell; the
+    mission targets one door uniformly: ``target`` = [DOOR, color, x, y,
+    0…] (the JAX package's ``_reset_gotodoor``)."""
+    w, h = params.width, params.height
+    rw = _randint(5, w + 1, n, gen, device)
+    rh = _randint(5, h + 1, n, gen, device)
+    rwb, rhb = rw.reshape(n, 1, 1), rh.reshape(n, 1, 1)
+    xs, ys = _coords(w, h, device)
+    wall = ((((xs == 0) | (xs == rwb - 1)) & (ys < rhb))
+            | (((ys == 0) | (ys == rhb - 1)) & (xs < rwb)))
+    grid = torch.where(wall[..., None], _cell(WALL, GREY, 0, device), _cell(EMPTY, 0, 0, device))
+    two, zero = torch.full_like(rw, 2), torch.zeros_like(rw)
+    door_x = torch.stack([_rand_between(two, rw - 2, gen), _rand_between(two, rw - 2, gen),
+                          zero, rw - 1], dim=1)
+    door_y = torch.stack([zero, rh - 1, _rand_between(two, rh - 2, gen),
+                          _rand_between(two, rh - 2, gen)], dim=1)
+    colors = torch.argsort(torch.rand((n, 6), generator=gen, device=device), dim=1)[:, :4]
+    env = torch.arange(n, device=device)
+    for i in range(4):
+        grid[env, door_x[:, i], door_y[:, i]] = _cell(DOOR, colors[:, i], CLOSED, device)
+    agent_pos = _sample_free_cell((grid[..., 0] == EMPTY) & (xs < rwb) & (ys < rhb), gen)
+    agent_dir = _randint(0, 4, n, gen, device)
+    t = _randint(0, 4, n, gen, device)
+    return _state(grid, agent_pos, agent_dir,
+                  _target(n, device, DOOR, colors[env, t], door_x[env, t], door_y[env, t]))
+
+
+def _place_objects(grid: torch.Tensor, types: torch.Tensor, colors: torch.Tensor,
+                   gen: torch.Generator, spread: bool = False) -> torch.Tensor:
+    """Put object k of ``types``/``colors`` [N, K] on a uniform free cell of
+    each env, one after another; with ``spread`` no cell within Chebyshev
+    distance 1 of an earlier object is free. Returns the cells [N, K, 2]."""
+    n, w, h = grid.shape[:3]
+    device = grid.device
+    xs, ys = _coords(w, h, device)
+    env = torch.arange(n, device=device)
+    near_any = torch.zeros((n, w, h), dtype=torch.bool, device=device)
+    cells = []
+    for k in range(types.shape[1]):
+        pos = _sample_free_cell((grid[..., 0] == EMPTY) & ~near_any, gen)
+        grid[env, pos[:, 0], pos[:, 1]] = _cell(types[:, k], colors[:, k], 0, device)
+        if spread:
+            near_any |= (((xs - pos[:, 0].reshape(n, 1, 1)).abs() <= 1)
+                         & ((ys - pos[:, 1].reshape(n, 1, 1)).abs() <= 1))
+        cells.append(pos)
+    return torch.stack(cells, dim=1)
+
+
+def _distinct_objects(n: int, k: int, gen: torch.Generator, device):
+    """``k`` distinct (type, color) pairs over {key, ball, box} × 6 colors
+    per env: a uniform k-prefix of a permutation of the 18 pairs, the
+    distribution of upstream's draw-and-reject. Returns ([N, K], [N, K])."""
+    combo = torch.argsort(torch.rand((n, 18), generator=gen, device=device), dim=1)[:, :k]
+    return torch.tensor([KEY, BALL, BOX], device=device)[combo // 6], combo % 6
+
+
+def _reset_fetch(params: EnvParams, n: int, gen: torch.Generator, device) -> EnvState:
+    """FetchEnv: ``num_objs`` keys/balls of independently random types and
+    colors (duplicate pairs allowed) on free cells, the agent on a free
+    cell, and one object chosen as the mission: ``target`` = [type, color,
+    0…] (the JAX package's ``_reset_fetch``)."""
+    k = params.num_objs
+    grid = _base_grid(params, n, device, goal=False)
+    types = torch.where(_randint(0, 2, (n, k), gen, device) == 0, KEY, BALL)
+    colors = _randint(0, 6, (n, k), gen, device)
+    _place_objects(grid, types, colors, gen)
+    agent_pos = _sample_free_cell(grid[..., 0] == EMPTY, gen)
+    agent_dir = _randint(0, 4, n, gen, device)
+    env, t = torch.arange(n, device=device), _randint(0, k, n, gen, device)
+    return _state(grid, agent_pos, agent_dir, _target(n, device, types[env, t], colors[env, t]))
+
+
+def _reset_gotoobject(params: EnvParams, n: int, gen: torch.Generator, device) -> EnvState:
+    """GoToObjectEnv: ``num_objs`` DISTINCT (type, color) key/ball/box
+    objects on free cells, the agent on a free cell, one object as the
+    mission: ``target`` = [type, color, x, y, 0…] (the JAX package's
+    ``_reset_gotoobject``)."""
+    k = params.num_objs
+    grid = _base_grid(params, n, device, goal=False)
+    types, colors = _distinct_objects(n, k, gen, device)
+    cells = _place_objects(grid, types, colors, gen)
+    agent_pos = _sample_free_cell(grid[..., 0] == EMPTY, gen)
+    agent_dir = _randint(0, 4, n, gen, device)
+    env, t = torch.arange(n, device=device), _randint(0, k, n, gen, device)
+    return _state(grid, agent_pos, agent_dir, _target(
+        n, device, types[env, t], colors[env, t], cells[env, t, 0], cells[env, t, 1]))
+
+
+def _reset_putnear(params: EnvParams, n: int, gen: torch.Generator, device) -> EnvState:
+    """PutNearEnv: ``num_objs`` distinct (type, color) objects, no two
+    within Chebyshev distance 1 of each other; the mission moves object
+    ``mv`` near a DIFFERENT object ``t0 + (t0 ≥ mv)``: ``target`` =
+    [move_obj, move_color, near_obj, near_color, near_x, near_y, 0, 0]
+    (the JAX package's ``_reset_putnear``)."""
+    k = params.num_objs
+    grid = _base_grid(params, n, device, goal=False)
+    types, colors = _distinct_objects(n, k, gen, device)
+    cells = _place_objects(grid, types, colors, gen, spread=True)
+    agent_pos = _sample_free_cell(grid[..., 0] == EMPTY, gen)
+    agent_dir = _randint(0, 4, n, gen, device)
+    env = torch.arange(n, device=device)
+    mv = _randint(0, k, n, gen, device)
+    t0 = _randint(0, k - 1, n, gen, device)
+    tg = t0 + (t0 >= mv).long()
+    return _state(grid, agent_pos, agent_dir, _target(
+        n, device, types[env, mv], colors[env, mv], types[env, tg], colors[env, tg],
+        cells[env, tg, 0], cells[env, tg, 1]))
+
+
 _RESETS = {
     "empty": _reset_empty, "doorkey": _reset_doorkey, "fourrooms": _reset_fourrooms,
     "lavagap": _reset_lavagap, "distshift": _reset_distshift, "redblue": _reset_redblue,
     "lockedroom": _reset_lockedroom, "crossing": _reset_crossing, "dynobs": _reset_dynobs,
     "unlock": _reset_unlock, "keycorridor": _reset_keycorridor, "multiroom": _reset_multiroom,
+    "obstructedfull": _reset_obstructedfull, "playground": _reset_playground,
+    "memory": _reset_memory, "gotodoor": _reset_gotodoor, "fetch": _reset_fetch,
+    "gotoobject": _reset_gotoobject, "putnear": _reset_putnear,
 }
 
 
@@ -980,11 +1368,15 @@ def step(params: EnvParams, state: EnvState, action: torch.Tensor,
 
     Dynamic-Obstacles moves its balls first, by the [N, n_obstacles, 9]
     Gumbel draws ``gumbels`` (:func:`obstacle_gumbels`), drawn from ``gen``
-    when not given."""
+    when not given. ``state.target`` is carried unchanged."""
     device = state.grid.device
     n = state.grid.shape[0]
     env = torch.arange(n, device=device)
     action = action.long()
+    if params.success == "memory":
+        # Upstream MemoryEnv.step remaps pickup → toggle before the
+        # transition, so the fork objects cannot be picked up.
+        action = torch.where(action == A_PICKUP, A_TOGGLE, action)
     step_count = state.step_count + 1
     dir_vec = torch.as_tensor(DIR_TO_VEC, device=device)
 
@@ -1081,6 +1473,54 @@ def step(params: EnvParams, state: EnvState, action: torch.Tensor,
         won = reached_goal
         terminated = reached_goal | hit_lava
     reward = torch.where(won, time_reward, zero)
+    carrying = torch.where(does_pickup[:, None], fwd_cell,
+                           torch.where(does_drop[:, None], torch.zeros_like(fwd_cell),
+                                       state.carrying))
+
+    target = state.target
+    if params.success == "goto_door":
+        # GoToDoor (upstream gotodoor.py step): any toggle or ``done``
+        # terminates; ``done`` axially adjacent to the target door (same x
+        # within |Δy| < 2, or same y within |Δx| < 2) earns the reward.
+        tx, ty = target[:, 2], target[:, 3]
+        adjacent = (((new_pos[:, 0] == tx) & ((new_pos[:, 1] - ty).abs() < 2))
+                    | ((new_pos[:, 1] == ty) & ((new_pos[:, 0] - tx).abs() < 2)))
+        terminated = terminated | (action == A_TOGGLE) | (action == A_DONE)
+        reward = torch.where((action == A_DONE) & adjacent, time_reward, reward)
+    elif params.success == "fetch":
+        # Fetch (upstream fetch.py step): carrying anything after the step
+        # terminates, rewarded iff its (type, color) is the mission's.
+        has = carrying[:, 0] != 0
+        match = (carrying[:, 0].int() == target[:, 0]) & (carrying[:, 1].int() == target[:, 1])
+        terminated = terminated | has
+        reward = torch.where(has & match, time_reward, reward)
+    elif params.success == "goto_object":
+        # GoToObject (upstream gotoobject.py step): toggle or ``done``
+        # terminates; ``done`` within Chebyshev distance 1 of the target's
+        # position at reset earns the reward.
+        near = ((new_pos[:, 0] - target[:, 2]).abs() <= 1) & ((new_pos[:, 1] - target[:, 3]).abs() <= 1)
+        terminated = terminated | (action == A_TOGGLE) | (action == A_DONE)
+        reward = torch.where((action == A_DONE) & near, time_reward, reward)
+    elif params.success == "memory":
+        # Memory (upstream memory.py step): standing on the success cell
+        # after the step terminates with the reward, on the failure cell
+        # with 0.
+        on_success = (new_pos[:, 0] == target[:, 0]) & (new_pos[:, 1] == target[:, 1])
+        on_failure = (new_pos[:, 0] == target[:, 2]) & (new_pos[:, 1] == target[:, 3])
+        terminated = terminated | on_success | on_failure
+        reward = torch.where(on_success, time_reward, torch.where(on_failure, zero, reward))
+    elif params.success == "putnear":
+        # PutNear (upstream putnear.py step): a pickup that leaves the agent
+        # carrying anything but the move object terminates with 0; any drop
+        # action while carrying terminates, even one that fails, rewarded
+        # iff the object landed within Chebyshev distance 1 of the near
+        # target.
+        wrong_pickup = (action == A_PICKUP) & (carrying[:, 0] != 0) & ~(
+            (carrying[:, 0].int() == target[:, 0]) & (carrying[:, 1].int() == target[:, 1]))
+        drops = (action == A_DROP) & ~carrying_none
+        landed_near = does_drop & ((fx - target[:, 4]).abs() <= 1) & ((fy - target[:, 5]).abs() <= 1)
+        terminated = terminated | wrong_pickup | drops
+        reward = torch.where(drops & landed_near, time_reward, reward)
 
     if params.kind == "dynobs":
         # Forward into a pre-move-occupied non-goal cell → −1, episode over.
@@ -1088,11 +1528,8 @@ def step(params: EnvParams, state: EnvState, action: torch.Tensor,
         terminated = terminated | collided
         reward = torch.where(collided, torch.full_like(reward, -1.0), reward)
 
-    carrying = torch.where(does_pickup[:, None], fwd_cell,
-                           torch.where(does_drop[:, None], torch.zeros_like(fwd_cell),
-                                       state.carrying))
     truncated = step_count >= params.max_steps
-    new_state = EnvState(grid, new_pos, new_dir, carrying, step_count)
+    new_state = EnvState(grid, new_pos, new_dir, carrying, step_count, target)
     return new_state, reward, terminated, truncated
 
 

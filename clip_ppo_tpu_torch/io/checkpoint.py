@@ -94,6 +94,18 @@ def _onto(template, tree):
     return tree_map(check, template, tree)
 
 
+def _restore(template, stored):
+    """``stored`` (numpy leaves) as tensors of ``template``'s dtypes and
+    devices, its shapes checked; a dict entry that ``stored`` lacks (a
+    field added after the checkpoint was written) is left out."""
+    if isinstance(template, dict):
+        return {k: _restore(t, stored[k]) for k, t in template.items() if k in stored}
+    if isinstance(template, (list, tuple)):
+        return type(template)(_restore(t, a) for t, a in zip(template, stored))
+    a = torch.as_tensor(np.array(stored), dtype=template.dtype, device=template.device)
+    return _onto(template, a)
+
+
 def _jsonable(value):
     if isinstance(value, Enum):
         return value.value
@@ -149,7 +161,8 @@ def load_checkpoint(path: str, params_template: dict, opt_state_template: Any, d
     ``extra_templates``: optional ``{name: tree of tensors}``; each stored
     ``{name}_state`` is restored onto its template's structure, shapes,
     dtypes and devices into ``raw_checkpoint["extras"][name]``. Names the
-    checkpoint lacks are skipped."""
+    checkpoint lacks are skipped, and so are the dict entries of a stored
+    tree that lacks them."""
     print(f"Loading checkpoint from {path}")
     with open(path, "rb") as f:
         checkpoint = _Unpickler(f).load()
@@ -159,9 +172,7 @@ def load_checkpoint(path: str, params_template: dict, opt_state_template: Any, d
     for name, template in (extra_templates or {}).items():
         stored = checkpoint.get(f"{name}_state")
         if stored is not None:
-            tensors = tree_map(lambda t, a: torch.as_tensor(np.array(a), dtype=t.dtype,
-                                                            device=t.device), template, stored)
-            checkpoint.setdefault("extras", {})[name] = _onto(template, tensors)
+            checkpoint.setdefault("extras", {})[name] = _restore(template, stored)
     iteration, global_step = checkpoint["iteration"], checkpoint["global_step"]
     print(f"Checkpoint loaded: iteration {iteration}, global_step {global_step}")
     if checkpoint.get("training_complete", False):

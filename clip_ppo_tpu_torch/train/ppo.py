@@ -4,7 +4,9 @@ Port of ``clip_ppo_tpu/train/ppo.py`` (reference `ppo_minigrid.py:298-350`):
 ratio clipping, per-minibatch advantage normalization, clipped value loss,
 entropy bonus, approx-KL diagnostics, global-norm gradient clipping,
 Adam(eps=1e-5), a per-iteration learning rate, and optional target-KL
-early stopping at epoch granularity.
+early stopping at epoch granularity. The LSTM agent's update
+(``update_epochs_recurrent``) minibatches over envs and replays each
+slice's sequences through the cell.
 
 The optimizer is written out in optax's form, the one the JAX package uses:
 ``clip_by_global_norm`` scales a gradient by ``max_norm / ‖g‖`` (divide, then
@@ -31,6 +33,7 @@ import torch
 
 from clip_ppo_tpu_torch.models import agent as agent_mod
 from clip_ppo_tpu_torch.models import nature_cnn as cnn
+from clip_ppo_tpu_torch.models import recurrent as rec
 from clip_ppo_tpu_torch.models.clip_utils import CLIP_LOSS_FREQUENCY, compute_cosine_embedding_loss
 from clip_ppo_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -186,9 +189,12 @@ def _ppo_from_eval(params, mb, cfg, newlogprob, entropy, newvalue, hidden,
 # ---------------------------------------------------------------------------
 
 
-def draw_permutations(cfg: PPOConfig, gen: torch.Generator, device) -> torch.Tensor:
-    """[update_epochs, batch_size] minibatch shuffles."""
-    return torch.stack([torch.randperm(cfg.batch_size, generator=gen, device=device)
+def draw_permutations(cfg: PPOConfig, gen: torch.Generator, device,
+                      size: Optional[int] = None) -> torch.Tensor:
+    """[update_epochs, size] minibatch shuffles (``size`` defaults to the
+    batch size; the recurrent update shuffles the ``num_envs`` envs)."""
+    size = cfg.batch_size if size is None else size
+    return torch.stack([torch.randperm(size, generator=gen, device=device)
                         for _ in range(cfg.update_epochs)])
 
 
@@ -221,21 +227,89 @@ def update_epochs(
         permutations = draw_permutations(cfg, gen, batch["actions"].device)
     if clip_embeddings is not None:
         batch = dict(batch, clip_embeddings=clip_embeddings)
+
+    def minibatch(epoch: int, i: int) -> dict:
+        idx = permutations[epoch][i * cfg.minibatch_size:(i + 1) * cfg.minibatch_size]
+        return {k: v[idx] for k, v in batch.items()}
+
+    def loss_fn(live_params, mb, mb_counter):
+        use_clip = mb_counter % CLIP_LOSS_FREQUENCY == 0
+        return ppo_loss(live_params, mb, cfg, features_fn, mb.get("clip_embeddings"),
+                        clip_lambda_eff, use_clip, frozen)
+
+    return _run_epochs(params, opt_state, cfg, lr, minibatch, loss_fn)
+
+
+def recurrent_loss(params: dict, mb: dict, cfg: PPOConfig, features_fn, frozen=None):
+    """Minibatch loss of the LSTM agent. ``mb`` holds [T, n, ...]
+    sequences of a slice of n envs (obs, actions, logprobs, advantages,
+    returns, values, dones) and their iteration-initial cell state h0/c0
+    [n, H]. The trunk runs over the whole [T·n] batch at once; only the
+    cell replays step by step, with the rollout's done-resets, so at
+    unchanged parameters the latents are the rollout's."""
+    t, n = mb["actions"].shape
+    obs = mb["obs"]
+    feats = features_fn(params, obs.reshape((t * n,) + tuple(obs.shape[2:])), frozen)
+    hs, _ = rec.unroll(params["lstm"], feats.reshape(t, n, -1), mb["dones"], (mb["h0"], mb["c0"]))
+    latents = rec.latent(feats.reshape(t, n, -1), hs)
+    logits, newvalue = agent_mod.heads(params, latents)
+    newlogprob, entropy = agent_mod.logprob_entropy(logits, mb["actions"])
+    return _ppo_from_eval(params, mb, cfg, newlogprob, entropy, newvalue, latents,
+                          None, 0.0, False)
+
+
+def update_epochs_recurrent(
+    params: dict,
+    opt_state: dict,
+    batch: dict,
+    initial_lstm_state: tuple[torch.Tensor, torch.Tensor],
+    cfg: PPOConfig,
+    lr: float,
+    features_fn: agent_mod.FeatureFn = agent_mod.cnn_features,
+    permutations: Optional[torch.Tensor] = None,
+    gen: Optional[torch.Generator] = None,
+    frozen=None,
+) -> tuple[dict, dict, dict]:
+    """PPO epochs of the LSTM agent: the minibatches are slices of envs
+    (CleanRL ``ppo_atari_lstm``), so each replays its envs' whole [T]
+    sequences from the iteration's initial (h, c). ``batch`` stays in
+    rollout layout [T, N, ...] and holds ``dones``; ``permutations``
+    [update_epochs, num_envs] (else drawn from ``gen``) shuffle the envs.
+    Returns what :func:`update_epochs` returns."""
+    if cfg.num_envs % cfg.num_minibatches:
+        raise ValueError(f"recurrent PPO minibatches over envs: num_envs={cfg.num_envs} not "
+                         f"divisible by num_minibatches={cfg.num_minibatches}")
+    epm = cfg.num_envs // cfg.num_minibatches
+    if permutations is None:
+        permutations = draw_permutations(cfg, gen, batch["actions"].device, cfg.num_envs)
+    h0, c0 = initial_lstm_state
+
+    def minibatch(epoch: int, i: int) -> dict:
+        idx = permutations[epoch][i * epm:(i + 1) * epm]
+        mb = {k: v[:, idx] for k, v in batch.items()}
+        mb["h0"], mb["c0"] = h0[idx], c0[idx]
+        return mb
+
+    def loss_fn(live_params, mb, mb_counter):
+        return recurrent_loss(live_params, mb, cfg, features_fn, frozen)
+
+    return _run_epochs(params, opt_state, cfg, lr, minibatch, loss_fn)
+
+
+def _run_epochs(params: dict, opt_state: dict, cfg: PPOConfig, lr: float, minibatch, loss_fn):
+    """The epoch and minibatch loops: ``minibatch(epoch, i)`` gives a
+    minibatch, ``loss_fn(params, mb, counter)`` its (loss, aux)."""
     leaves = tree_leaves(params)
     stop = torch.zeros((), dtype=torch.bool, device=leaves[0].device)
     mb_counter = 0
     auxes = []
     for epoch in range(cfg.update_epochs):
-        perm = permutations[epoch]
         for i in range(cfg.num_minibatches):
-            idx = perm[i * cfg.minibatch_size:(i + 1) * cfg.minibatch_size]
-            mb = {k: v[idx] for k, v in batch.items()}
-            use_clip = mb_counter % CLIP_LOSS_FREQUENCY == 0
+            mb = minibatch(epoch, i)
             live = [p.detach().requires_grad_(True) for p in leaves]
             live_params = tree_unflatten(params, live)
             with torch.enable_grad():
-                loss, aux = ppo_loss(live_params, mb, cfg, features_fn,
-                                     mb.get("clip_embeddings"), clip_lambda_eff, use_clip, frozen)
+                loss, aux = loss_fn(live_params, mb, mb_counter)
                 # A parameter the loss does not reach (the conv trunk under
                 # FROZEN_CLIP) gets a zero gradient, as jax.grad gives it;
                 # Adam then leaves it and its moments at rest.

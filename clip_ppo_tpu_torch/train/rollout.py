@@ -21,6 +21,10 @@ A feature trunk may offer ``fixed(params)``, a copy of itself for params
 that do not change; the rollout calls it once, so the view fast path's
 conv1 weight pre-sum (``agent.ViewFeatures``) is computed once a rollout
 and not at each of its steps.
+
+``collect_rollout_recurrent`` is the LSTM agent's rollout
+(``--recurrent``): the same loop, with the cell between the trunk and the
+heads and its (h, c) carried across the steps.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from typing import Any, NamedTuple, Optional, Sequence
 import torch
 
 from clip_ppo_tpu_torch.models import agent as agent_mod
+from clip_ppo_tpu_torch.models import recurrent as rec
 from clip_ppo_tpu_torch.ops.disturbances import DisturbanceDraws, disturb_auto
 from clip_ppo_tpu_torch.ops.severity import DisturbanceParams
 
@@ -80,11 +85,70 @@ def collect_rollout(
     ``features_fn`` must be the matching view trunk
     (``agent.make_view_features``). A disturbed 84×84 image is no longer a
     tile replication, so it excludes ``disturbance``."""
-    if small_obs and disturbance is not None:
-        raise ValueError("the view fast path cannot apply image-space disturbances")
     fixed = getattr(features_fn, "fixed", None)
     if fixed is not None:
         features_fn = fixed(params)
+
+    def act(obs, next_done, gumbel):
+        return agent_mod.get_action_and_value_gumbel(params, obs, gumbel, features_fn, frozen)
+
+    return _collect(act, env, vec_state, obs, next_done, gen, num_steps, disturbance,
+                    disturbance_semantics, capture_video, collect_desc, gumbels, disturb_draws,
+                    small_obs, env_draws)
+
+
+def collect_rollout_recurrent(
+    params: dict,
+    env,
+    vec_state,
+    obs: torch.Tensor,
+    next_done: torch.Tensor,
+    lstm_state: tuple[torch.Tensor, torch.Tensor],
+    gen: torch.Generator,
+    num_steps: int,
+    disturbance: Optional[DisturbanceParams] = None,
+    disturbance_semantics: str = "batched",
+    features_fn: agent_mod.FeatureFn = agent_mod.cnn_features,
+    capture_video: bool = False,
+    frozen=None,
+    gumbels: Optional[torch.Tensor] = None,
+    disturb_draws: Optional[Sequence[DisturbanceDraws]] = None,
+    small_obs: bool = False,
+    env_draws: Optional[Sequence[Any]] = None,
+):
+    """:func:`collect_rollout` for the LSTM agent (``models/recurrent.py``):
+    each step's trunk features go through the cell, whose (h, c) is zeroed
+    where ``next_done`` marks an episode boundary entering the step, and the
+    heads read ``concat(features, h)``. Returns (vec_state, obs, next_done,
+    lstm_state, RolloutBatch): the carried state after the last step. The
+    update replays from the state the rollout started with, which the
+    caller keeps."""
+    fixed = getattr(features_fn, "fixed", None)
+    if fixed is not None:
+        features_fn = fixed(params)
+    carry = [lstm_state]
+
+    def act(obs, next_done, gumbel):
+        feats = features_fn(params, obs, frozen)
+        h, carry[0] = rec.masked_lstm_step(params["lstm"], feats, carry[0], next_done)
+        logits, value = agent_mod.heads(params, rec.latent(feats, h))
+        action = torch.argmax(logits + gumbel, dim=-1)
+        logp, _ = agent_mod.logprob_entropy(logits, action)
+        return action, logp, value
+
+    vec_state, obs, next_done, batch = _collect(
+        act, env, vec_state, obs, next_done, gen, num_steps, disturbance, disturbance_semantics,
+        capture_video, False, gumbels, disturb_draws, small_obs, env_draws)
+    return vec_state, obs, next_done, carry[0], batch
+
+
+def _collect(act, env, vec_state, obs, next_done, gen, num_steps, disturbance,
+             disturbance_semantics, capture_video, collect_desc, gumbels, disturb_draws,
+             small_obs, env_draws):
+    """The rollout loop; ``act(obs, next_done, gumbel)`` → (action,
+    logprob, value) is the policy's step."""
+    if small_obs and disturbance is not None:
+        raise ValueError("the view fast path cannot apply image-space disturbances")
     device = obs.device
     n = obs.shape[0]
     if gumbels is None:
@@ -104,8 +168,7 @@ def collect_rollout(
                                  None if disturb_draws is None else disturb_draws[t],
                                  disturbance_semantics)
                 obs = (torch.clamp(x, 0.0, 1.0) * 255.0).to(torch.uint8)
-            action, logprob, value = agent_mod.get_action_and_value_gumbel(
-                params, obs, gumbels[t], features_fn, frozen)
+            action, logprob, value = act(obs, next_done, gumbels[t])
             if collect_desc:
                 for k, v in env.rollout_desc(vec_state).items():
                     desc.setdefault(k, []).append(v)

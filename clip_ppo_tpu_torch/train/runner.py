@@ -1,7 +1,8 @@
 """Training runner: rollout → GAE → PPO update per iteration, on one device.
 
 Port of ``clip_ppo_tpu/train/runner.py``'s ``Trainer`` for the paths the
-port runs: the feed-forward agent with the Nature-CNN trunk (on the raw
+port runs: the feed-forward agent or the LSTM agent (``recurrent``,
+vanilla PPO only) with the Nature-CNN trunk (on the raw
 7×7 views when nothing needs the 84×84 image, the view fast path) or with
 the frozen CLIP vision tower as its trunk (FROZEN_CLIP, a ``features_fn``
 reading ``frozen["clip"]``), optional batched or per-image disturbances, the
@@ -34,6 +35,8 @@ import numpy as np
 import torch
 
 from clip_ppo_tpu_torch.models import agent as agent_mod
+from clip_ppo_tpu_torch.models import nature_cnn as cnn
+from clip_ppo_tpu_torch.models import recurrent as rec
 from clip_ppo_tpu_torch.models.clip_utils import get_clip_lambda_with_warmup
 from clip_ppo_tpu_torch.ops.disturbances import DisturbanceDraws, check_semantics
 from clip_ppo_tpu_torch.ops.severity import DisturbanceParams
@@ -58,6 +61,7 @@ class TrainState:
     obs: torch.Tensor
     next_done: torch.Tensor
     gen: torch.Generator
+    lstm_state: Optional[tuple] = None  # the LSTM agent's per-env (h, c), [N, H] each
 
 
 class Draws(NamedTuple):
@@ -67,7 +71,9 @@ class Draws(NamedTuple):
     permutations, RANDOM_ENCODER's [batch_size·frames, embed_dim] standard
     normals (drawn after the rollout and before the permutations, as the
     JAX package splits its key), and the env's own draws, one per step (the
-    Atari games' serves and spawns, Dynamic-Obstacles' ball moves)."""
+    Atari games' serves and spawns, Dynamic-Obstacles' ball moves). The LSTM
+    agent's update shuffles envs: its permutations are
+    [update_epochs, num_envs]."""
 
     gumbels: Optional[torch.Tensor] = None
     disturb: Optional[Sequence[DisturbanceDraws]] = None
@@ -112,6 +118,12 @@ class Trainer:
             ``clip_warmup_fraction`` of the iterations).
         frozen_params: non-optimized tensors the embedding fn reads
             (``{"text_table": ...}`` or ``{"clip": clip_params}``).
+        recurrent: the LSTM agent (``models/recurrent.py``): the rollout
+            carries the cell's (h, c) in ``TrainState.lstm_state``, and the
+            update minibatches over envs, replaying each slice's sequences
+            from the iteration's initial state. Vanilla PPO only (no CLIP
+            modality), with ``num_envs`` divisible by ``num_minibatches``,
+            as in the JAX package (`runner.py:148-166`).
     """
 
     def __init__(
@@ -137,7 +149,6 @@ class Trainer:
     ):
         later = {
             "mesh": (mesh is not None, "the multi-GPU slice"),
-            "recurrent": (recurrent, "the extensions slice"),
             "exploration_bonus": (exploration_bonus > 0.0 or episodic_bonus > 0.0,
                                   "the extensions slice"),
             "mission_conditioning": (mission_conditioning, "the extensions slice"),
@@ -145,6 +156,17 @@ class Trainer:
         for name, (requested, slice_name) in later.items():
             if requested:
                 raise NotImplementedError(f"Trainer: {name} comes with {slice_name} of the port")
+        if recurrent:
+            # LSTM minibatches are env slices; the CLIP embedding paths pair
+            # flat minibatches with precomputed embeddings and are not wired
+            # through the sequence replay (nor are they in the JAX package).
+            if (embed_images_fn is not None or embed_desc_fn is not None
+                    or embed_random_fn is not None or clip_lambda != 0.0):
+                raise ValueError("--recurrent supports vanilla PPO only (no CLIP modality)")
+            if cfg.num_envs % cfg.num_minibatches:
+                raise ValueError(f"recurrent PPO minibatches over envs: num_envs={cfg.num_envs} "
+                                 f"not divisible by num_minibatches={cfg.num_minibatches}")
+        self.recurrent = recurrent
         self.cfg = cfg
         self.env = env
         self.num_iterations = num_iterations
@@ -176,6 +198,10 @@ class Trainer:
         vec_state, obs = self.env.reset_fn(gen)
         if self.view_mode:
             obs = self.env.observe_view_fn(vec_state)
+        lstm_state = None
+        if self.recurrent:
+            lstm_state = rec.init_zero_state(self.env.num_envs, params["lstm"]["w_hh"].shape[0],
+                                             self.env.device)
         return TrainState(
             params=params,
             opt_state=ppo_mod.init_adam_state(params),
@@ -183,6 +209,7 @@ class Trainer:
             obs=obs,
             next_done=torch.zeros(self.env.num_envs, device=self.env.device),
             gen=gen,
+            lstm_state=lstm_state,
         )
 
     def clip_lambda_eff(self, iteration: int) -> float:
@@ -193,6 +220,17 @@ class Trainer:
     # -- one iteration -------------------------------------------------------
 
     def _rollout(self, state: TrainState, draws: Draws, collect_desc: bool = False):
+        if self.recurrent:
+            vec_state, obs, next_done, lstm_state, batch = rollout_mod.collect_rollout_recurrent(
+                state.params, self.env, state.vec_state, state.obs, state.next_done,
+                state.lstm_state, state.gen, self.cfg.num_steps, self.disturbance,
+                self.disturbance_semantics, self.features_fn, self.capture_env0,
+                self.frozen_params, gumbels=draws.gumbels, disturb_draws=draws.disturb,
+                small_obs=self.view_mode, env_draws=draws.env,
+            )
+            state = dataclasses.replace(state, vec_state=vec_state, obs=obs, next_done=next_done,
+                                        lstm_state=lstm_state)
+            return state, batch
         vec_state, obs, next_done, batch = rollout_mod.collect_rollout(
             state.params, self.env, state.vec_state, state.obs, state.next_done, state.gen,
             self.cfg.num_steps, self.disturbance, self.disturbance_semantics, self.features_fn,
@@ -205,15 +243,27 @@ class Trainer:
         return state, batch
 
     def _data2d(self, state: TrainState, batch: rollout_mod.RolloutBatch) -> dict:
-        """GAE and the update inputs in rollout layout [T, N, ...]."""
+        """GAE and the update inputs in rollout layout [T, N, ...]; the LSTM
+        agent's bootstrap value goes through the carried cell state with the
+        done-reset the next rollout step would apply, and its update inputs
+        hold the per-step ``dones`` its replay needs."""
         with torch.no_grad():
-            next_value = agent_mod.get_value(state.params, state.obs, self.features_fn,
-                                             self.frozen_params)
+            if self.recurrent:
+                feats = self.features_fn(state.params, state.obs, self.frozen_params)
+                h, _ = rec.masked_lstm_step(state.params["lstm"], feats, state.lstm_state,
+                                            state.next_done)
+                next_value = cnn.dense(state.params["critic"], rec.latent(feats, h))[..., 0]
+            else:
+                next_value = agent_mod.get_value(state.params, state.obs, self.features_fn,
+                                                 self.frozen_params)
             advantages, returns = gae_mod.compute_gae(
                 batch.rewards, batch.values, batch.dones, next_value, state.next_done,
                 self.cfg.gamma, self.cfg.gae_lambda)
-        return {"obs": batch.obs, "actions": batch.actions, "logprobs": batch.logprobs,
+        data = {"obs": batch.obs, "actions": batch.actions, "logprobs": batch.logprobs,
                 "advantages": advantages, "returns": returns, "values": batch.values}
+        if self.recurrent:
+            data["dones"] = batch.dones
+        return data
 
     @staticmethod
     def _flatten(data: dict) -> dict:
@@ -226,13 +276,23 @@ class Trainer:
                 if self.cfg.anneal_lr else self.cfg.learning_rate)
 
     def _update(self, state: TrainState, data: dict, iteration: int,
-                clip_embeddings: Optional[torch.Tensor], draws: Draws):
+                clip_embeddings: Optional[torch.Tensor], draws: Draws,
+                initial_lstm_state: Optional[tuple] = None):
         lr = self.learning_rate(iteration)
-        params, opt_state, metrics = ppo_mod.update_epochs(
-            state.params, state.opt_state, self._flatten(data), self.cfg, lr,
-            self.features_fn, clip_embeddings, self.clip_lambda_eff(iteration),
-            permutations=draws.permutations, gen=state.gen, frozen=self.frozen_params,
-        )
+        if self.recurrent:
+            # data stays in rollout layout: the minibatches are env slices
+            # whose [T] sequences replay from the iteration's initial state
+            params, opt_state, metrics = ppo_mod.update_epochs_recurrent(
+                state.params, state.opt_state, data, initial_lstm_state, self.cfg, lr,
+                self.features_fn, permutations=draws.permutations, gen=state.gen,
+                frozen=self.frozen_params,
+            )
+        else:
+            params, opt_state, metrics = ppo_mod.update_epochs(
+                state.params, state.opt_state, self._flatten(data), self.cfg, lr,
+                self.features_fn, clip_embeddings, self.clip_lambda_eff(iteration),
+                permutations=draws.permutations, gen=state.gen, frozen=self.frozen_params,
+            )
         state = dataclasses.replace(state, params=params, opt_state=opt_state)
         device = data["values"].device
         scalars = {
@@ -285,10 +345,14 @@ class Trainer:
         """One full iteration. Returns (state, scalars, episode_stats,
         batch, data): the RolloutBatch and the GAE'd update inputs, both in
         rollout layout [T, N, ...]."""
+        # The LSTM agent's update replays from the iteration's INITIAL cell
+        # state; the rollout carries state.lstm_state past the iteration.
+        initial_lstm_state = state.lstm_state
         state, batch = self._rollout(state, draws)
         data = self._data2d(state, batch)
         clip_embeddings = self.embed(batch, data, state.gen, draws.random_embeddings)
-        state, scalars = self._update(state, data, iteration, clip_embeddings, draws)
+        state, scalars = self._update(state, data, iteration, clip_embeddings, draws,
+                                      initial_lstm_state)
         return state, scalars, self._stats(batch, data), batch, data
 
     @staticmethod

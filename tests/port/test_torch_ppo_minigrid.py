@@ -146,7 +146,7 @@ def _args(tmp_path, *extra):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--recurrent"], "--recurrent.*extensions slice"),
+    (["--recurrent", "--num-envs", "3"], "--recurrent.*not divisible"),
     (["--mission-conditioning"], "--mission-conditioning.*extensions slice"),
     (["--exploration-bonus", "0.01"], "--exploration-bonus.*extensions slice"),
     (["--episodic-bonus", "0.01"], "--episodic-bonus.*extensions slice"),
