@@ -15,7 +15,9 @@ non-zero at once:
    own;
 2. kernels — each kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it (K2 and K3 at [1024,77,512] for the
-   text table and for phase 13's split path): K1 at every severity, at the shapes
+   text tables and the split paths, and at a table's last batch of 1,024:
+   [420,77,512] for FourRooms, [912,77,512] for BabyAI-GoTo; a row of
+   ``BLOCK_CASES`` stands for one path or a tuple of them): K1 at every severity, at the shapes
    of ``K1_CASES`` (a ragged band, one channel, bands thinner than the
    halo, clusters of 8) and in the main path's mode, noise drawn in the
    kernel, against the plain version fed the kernel's own normals (the
@@ -135,7 +137,8 @@ non-zero at once:
     with crafted states facing each success target, stepped 24 times on
     the card and on the CPU with the same actions and ball draws: views,
     states and flags equal, rewards equal as float32, a success reached in
-    each; (b) ``ppo_minigrid`` for 2 iterations on each, its steady
+    each; (b) ``ppo_minigrid`` for 2 iterations on six of them
+    (``FAMILY_VANILLA``), its steady
     env-steps/s, and the kernels a rollout step launches (the rollout's bulk
     reset included) from two short traces; (c) ``clip_ppo_minigrid``
     in the text modality under HARD on FourRooms (the 1,444-row table, K2
@@ -152,7 +155,7 @@ non-zero at once:
     (``done`` at GoToDoor's door and GoToObject's object, Fetch's pickup,
     PutNear's drop beside its near object, Memory's success cell) with
     ``EnvState.target`` carried, a success reached in each but Playground,
-    which has none; (b) as 13b on each; (c) ``ppo_minigrid --recurrent`` on
+    which has none; (b) as 13b on four (``MISSION_VANILLA``); (c) ``ppo_minigrid --recurrent`` on
     MemoryS7 (the LSTM agent, no kernel) for 2 iterations, and one steady
     iteration's rollout and update timed apart, with the kernels each
     launches (from traces of 4- and 8-step iterations, extrapolated to 128
@@ -162,6 +165,23 @@ non-zero at once:
     128 times, each held against its plain version in phase 2 (path
     ``gotodoor``); (e) the image modality under HARD on
     ObstructedMaze-1Q (opaque walls).
+
+15. babyai — the BabyAI levels that ``EnvState.target`` decides: (a) as
+    13a on one id of each generator (``BABYAI_RUNS``), with crafted states
+    for each of the six success modes (``done`` facing a GoTo target, a
+    drop beside PutNext's fixed object, a matching pickup, a toggle of the
+    mission's door — its key in hand where it is locked — and
+    ActionObjDoor's verb on its object) and PickupDistDebug's strict
+    failure, a success reached in each; (b) as 13b on the largest
+    (``BABYAI_VANILLA``), the bulk reset's launches beside a step's;
+    (c) ``clip_ppo_minigrid`` in the text modality under HARD on
+    BabyAI-GoTo (22×22, whose x = 0 column is wall in every reset: the
+    1,936-row table, K2 and K3 12 times each at [1024,77,512] and at
+    [912,77,512] at startup, path ``babyai_text``)
+    and (d) the image modality under HARD on BabyAI-OpenDoorLoc (K2 and K5
+    12 times an iteration, path ``babyai_image``), K1 128 times an
+    iteration in each; each kernel is held against its plain version at
+    those shapes in phase 2.
 
 Besides, phase 2 holds K4–K8 in bf16 (their bf16 entry points) against
 their plain bf16 versions (``BF16_CASES``), K4 and K8 timed beside
@@ -175,7 +195,10 @@ at ViT-B/16 in bf16 and float32, launches of every call checked; phase 9
 also checks ViT-L/14's bf16 features against the plain bf16 route on the
 CPU on the default route and under both switches, and profiles one
 batch-256 bf16 image call of each. Every kernel of the ``kernels`` line
-must have been launched on its path.
+must have been launched on each of its paths (``launches_by_path``;
+``launches`` is their sum); on the ``clip_ppo_minigrid`` runs of phases
+13-15 a row counts its kernel's launches at its own shape
+(``cuda_build.LAUNCH_SHAPES``), elsewhere all of its kernel's launches.
 
 The paths of phases 3 to 8 before the switch runs, and of phases 10 and
 11, run with every switch unset, and their launch checks hold K6 and K7
@@ -573,14 +596,12 @@ def phase_kernels(card: dict) -> list[dict]:
     results.append({
         "name": "disturb", "route": "cuda", "source": "clip_ppo_tpu_torch/csrc/disturb.cu",
         "replaces": "clip_ppo_tpu/ops/pallas_disturb.py:76", "shape": "[8,84,84,3]",
-        "path": "text", "max_abs_err": worst,
+        "path": ("text", *FAMILY_CLIP_PATHS), "max_abs_err": worst,
         "max_rel_err": worst_rel, "tolerance": 1e-5, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None, "device_ms": k1_device_ms, "ctas": dk.CLUSTER_CTAS,
         "empty_ms": empty_ms, "empty_device_ms": empty_device_ms,
         "ms_8_ctas": timed[8][0], "device_ms_8_ctas": timed[8][1],
     })
-    # the same shape and mode on GoToDoor-8x8's split path (phase 14)
-    results.append(dict(results[-1], path="gotodoor"))
     # One frame of the Atari rollout's [8, 84, 84, 4] stacks under
     # stack_frames (4 launches a step), HARD, noise drawn in the kernel.
     x1 = torch.rand((8, 84, 84, 1), generator=gen, device=dev)
@@ -647,15 +668,23 @@ def _source(name: str) -> tuple[str, str]:
     return f"clip_ppo_tpu_torch/csrc/{src}", f"clip_ppo_tpu/models/clip/pallas_block.py:{line}"
 
 
-BLOCK_CASES = [  # (kernel, B, T, D, causal, path, timed); rows of no path stay out of the kernels line
-    ("attn_block", 1024, 77, 512, True, "text", True),  # text table
-    ("mlp_block", 1024, 77, 512, False, "text", True),
-    ("attn_block", 1024, 77, 512, True, "split", True),  # MultiRoom's split path, an iteration
-    ("mlp_block", 1024, 77, 512, False, "split", True),
-    ("attn_block", 1024, 77, 512, True, "gotodoor", True),  # GoToDoor-8x8's split path
-    ("mlp_block", 1024, 77, 512, False, "gotodoor", True),
-    ("attn_block", 1024, 50, 768, False, "image", True),  # ViT-B/32 vision
-    ("mlp_stream", 1024, 50, 768, False, "image", True),
+# The family runs of phases 13-15 (FAMILY_CLIP_RUNS and after): each path's
+# text or image shapes. A text table of R rows encodes in batches of 1,024, so
+# its last batch has R mod 1,024 rows; a split path encodes 1,024 a step.
+TEXT_1024 = ("text", "fourrooms", "split", "gotodoor", "babyai_text")
+IMAGE_1024 = ("image", "lavacrossing", "obstructedmaze", "babyai_image")
+FAMILY_CLIP_PATHS = ("fourrooms", "split", "lavacrossing", "gotodoor", "obstructedmaze",
+                     "babyai_text", "babyai_image")
+
+BLOCK_CASES = [  # (kernel, B, T, D, causal, path or paths, timed); rows of no path stay out of the kernels line
+    ("attn_block", 1024, 77, 512, True, TEXT_1024, True),  # text tables, split paths
+    ("mlp_block", 1024, 77, 512, False, TEXT_1024, True),
+    ("attn_block", 420, 77, 512, True, "fourrooms", True),  # FourRooms' 1,444 rows: the last batch
+    ("mlp_block", 420, 77, 512, False, "fourrooms", True),
+    ("attn_block", 912, 77, 512, True, "babyai_text", True),  # BabyAI-GoTo's 1,936: the last batch
+    ("mlp_block", 912, 77, 512, False, "babyai_text", True),
+    ("attn_block", 1024, 50, 768, False, IMAGE_1024, True),  # ViT-B/32 vision
+    ("mlp_stream", 1024, 50, 768, False, IMAGE_1024, True),
     ("attn_block", 1024, 77, 768, True, "benchmark", True),  # ViT-L/14 text
     ("mlp_stream", 256, 257, 1024, False, "benchmark", True),  # ViT-L/14 vision
     ("mlp_stream", 1024, 77, 768, False, "benchmark", True),  # ViT-L/14 text
@@ -1247,9 +1276,7 @@ def phase_slice(results: list[dict], card: dict, modality: str,
     if not any(c.endswith("_final.ckpt") for c in ckpts):
         fail(f"no final checkpoint among {ckpts}")
     if model == "ViT-B/32":
-        for r in results:
-            if r["path"] == modality:
-                r["launches"] = launches[r["name"]]
+        record_launches(results, modality, launches)
     else:
         print(f"{tag} phase took {time.time() - t_phase:.1f} s")
 
@@ -1481,9 +1508,7 @@ def phase_ablation(results: list[dict], card: dict, mode: str, structured: bool 
     if not any(c.endswith("_final.ckpt") for c in ckpts):
         fail(f"no final checkpoint among {ckpts}")
     if mode == "FROZEN_CLIP" and not structured:
-        for r in results:
-            if r["path"] == "frozen":
-                r["launches"] = launches[r["name"]]
+        record_launches(results, "frozen", launches)
     print(f"{tag} phase took {time.time() - t_phase:.1f} s")
 
 
@@ -1845,9 +1870,7 @@ def phase_benchmark(results: list[dict], card: dict, path: str, argv: list[str],
             if delta != want:
                 fail(f"{path} {half} batch {batch}: launches {delta}, expected {want}")
     print(f"{tag} whole run {wall:.1f} s wall; launches {launches} on {card['smi']}")
-    for r in results:
-        if r["path"] == path:
-            r["launches"] = launches[r["name"]]
+    record_launches(results, path, launches)
     return timings
 
 
@@ -2057,6 +2080,25 @@ def iteration_clock(times: list):
             setattr(Trainer, name, fn)
 
 
+def _paths(r: dict) -> tuple:
+    """The paths a kernel row stands for: its ``path``, one name or a tuple."""
+    p = r["path"]
+    return (p,) if isinstance(p, str) else tuple(p or ())
+
+
+def record_launches(results: list[dict], path, launches: dict, shapes: dict | None = None) -> None:
+    """A driven path's launches onto the kernel rows that name it, kept by
+    path: each row's launches of its kernel, or with ``shapes``
+    (``cuda_build.LAUNCH_SHAPES`` after the run) of its kernel at its shape.
+    A row's ``launches`` is their sum over its paths."""
+    for r in results:
+        if path is not None and path in _paths(r):
+            n = (launches[r["name"]] if shapes is None
+                 else shapes.get((r["name"], r["shape"].split()[0]), 0))
+            r.setdefault("launches_by_path", {})[path] = n
+            r["launches"] = sum(r["launches_by_path"].values())
+
+
 def run_atari_cli(cli, argv: list[str]):
     """``cli.train`` for 2 iterations of 8 x 128 in a temporary directory,
     one iteration a dispatch and clocked. Returns (args, summary, launches,
@@ -2153,9 +2195,7 @@ def phase_atari(results: list[dict], card: dict) -> dict:
         if not any("tfevents" in f for f in files) or not any(
                 f.endswith("_final.ckpt") for f in files):
             fail(f"{tag}: no TensorBoard event file or final checkpoint among {files}")
-        for r in results:
-            if r["path"] == ATARI_PATHS.get(mode):
-                r["launches"] = launches[r["name"]]
+        record_launches(results, ATARI_PATHS.get(mode), launches)
         sps[f"clip_ppo_atari {mode}"] = steady
     torch.cuda.empty_cache()
     phase_stack_frames(card)
@@ -2567,6 +2607,13 @@ FAMILY_RUNS = (
     "MiniGrid-BlockedUnlockPickup-v0", "MiniGrid-ObstructedMaze-1Dlhb-v1",
     "MiniGrid-KeyCorridorS6R3-v0", "MiniGrid-LockedRoom-v0", "MiniGrid-RedBlueDoors-8x8-v0",
 )
+# The vanilla runs of phase 13b, cut to keep the script well inside its clock:
+# the see-through layouts, the ball draws and the three largest resets.
+FAMILY_VANILLA = (
+    "MiniGrid-DistShift1-v0", "MiniGrid-MultiRoom-N6-v0", "MiniGrid-LavaCrossingS9N3-v0",
+    "MiniGrid-Dynamic-Obstacles-16x16-v0", "MiniGrid-ObstructedMaze-1Dlhb-v1",
+    "MiniGrid-KeyCorridorS6R3-v0",
+)
 FAMILY_STEPS = 24
 HARD_TEXT = ["--clip-config.clip-lambda", "1e-5", "--clip-config.clip-modality", "text",
              "--clip-config.apply-disturbances", "--clip-config.disturbance-severity", "HARD"]
@@ -2576,15 +2623,15 @@ HARD_IMAGE = ["--clip-config.clip-lambda", "1e-5", "--clip-config.clip-modality"
 # whose rows take the run's launches, split path expected)
 FAMILY_CLIP_RUNS = (
     ("text table FourRooms", ["--env-id", "MiniGrid-FourRooms-v0", *HARD_TEXT],
-     {"attn_block": 24, "mlp_block": 24}, {"disturb": 128}, None, False),  # 1,444 rows: 2 batches
+     {"attn_block": 24, "mlp_block": 24}, {"disturb": 128}, "fourrooms", False),  # 1,444 rows
     ("text split MultiRoom-N6", ["--env-id", "MiniGrid-MultiRoom-N6-v0", *HARD_TEXT],
      {}, {"attn_block": 12, "mlp_block": 12, "disturb": 128}, "split", True),
     ("image LavaCrossingS9N1", ["--env-id", "MiniGrid-LavaCrossingS9N1-v0", *HARD_IMAGE],
-     {}, {"attn_block": 12, "mlp_stream": 12, "disturb": 128}, None, False),
+     {}, {"attn_block": 12, "mlp_stream": 12, "disturb": 128}, "lavacrossing", False),
 )
 
 
-def _crafted(core, grids, targets=None, kind: str = ""):
+def _crafted(core, grids, targets=None, kind: str = "", success: str = ""):
     """Mid-episode states of a few reset grids (numpy), the agent turned to
     face an object: (grid, pos, dir, carrying, first action, target) for
     the goal and lava (forward), a ball (pickup; forward, a collision, under
@@ -2593,7 +2640,8 @@ def _crafted(core, grids, targets=None, kind: str = ""):
     and closed (toggle); with the grids' mission ``targets`` [N, 8], also
     ``done`` facing the target cell (GoToDoor, GoToObject), a pickup of the
     target's (type, color) (Fetch), Memory's step onto its success cell and
-    PutNear's drop of the move object beside its near object."""
+    PutNear's drop of the move object beside its near object; with a
+    BabyAI ``success`` mode, the states :func:`_babyai_crafted` gives."""
     import numpy as np
 
     def face(g, target):
@@ -2609,7 +2657,9 @@ def _crafted(core, grids, targets=None, kind: str = ""):
     out, none = [], np.zeros(3, np.int8)
     for i, g in enumerate(grids[:3]):
         t = np.zeros(8, np.int32) if targets is None else targets[i]
-        if t.any():
+        if success.startswith("babyai_"):
+            out += _babyai_crafted(core, success, g, t, face, none)
+        elif t.any():
             out += _mission_crafted(core, kind, g, t, face, none)
         wants = [(core.GOAL, None, core.A_FORWARD), (core.LAVA, None, core.A_FORWARD),
                  (core.BALL, None, core.A_PICKUP), (core.BALL, None, core.A_FORWARD),
@@ -2674,13 +2724,66 @@ def _mission_crafted(core, kind, g, t, face, none):
     return out
 
 
+def _babyai_crafted(core, success, g, t, face, none):
+    """States of one BabyAI grid ``g`` that meet the mission ``t`` of the
+    ``success`` mode on their first action: ``done`` facing a GoTo target,
+    the move object dropped beside PutNext's fixed one, a matching pickup
+    (and a wrong one, which fails a strict level), a toggle of the mission's
+    door (its key in hand where it is locked), ActionObjDoor's verb on its
+    object."""
+    import numpy as np
+
+    out = []
+    things = [tuple(c) for c in np.argwhere(np.isin(g[..., 0], [core.KEY, core.BALL, core.BOX,
+                                                                 core.DOOR]))]
+
+    def is_(c, ttype, tcol):
+        return (ttype < 0 or g[c][0] == ttype) and (tcol < 0 or g[c][1] == tcol)
+
+    def add(grid, c, action, carrying=none):
+        f = face(grid, c)
+        if f is not None:
+            out.append((grid, f[0], f[1], np.asarray(carrying, np.int8), action, t))
+
+    if success == "babyai_putnext":
+        held = g.copy()
+        held[np.all(held[..., :2] == [t[0], t[1]], axis=-1)] = [core.EMPTY, 0, 0]
+        fixed = next(c for c in things if (g[c][0], g[c][1]) == (t[2], t[3]))
+        for dx, dy in core.DIR_TO_VEC:
+            c = (fixed[0] + dx, fixed[1] + dy)
+            if held[c][0] == core.EMPTY and face(held, c) is not None:
+                add(held, c, core.A_DROP, [t[0], t[1], 0])
+                break
+        return out
+    if success == "babyai_pickup":  # up to three matches, then one wrong pickup
+        for match, most in ((True, 3), (False, 1)):
+            n0 = len(out)
+            for c in things:
+                if g[c][0] != core.DOOR and is_(c, t[0], t[1]) == match and len(out) - n0 < most:
+                    add(g.copy(), c, core.A_PICKUP)
+        return out
+    for c in things:
+        door = g[c][0] == core.DOOR
+        if success == "babyai_goto" and is_(c, t[0], t[1]):
+            add(g.copy(), c, core.A_DONE)
+        elif success == "babyai_open_color" and door and is_(c, core.DOOR, t[1]):
+            add(g.copy(), c, core.A_TOGGLE, [core.KEY, g[c][1], 0])
+        elif success == "babyai_open" and door and c[0] * g.shape[1] + c[1] + 1 in t[:4]:
+            add(g.copy(), c, core.A_TOGGLE)
+        elif success == "babyai_action" and is_(c, t[1], t[2]):
+            add(g.copy(), c, (core.A_DONE, core.A_PICKUP, core.A_TOGGLE)[int(t[0])])
+    return out[:4]
+
+
 def phase_family_transitions(card: dict, env_ids=(*FAMILY_RUNS, "MiniGrid-Unlock-v0"),
                              tag: str = "families") -> None:
     """13a. The CPU's reset of each family's largest id, with crafted
     mid-episode states, stepped 24 times on the card and on the CPU with the
     same actions (and the same Dynamic-Obstacles draws): views, states
     (``target`` included) and flags equal, rewards equal as float32; every
-    family reaches its success, but Playground, which has none."""
+    family reaches its success, but Playground, which has none, and a strict
+    level (``EnvParams.strict``) also its failure, a termination without
+    reward."""
     import numpy as np
     import torch
 
@@ -2693,7 +2796,7 @@ def phase_family_transitions(card: dict, env_ids=(*FAMILY_RUNS, "MiniGrid-Unlock
         gen = torch.Generator()
         gen.manual_seed(13)
         st = core.reset(p, 8, gen, "cpu")
-        crafted = _crafted(core, st.grid.numpy(), st.target.numpy(), p.kind)
+        crafted = _crafted(core, st.grid.numpy(), st.target.numpy(), p.kind, p.success)
         n = 8 + len(crafted)
         cat = lambda a, b: torch.cat([a, torch.as_tensor(np.stack(b))])  # noqa: E731
         cpu = core.EnvState(
@@ -2705,7 +2808,7 @@ def phase_family_transitions(card: dict, env_ids=(*FAMILY_RUNS, "MiniGrid-Unlock
         rng = np.random.RandomState(13)
         actions = rng.randint(0, p.num_actions, size=(FAMILY_STEPS, n))
         actions[0, 8:] = [c[4] for c in crafted]
-        won = 0
+        won = failed = 0
         for t in range(FAMILY_STEPS):
             a = torch.as_tensor(actions[t])
             if not torch.equal(core.observe(p, gpu).cpu(), core.observe(p, cpu)):
@@ -2721,11 +2824,15 @@ def phase_family_transitions(card: dict, env_ids=(*FAMILY_RUNS, "MiniGrid-Unlock
                 if not torch.equal(x.cpu(), y):
                     fail(f"{env_id}: {name} on the card differs from the CPU's at step {t}")
             won += int((r_c > 0).sum())
+            failed += int((te_c & (r_c == 0)).sum())
         print(f"[{tag}] {env_id} ({p.kind}, success {p.success}): {n} states ({len(crafted)} "
               f"crafted) x {FAMILY_STEPS} steps on the card equal to the CPU (views, states, "
-              f"flags; rewards as float32); {won} rewarded transitions")
+              f"flags; rewards as float32); {won} rewarded transitions, {failed} terminated "
+              f"without reward")
         if won == 0 and p.kind != "playground":
             fail(f"{env_id}: no transition reached the family's success")
+        if p.strict and failed == 0:
+            fail(f"{env_id}: no transition reached the strict level's failure")
         if won and p.kind == "playground":
             fail(f"{env_id}: Playground has no reward, yet {won} transitions were rewarded")
     print(f"[{tag}] transition checks took {time.time() - t0:.1f} s")
@@ -2743,15 +2850,16 @@ def _count_kernels(fn) -> int:
     return sum(e.count for e in _kernel_events(prof))
 
 
-def phase_family_vanilla(card: dict, env_ids=FAMILY_RUNS, tag: str = "families vanilla") -> dict:
-    """13b. ``ppo_minigrid`` for 2 iterations of 8 x 128 on each family's
-    largest id (view mode, no kernel of the port launched, finite losses),
+def phase_family_vanilla(card: dict, env_ids=FAMILY_VANILLA, tag: str = "families vanilla") -> dict:
+    """13b. ``ppo_minigrid`` for 2 iterations of 8 x 128 on each id of
+    ``env_ids`` (view mode, no kernel of the port launched, finite losses),
     its second iteration clocked for the steady env-steps/s; one rollout of
     128 steps timed alone; and the kernels a rollout step launches, from two
     short traces (a whole trace of 128 steps takes the profiler minutes to
-    read): a 4-step rollout R4 and the bulk reset W of a 128-step rollout
-    (its launches do not depend on its size), a step then launching
-    (R4 - W) / 4 + W / 128."""
+    read): a 4-step rollout R4 whose bulk reset is made before the trace,
+    and the bulk reset W of a 128-step rollout, a step then launching
+    R4 / 4 + W / 128. (A rejection loop's launches grow with the number of
+    envs it resets, so the reset is kept out of R4.)"""
     import torch
 
     from clip_ppo_tpu_torch.cli import ppo_minigrid as cli
@@ -2783,16 +2891,19 @@ def phase_family_vanilla(card: dict, env_ids=FAMILY_RUNS, tag: str = "families v
         short = Trainer(PPOConfig(num_steps=4), env, 2)
         state = short.init_state(params, 1)
         short._rollout(state, Draws())  # warm-up
-        r4 = _count_kernels(lambda: short._rollout(state, Draws()))
         gen = torch.Generator(device=dev)
         gen.manual_seed(1)
+        bank = env.prepare_resets(state.vec_state, 4, gen).reset_bank
+        made = lambda vs, k, g: dataclasses.replace(vs, reset_bank=bank, reset_step=0)  # noqa: E731
+        with mock.patch.object(env, "prepare_resets", made):
+            r4 = _count_kernels(lambda: short._rollout(state, Draws()))
         w = _count_kernels(lambda: env.prepare_resets(state.vec_state, 128, gen))
-        per_step = (r4 - w) / 4 + w / 128 if r4 else None
+        per_step = r4 / 4 + w / 128 if r4 else None
         out[env_id] = (steady, per_step)
         print(f"[{tag}] {env_id}: 2 iterations of 8x128 in {wall:.2f} s wall, steady "
               f"{steady:.1f} env-steps/s (second iteration); one rollout alone {rollout_s * 1e3:.1f}"
               f" ms = {1024 / rollout_s:.1f} env-steps/s; "
-              + (f"a rollout step launches {per_step:.1f} kernels ({(r4 - w) / 4:.1f} for the "
+              + (f"a rollout step launches {per_step:.1f} kernels ({r4 / 4:.1f} for the "
                  f"policy and the env step, {w} for the rollout's bulk reset of 1,024 envs)"
                  if r4 else "kernel launches not measured (the trace holds no device time)")
               + f"; {env.num_actions} actions on {card['smi']}")
@@ -2802,13 +2913,16 @@ def phase_family_vanilla(card: dict, env_ids=FAMILY_RUNS, tag: str = "families v
 def phase_family_clip(results: list[dict], card: dict, runs=FAMILY_CLIP_RUNS,
                       tag: str = "families clip") -> None:
     """13c-d. ``clip_ppo_minigrid`` for 2 iterations, HARD: the text modality
-    on FourRooms (the 1,444-row description table, two batches, K2 and K3 24
-    times at startup and none an iteration) and on MultiRoom-N6 (the split
-    path: K2 and K3 12 times an iteration), the host's describe + tokenize
-    and the encode timed per iteration; the image modality on
-    LavaCrossingS9N1. K1 128 times an iteration in each."""
+    on FourRooms (the 1,444-row description table, two batches, K2 and K3 12
+    times each at [1024,77,512] and at [420,77,512] at startup and none an
+    iteration) and on MultiRoom-N6 (the split path: K2 and K3 12 times an
+    iteration), the host's describe + tokenize and the encode timed per
+    iteration; the image modality on LavaCrossingS9N1. K1 128 times an
+    iteration in each. Each run's launches go to the kernel rows of its path
+    by input shape, and every row of the path must have run at its shape."""
     import torch
 
+    from clip_ppo_tpu_torch import cuda_build
     from clip_ppo_tpu_torch.cli import clip_ppo_minigrid as cpm
     from clip_ppo_tpu_torch.envs.minigrid import core
     from clip_ppo_tpu_torch.models import clip_utils
@@ -2833,11 +2947,13 @@ def phase_family_clip(results: list[dict], card: dict, runs=FAMILY_CLIP_RUNS,
                 mock.patch.object(clip_utils, "encode_texts",
                                   timed(clip_utils.encode_texts, "encode", sync=True)):
             args, summary, launches, wall, steady, _ = run_atari_cli(cpm, argv)
+        shapes = dict(cuda_build.LAUNCH_SHAPES)
         want = {k: startup.get(k, 0) + per_iter.get(k, 0) * args.num_iterations for k in launches}
         print(f"[{tag}] {label}: {args.num_iterations} iterations of {args.num_envs}x"
               f"{args.num_steps} in {wall:.2f} s wall, split path {summary['split_path']}, text "
               f"table {summary['table_seconds']:.3f} s, steady {steady:.1f} env-steps/s; launches "
-              f"{ {k: v for k, v in launches.items() if v} } on {card['smi']}")
+              f"{ {k: v for k, v in launches.items() if v} }, by input shape "
+              f"{ {f'{k} {sh}': v for (k, sh), v in sorted(shapes.items())} } on {card['smi']}")
         if launches != want:
             fail(f"{label} launched {launches}, expected {want}")
         if summary["split_path"] is not split:
@@ -2853,9 +2969,10 @@ def phase_family_clip(results: list[dict], card: dict, runs=FAMILY_CLIP_RUNS,
                   + ", ".join(f"{v:.2f}" for v in ms["tokenize"]) + " ms; text encode of 1,024 "
                   "descriptions (K2 + K3, synchronized) " + ", ".join(f"{v:.2f}" for v in enc)
                   + f" ms on {card['smi']}")
-        for r in results:
-            if path is not None and r["path"] == path:
-                r["launches"] = launches[r["name"]]
+        record_launches(results, path, launches, shapes)
+        for r in results:  # each shape of the path's rows ran there
+            if path in _paths(r) and not r["launches_by_path"][path]:
+                fail(f"{label}: {r['name']} never ran at {r['shape']}, launches by shape {shapes}")
 
 
 def phase_families(results: list[dict], card: dict) -> None:
@@ -2874,11 +2991,13 @@ MISSION_RUNS = (
     "MiniGrid-GoToDoor-8x8-v0", "MiniGrid-Fetch-8x8-N3-v0", "MiniGrid-GoToObject-8x8-N2-v0",
     "MiniGrid-PutNear-8x8-N3-v0",
 )
+MISSION_VANILLA = ("MiniGrid-ObstructedMaze-Full-v0", "MiniGrid-Playground-v0",
+                   "MiniGrid-MemoryS17Random-v0", "MiniGrid-PutNear-8x8-N3-v0")  # as FAMILY_VANILLA
 MISSION_CLIP_RUNS = (  # as FAMILY_CLIP_RUNS
     ("text split GoToDoor-8x8", ["--env-id", "MiniGrid-GoToDoor-8x8-v0", *HARD_TEXT],
      {}, {"attn_block": 12, "mlp_block": 12, "disturb": 128}, "gotodoor", True),
     ("image ObstructedMaze-1Q", ["--env-id", "MiniGrid-ObstructedMaze-1Q-v1", *HARD_IMAGE],
-     {}, {"attn_block": 12, "mlp_stream": 12, "disturb": 128}, None, False),
+     {}, {"attn_block": 12, "mlp_stream": 12, "disturb": 128}, "obstructedmaze", False),
 )
 RECURRENT_ID = "MiniGrid-MemoryS7-v0"
 
@@ -2964,10 +3083,37 @@ def phase_missions(results: list[dict], card: dict) -> None:
     ObstructedMaze and --recurrent (a-e)."""
     t0 = time.time()
     phase_family_transitions(card, MISSION_RUNS, "missions")
-    phase_family_vanilla(card, MISSION_RUNS, "missions vanilla")
+    phase_family_vanilla(card, MISSION_VANILLA, "missions vanilla")
     phase_recurrent(card)
     phase_family_clip(results, card, MISSION_CLIP_RUNS, "missions clip")
     print(f"[missions] phase 14 took {time.time() - t0:.1f} s")
+
+
+# Phase 15: the BabyAI levels that ``EnvState.target`` decides — one id of
+# each generator for the transitions, the largest for the vanilla runs.
+BABYAI_RUNS = (
+    "BabyAI-GoToLocalS8N7-v0", "BabyAI-PutNextLocal-v0", "BabyAI-PickupDistDebug-v0",
+    "BabyAI-OpenRedDoor-v0", "BabyAI-OpenDoorLoc-v0", "BabyAI-ActionObjDoor-v0", "BabyAI-GoTo-v0",
+    "BabyAI-UnblockPickup-v0", "BabyAI-KeyInBox-v0", "BabyAI-UnlockToUnlock-v0",
+    "BabyAI-GoToObjDoor-v0", "BabyAI-PutNextS7N4Carrying-v0", "BabyAI-UnlockPickupDist-v0",
+)
+BABYAI_VANILLA = ("BabyAI-GoTo-v0", "BabyAI-ActionObjDoor-v0", "BabyAI-UnlockToUnlock-v0",
+                  "BabyAI-PutNextS7N4Carrying-v0", "BabyAI-GoToLocalS8N7-v0")
+BABYAI_CLIP_RUNS = (  # as FAMILY_CLIP_RUNS
+    ("text table BabyAI-GoTo", ["--env-id", "BabyAI-GoTo-v0", *HARD_TEXT],
+     {"attn_block": 24, "mlp_block": 24}, {"disturb": 128}, "babyai_text", False),  # 1,936 rows
+    ("image BabyAI-OpenDoorLoc", ["--env-id", "BabyAI-OpenDoorLoc-v0", *HARD_IMAGE],
+     {}, {"attn_block": 12, "mlp_stream": 12, "disturb": 128}, "babyai_image", False),
+)
+
+
+def phase_babyai(results: list[dict], card: dict) -> None:
+    """Phase 15: the BabyAI levels that ``target`` decides (a-d)."""
+    t0 = time.time()
+    phase_family_transitions(card, BABYAI_RUNS, "babyai")
+    phase_family_vanilla(card, BABYAI_VANILLA, "babyai vanilla")
+    phase_family_clip(results, card, BABYAI_CLIP_RUNS, "babyai clip")
+    print(f"[babyai] phase 15 took {time.time() - t0:.1f} s")
 
 
 def main() -> None:
@@ -3030,13 +3176,16 @@ def main() -> None:
     phase_pipeline(results, card)
     phase_families(results, card)
     phase_missions(results, card)
+    phase_babyai(results, card)
     order = ("name", "route", "source", "replaces", "shape", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms")
-    for r in results:  # every kernel of a driven path was launched there
-        if r["path"] and not r.get("launches"):
-            fail(f"{r['name']} {r['shape']} was not launched on its path {r['path']}")
+    for r in results:  # every kernel of a driven path was launched there, on each of its paths
+        by = r.get("launches_by_path") or {p: r.get("launches") for p in _paths(r)}
+        for p in _paths(r):
+            if not by.get(p):
+                fail(f"{r['name']} {r['shape']} was not launched on its path {p}")
     print(f"[done] every phase passed in {time.time() - t_start:.1f} s")
-    extra = ("bound_fp32_ms", "device_ms", "library_device_ms", "ctas", "empty_ms",
+    extra = ("launches_by_path", "bound_fp32_ms", "device_ms", "library_device_ms", "ctas", "empty_ms",
              "empty_device_ms", "ms_8_ctas", "device_ms_8_ctas", "f32_kernel_ms",
              "per_image_ms", "batched_ms", "speedup")
     print(json.dumps({"kernels": [{k: r[k] for k in (*order, *extra) if k in r}

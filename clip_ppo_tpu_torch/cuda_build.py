@@ -8,12 +8,14 @@ source and of the shared headers (``csrc/*.cuh``), so an edited source or
 header is always rebuilt. All sources compile in
 parallel, one ``nvcc`` process each.
 
-Every kernel wrapper counts its launches in :data:`LAUNCHES`, so a run can
-show that its main path went through the kernels.
+Every kernel wrapper counts its launches in :data:`LAUNCHES`, and by input
+shape in :data:`LAUNCH_SHAPES`, so a run can show that its main path went
+through the kernels, and at which shapes.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -51,6 +53,17 @@ BF16_KERNELS = ("attn_block", "mlp_block", "mlp_stream", "fused_qkv", "attn_stre
 LAUNCHES: dict[str, int] = {
     name: 0 for name in [*SOURCES, "packed_attention", *(f"{k}_bf16" for k in BF16_KERNELS)]}
 
+# The same launches by (counter, input shape as "[B,T,D]"), so a run can say
+# at which of a path's shapes each kernel ran.
+LAUNCH_SHAPES: collections.Counter = collections.Counter()
+
+
+def count_launch(name: str, x) -> None:
+    """One launch of counter ``name`` on input ``x``; each wrapper calls it
+    where it launches its kernel and nowhere else."""
+    LAUNCHES[name] += 1
+    LAUNCH_SHAPES[name, "[" + ",".join(map(str, x.shape)) + "]"] += 1
+
 
 def entry(name: str, x) -> str:
     """The entry point (``<entry>_launch``) and launch counter of kernel
@@ -63,6 +76,7 @@ def entry(name: str, x) -> str:
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    LAUNCH_SHAPES.clear()
 
 
 def _nvcc() -> str:

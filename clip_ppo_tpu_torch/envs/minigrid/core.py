@@ -4,8 +4,9 @@ Port of ``clip_ppo_tpu/envs/minigrid/core.py`` for the families this port
 runs: Empty[-Random], DoorKey, FourRooms, LavaGap, DistShift, MultiRoom,
 {Simple,Lava}Crossing, Dynamic-Obstacles[-Random], Unlock, UnlockPickup,
 BlockedUnlockPickup, ObstructedMaze (1Dl{,h,hb}, 2Dl{,h,hb}, 1Q, 2Q, Full),
-KeyCorridor, LockedRoom, RedBlueDoors, Memory, Playground and the mission
-families GoToDoor, Fetch, GoToObject and PutNear. The state of all N
+KeyCorridor, LockedRoom, RedBlueDoors, Memory, Playground, the mission
+families GoToDoor, Fetch, GoToObject and PutNear, and the 70 BabyAI levels
+whose mission ``EnvState.target`` decides. The state of all N
 environments lives in tensors with a leading env axis, and
 ``reset``/``step``/``observe`` are batched functions of them, so the rollout
 never leaves the device and no reset or step asks the host anything.
@@ -17,17 +18,23 @@ visibility where walls are opaque, the action set, the goal reward
 DoorKey's door-row quirk of sampling with ``width``, and each family's
 success mode (``goal``, ``open_door``, ``pickup_box``, ``pickup_ball``,
 ``red_then_blue``, ``memory``, ``goto_door``, ``fetch``, ``goto_object``,
-``putnear``). The mission families and Memory keep their episode's target
-in ``EnvState.target`` (zeros for every other family), in the JAX
-package's layout.
+``putnear`` and BabyAI's ``babyai_goto``, ``babyai_putnext``,
+``babyai_pickup``, ``babyai_open_color``, ``babyai_open``,
+``babyai_action``). The mission families, Memory and BabyAI keep their
+episode's target in ``EnvState.target`` (zeros for every other family), in
+the JAX package's layout.
 
 Random draws come from an explicit ``torch.Generator``; the env state holds
 no key. The rejection loops of the JAX package run in parallel instead of
 one after another: MultiRoom's 64 chain trials (each room's 8 proposals
 together, the first that fits taken) and their keep-best rule, and
 KeyCorridor's connect loop, whose 256 door proposals are drawn at once and
-applied up to the first one after which every room is reachable. BabyAI
-comes with a later slice and is refused by :func:`parse_env_id`.
+applied up to the first one after which every room is reachable, as is
+the connect loop of BabyAI's mazes; BabyAI's rejection loops (a layout
+kept only when ``check_objs_reachable`` passes) draw again only for the
+envs whose layout was rejected. The 19 BabyAI levels of composite
+instructions come with a later slice and are refused by
+:func:`parse_env_id`.
 """
 
 from __future__ import annotations
@@ -74,7 +81,10 @@ class EnvParams:
     #            | "crossing" | "unlock" | "dynobs" | "distshift" | "redblue"
     #            | "keycorridor" | "lockedroom" | "obstructedfull"
     #            | "playground" | "memory" | "gotodoor" | "fetch"
-    #            | "gotoobject" | "putnear"
+    #            | "gotoobject" | "putnear" | "babyai_goto" | "babyai_putnext"
+    #            | "babyai_pickup" | "babyai_openred" | "babyai_opendoor"
+    #            | "babyai_actionobj" | "babyai_gotomaze" | "babyai_unlocklocal"
+    #            | "babyai_u2u" | "babyai_objdoor" | "babyai_putnext2"
     width: int
     height: int
     max_steps: int
@@ -93,7 +103,9 @@ class EnvParams:
     # ``target_color`` when it is ≥ 0), "red_then_blue" (the blue door is
     # open after the step; rewarded iff the red one was open before it),
     # or one that reads ``EnvState.target``: "memory", "goto_door",
-    # "fetch", "goto_object" or "putnear" (see :func:`step`).
+    # "fetch", "goto_object", "putnear" or BabyAI's "babyai_goto",
+    # "babyai_putnext", "babyai_pickup", "babyai_open_color", "babyai_open"
+    # and "babyai_action" (see :func:`step`).
     success: str = "goal"
     strip_row: int = 0         # DistShift: row of the 3-cell lava strip
     blocked_door: bool = False  # a ball blocks the cell left of the locked door
@@ -106,8 +118,24 @@ class EnvParams:
     # MemoryS{n}Random: the hallway length is drawn per episode.
     random_length: bool = False
     # ObstructedMaze 2Dl*/1Q/2Q/Full: the (col, row) of the agent's start
-    # room; the number of quarters rides ``min_rooms``.
+    # room; the number of quarters rides ``min_rooms``. The BabyAI maze
+    # tier's FindObj/PickupAbove start there too (``fixed_agent_room``).
     agent_room: tuple[int, int] = (0, 0)
+    # BabyAI (the JAX package's fields of the same names and defaults).
+    grey_dists: bool = False        # GoToRedBallGrey: distractors recolored grey
+    strict: bool = False            # PickupDistDebug / OpenDoorDebug: a wrong try fails
+    select_by: str = ""             # OpenDoor: "color", "loc" or "" (drawn per episode)
+    rb_target: bool = False         # GoToRedBlueBall: a red or blue target ball
+    doors_open: bool = False        # GoToOpen / GoToObjMazeOpen: every door opened
+    invert_reach: bool = False      # UnblockPickup: some object must be blocked
+    fixed_agent_room: bool = False  # FindObj / PickupAbove: the agent starts in agent_room
+    type_only: bool = False         # the mission names the type only (color −1)
+    obj_room: tuple[int, int] = (-1, -1)  # PickupAbove: the mission object's room
+    predoor: tuple[int, int, int] = (-1, -1, -1)  # PickupAbove: a door before connect_all
+    start_carrying: bool = False    # PutNext*Carrying: the move object starts in hand
+    locked_room: bool = False       # Unlock / GoToImpUnlock: one room behind a LOCKED door
+    target_in_locked: bool = False  # GoToImpUnlock: the mission object in the locked room
+    dists_per_room: bool = False    # GoToImpUnlock: 2 distractors in each other room
 
 
 @dataclasses.dataclass
@@ -122,14 +150,184 @@ class EnvState:
     # [N, 8] int32 mission target, zeros for the families without one:
     # GoToDoor/GoToObject [obj, color, x, y, 0…]; Fetch [obj, color, 0…];
     # PutNear [move_obj, move_color, near_obj, near_color, near_x, near_y,
-    # 0, 0]; Memory [sx, sy, fx, fy, 0…] (the success and failure cells).
+    # 0, 0]; Memory [sx, sy, fx, fy, 0…] (the success and failure cells);
+    # BabyAI GoTo/Pickup/Open [obj, color, 0…] (−1 a wildcard), PutNext
+    # [move_obj, move_color, fixed_obj, fixed_color, 0…], OpenRedDoor and
+    # OpenDoor the matched doors' x·height + y + 1 in [:4], ActionObjDoor
+    # [verb, obj, color, 0…].
     target: torch.Tensor
 
 
-# Ids the JAX package runs that later slices of the port bring, by slice.
-_LATER_SLICES = (
-    (r"BabyAI-", "the BabyAI slice"),
-)
+# Ids the JAX package runs that later slices of the port bring, by slice:
+# the 19 BabyAI levels of ``success="babyai_seq"``, whose composite
+# instructions need the JAX package's ``instr``/``instr_state`` machine.
+_LATER_SLICES = tuple((pattern, "the BabyAI instruction slice") for pattern in (
+    r"BabyAI-GoToSeq(S5R2)?(-v\d+)?$",
+    r"BabyAI-Synth(S5R2|Loc|Seq)?(-v\d+)?$",
+    r"BabyAI-(Mini)?BossLevel(NoUnlock)?(-v\d+)?$",
+    r"BabyAI-MoveTwoAcrossS(\d+)N(\d+)(-v\d+)?$",
+    r"BabyAI-Open(RedBlue|Two)Doors(Debug)?(-v\d+)?$",
+    r"BabyAI-OpenDoorsOrderN(\d+)(Debug)?(-v\d+)?$",
+    r"BabyAI-PickupLoc(-v\d+)?$",
+))
+
+
+def _maze(kind: str, side: int, s: int, rows: int, success: str, num_objs: int,
+          **kw) -> EnvParams:
+    """A BabyAI ``rows`` × ``rows`` RoomGrid of ``s``×``s`` rooms, max_steps
+    8·s² (RoomGrid's default)."""
+    return EnvParams(kind, side, side, 8 * s * s, False, success=success, num_objs=num_objs,
+                     min_rooms=rows, max_rooms=rows, max_room_size=s, **kw)
+
+
+def _parse_babyai(env_id: str) -> Optional[EnvParams]:
+    """The 70 BabyAI ids that ``EnvState.target`` decides, parsed as the JAX
+    package's ``parse_env_id`` parses them (its comments give each level's
+    upstream source); None for any other id. BabyAI grids are opaque
+    (``see_through_walls=False``)."""
+    m = re.match(r"BabyAI-GoToRedBall(Grey|NoDists)?(-v\d+)?$", env_id)
+    if m:
+        # one 8×8 room: the red ball and 7 random distractors (grey in
+        # Grey, none in NoDists); GoToInstr(red ball)
+        return EnvParams("babyai_goto", 8, 8, 8 * 8 * 8, False, success="babyai_goto",
+                         num_objs=0 if m.group(1) == "NoDists" else 7,
+                         grey_dists=m.group(1) == "Grey", target_color=RED)
+    if re.match(r"BabyAI-GoToRedBlueBall(-v\d+)?$", env_id):
+        # a red or blue target ball and 7 distractors that are no red or
+        # blue ball
+        return EnvParams("babyai_goto", 8, 8, 8 * 8 * 8, False, success="babyai_goto",
+                         num_objs=7, rb_target=True)
+    if re.match(r"BabyAI-OpenRedDoor(-v\d+)?$", env_id):
+        # two 5×5 rooms (9×5), a red door between them; OpenInstr(red door)
+        return EnvParams("babyai_openred", 9, 5, 8 * 5 * 5, False, success="babyai_open")
+    m = re.match(r"BabyAI-OpenDoor(Color|Loc)?(Debug)?(-v\d+)?$", env_id)
+    if m:
+        # a 3×3 RoomGrid of 8×8 rooms, four doors on the center room named
+        # by color or by a location word; Debug fails a wrong toggle
+        return EnvParams("babyai_opendoor", 22, 22, 8 * 8 * 8, False, success="babyai_open",
+                         select_by=(m.group(1) or "").lower(), strict=m.group(2) is not None)
+    if re.match(r"BabyAI-ActionObjDoor(-v\d+)?$", env_id):
+        # 3×3 rooms of 7×7: 5 distinct objects and 4 doors in the center
+        # room; goto / pickup / open per episode
+        return EnvParams("babyai_actionobj", 19, 19, 8 * 7 * 7, False,
+                         success="babyai_action", num_objs=5)
+    m = re.match(r"BabyAI-GoTo(Open)?(-v\d+)?$", env_id)
+    if m:
+        # 3×3 rooms of 8×8, connect_all doors (opened in GoToOpen), 18
+        # distractors, reachability rejection; GoToInstr on one
+        return _maze("babyai_gotomaze", 22, 8, 3, "babyai_goto", 18,
+                     doors_open=m.group(1) is not None)
+    m = re.match(r"BabyAI-GoToObjMaze(Open)?(?:S(\d+)(R2)?)?(-v\d+)?$", env_id)
+    if m:
+        # the GoTo maze with one object; S{n} rooms of n×n, R2 2×2 rooms
+        s, rows = int(m.group(2) or 8), 2 if m.group(3) else 3
+        return _maze("babyai_gotomaze", (s - 1) * rows + 1, s, rows, "babyai_goto", 1,
+                     doors_open=m.group(1) is not None)
+    if re.match(r"BabyAI-Open(-v\d+)?$", env_id):
+        # the GoTo maze; OpenInstr on the color of a uniform door
+        return _maze("babyai_gotomaze", 22, 8, 3, "babyai_open_color", 18)
+    m = re.match(r"BabyAI-(Unblock)?Pickup(-v\d+)?$", env_id)
+    if m:
+        # the GoTo maze with PickupInstr; UnblockPickup's 20 objects keep
+        # only layouts where some object is blocked
+        unblock = m.group(1) is not None
+        return _maze("babyai_gotomaze", 22, 8, 3, "babyai_pickup", 20 if unblock else 18,
+                     invert_reach=unblock)
+    if re.match(r"BabyAI-Unlock(-v\d+)?$", env_id):
+        # the GoTo maze with one room behind a LOCKED door, its key in
+        # another room; OpenInstr on the locked door's color
+        return _maze("babyai_gotomaze", 22, 8, 3, "babyai_open_color", 18, locked_room=True)
+    m = re.match(r"BabyAI-UnlockLocal(Dist)?(-v\d+)?$", env_id)
+    if m:
+        # a locked door and its key in the center room (Dist: 3 distinct
+        # distractors); OpenInstr(door), type only
+        return EnvParams("babyai_unlocklocal", 22, 22, 8 * 8 * 8, False,
+                         success="babyai_open_color", num_objs=3 if m.group(1) else 0)
+    if re.match(r"BabyAI-KeyInBox(-v\d+)?$", env_id):
+        # UnlockLocal with the key hidden in a box
+        return EnvParams("babyai_unlocklocal", 22, 22, 8 * 8 * 8, False,
+                         success="babyai_open_color", key_in_box=True)
+    m = re.match(r"BabyAI-UnlockPickup(Dist)?(-v\d+)?$", env_id)
+    if m:
+        # MiniGrid-UnlockPickup's layout; Dist adds 4 distinct distractors,
+        # so the box's color decides (PickupInstr)
+        if m.group(1):
+            return EnvParams("unlock", 11, 6, 8 * 6 * 6, False, success="babyai_pickup",
+                             num_objs=4)
+        return EnvParams("unlock", 11, 6, 8 * 6 * 6, False, success="pickup_box")
+    if re.match(r"BabyAI-BlockedUnlockPickup(-v\d+)?$", env_id):
+        # MiniGrid-BlockedUnlockPickup's layout
+        return EnvParams("unlock", 11, 6, 16 * 6 * 6, False, success="pickup_box",
+                         blocked_door=True)
+    if re.match(r"BabyAI-UnlockToUnlock(-v\d+)?$", env_id):
+        # three 6×6 rooms, two locked doors with crossed keys, the ball in
+        # the far room; PickupInstr(ball), type only
+        return EnvParams("babyai_u2u", 16, 6, 30 * 6 * 6, False, success="babyai_pickup")
+    if re.match(r"BabyAI-GoToImpUnlock(-v\d+)?$", env_id):
+        # the Unlock maze, 2 distractors in each other room and the
+        # GoToInstr object inside the locked room
+        return _maze("babyai_gotomaze", 22, 8, 3, "babyai_goto", 16, locked_room=True,
+                     target_in_locked=True, dists_per_room=True)
+    m = re.match(r"BabyAI-OneRoomS(\d+)(-v\d+)?$", env_id)
+    if m:
+        # one s×s room holding one ball of a random color; PickupInstr(ball)
+        size = int(m.group(1))
+        return EnvParams("babyai_goto", size, size, 8 * size * size, False,
+                         success="babyai_pickup", num_objs=0, type_only=True)
+    m = re.match(r"BabyAI-FindObjS(\d+)(-v\d+)?$", env_id)
+    if m:
+        # 3×3 rooms of s×s, one object in a random room, the agent in the
+        # middle room; PickupInstr on its type
+        s = int(m.group(1))
+        return _maze("babyai_gotomaze", (s - 1) * 3 + 1, s, 3, "babyai_pickup", 1,
+                     fixed_agent_room=True, agent_room=(1, 1), type_only=True)
+    if re.match(r"BabyAI-PickupAbove(-v\d+)?$", env_id):
+        # the object in the room above the middle one, a door on the middle
+        # room's top wall; PickupInstr on its type
+        return _maze("babyai_gotomaze", 22, 8, 3, "babyai_pickup", 1, fixed_agent_room=True,
+                     agent_room=(1, 1), obj_room=(1, 0), predoor=(1, 1, 3), type_only=True)
+    if re.match(r"BabyAI-GoToDoor(-v\d+)?$", env_id):
+        # 3×3 rooms of 7×7, four random-color doors on the center room;
+        # GoToInstr on a door's color
+        return EnvParams("babyai_objdoor", 19, 19, 8 * 7 * 7, False, success="babyai_goto",
+                         num_objs=0, max_room_size=7)
+    if re.match(r"BabyAI-GoToObjDoor(-v\d+)?$", env_id):
+        # 3×3 rooms of 6×6, 8 distractors and 4 doors in the center room
+        return EnvParams("babyai_objdoor", 16, 16, 8 * 6 * 6, False, success="babyai_goto",
+                         num_objs=8, max_room_size=6)
+    m = re.match(r"BabyAI-PutNextS(\d+)N(\d+)(Carrying)?(-v\d+)?$", env_id)
+    if m:
+        # two s×s rooms without their dividing wall, n distinct objects a
+        # side; put a left one next to a right one, or the other way round
+        s, k = int(m.group(1)), int(m.group(2))
+        return EnvParams("babyai_putnext2", 2 * s - 1, s, 8 * s * s, False,
+                         success="babyai_putnext", num_objs=k, max_room_size=s,
+                         start_carrying=m.group(3) is not None)
+    m = re.match(r"BabyAI-GoToObj(?:S(\d+))?(-v\d+)?$", env_id)
+    if m:
+        # one room, one random object; GoToInstr on it
+        size = int(m.group(1) or 8)
+        return EnvParams("babyai_goto", size, size, 8 * size * size, False,
+                         success="babyai_goto", num_objs=1)
+    m = re.match(r"BabyAI-GoToLocal(?:S(\d+)N(\d+))?(-v\d+)?$", env_id)
+    if m:
+        # one s×s room, n random objects (duplicates allowed); GoToInstr on one
+        size, k = int(m.group(1) or 8), int(m.group(2) or 8)
+        return EnvParams("babyai_goto", size, size, 8 * size * size, False,
+                         success="babyai_goto", num_objs=k)
+    m = re.match(r"BabyAI-PutNextLocal(?:S(\d+)N(\d+))?(-v\d+)?$", env_id)
+    if m:
+        # one s×s room, n distinct objects; put one next to another
+        size, k = int(m.group(1) or 8), int(m.group(2) or 8)
+        return EnvParams("babyai_putnext", size, size, 8 * size * size, False,
+                         success="babyai_putnext", num_objs=k)
+    m = re.match(r"BabyAI-PickupDist(Debug)?(-v\d+)?$", env_id)
+    if m:
+        # one 7×7 room, 5 distinct objects, the mission by type, color or
+        # both; Debug fails a wrong pickup
+        return EnvParams("babyai_pickup", 7, 7, 8 * 7 * 7, False, success="babyai_pickup",
+                         num_objs=5, strict=m.group(1) is not None)
+    return None
 
 
 def parse_env_id(env_id: str) -> EnvParams:
@@ -143,7 +341,16 @@ def parse_env_id(env_id: str) -> EnvParams:
     ``ObstructedMaze-{1Q,2Q,Full}``, ``Playground``, ``KeyCorridorSsRr``,
     ``LockedRoom``, ``RedBlueDoors-NxN``, ``MemoryS{n}[Random]``,
     ``GoToDoor-NxN``, ``Fetch-NxN-Nk``, ``GoToObject-NxN-Nk`` and
-    ``PutNear-NxN-Nk`` (each with an optional -vK suffix). BabyAI's ids
+    ``PutNear-NxN-Nk`` (each with an optional -vK suffix), and the BabyAI
+    levels ``GoToRedBall{,Grey,NoDists}``, ``GoToRedBlueBall``,
+    ``GoToObj[Ss]``, ``GoToLocal[SsNn]``, ``OneRoomS{n}``,
+    ``PutNextLocal[SsNn]``, ``PickupDist[Debug]``, ``OpenRedDoor``,
+    ``OpenDoor[Color|Loc][Debug]``, ``ActionObjDoor``, ``GoTo[Open]``,
+    ``GoToObjMaze[Open|S{n}[R2]]``, ``Pickup``, ``UnblockPickup``, ``Open``,
+    ``Unlock``, ``GoToImpUnlock``, ``FindObjS{n}``, ``PickupAbove``,
+    ``UnlockLocal[Dist]``, ``KeyInBox``, ``UnlockToUnlock``, ``GoToDoor``,
+    ``GoToObjDoor``, ``PutNextS{s}N{n}[Carrying]``, ``UnlockPickup[Dist]``
+    and ``BlockedUnlockPickup``. BabyAI's levels of composite instructions
     raise, naming the later slice that brings them.
     """
     m = re.match(r"MiniGrid-DistShift(1|2)(-v\d+)?$", env_id)
@@ -364,6 +571,9 @@ def parse_env_id(env_id: str) -> EnvParams:
             raise ValueError("only square PutNear grids are supported")
         return EnvParams("putnear", size, size, 5 * size, True, success="putnear",
                          num_objs=int(m.group(3)))
+    babyai = _parse_babyai(env_id)
+    if babyai is not None:
+        return babyai
     m = re.match(r"MiniGrid-(Empty|DoorKey)(-Random)?-(\d+)x(\d+)(-v\d+)?$", env_id)
     if m:
         kind = m.group(1).lower()
@@ -388,8 +598,17 @@ def parse_env_id(env_id: str) -> EnvParams:
         "MiniGrid-ObstructedMaze-{1Dl,2Dl}{,h,hb}, MiniGrid-ObstructedMaze-{1Q,2Q,Full}, "
         "MiniGrid-Playground, MiniGrid-KeyCorridorSsRr, MiniGrid-LockedRoom, "
         "MiniGrid-RedBlueDoors-NxN, MiniGrid-MemoryS{n}[Random], MiniGrid-GoToDoor-NxN, "
-        "MiniGrid-Fetch-NxN-Nk, MiniGrid-GoToObject-NxN-Nk and MiniGrid-PutNear-NxN-Nk "
-        "(each with an optional -vK suffix); BabyAI comes with a later slice."
+        "MiniGrid-Fetch-NxN-Nk, MiniGrid-GoToObject-NxN-Nk, MiniGrid-PutNear-NxN-Nk, "
+        "BabyAI-GoToRedBall{,Grey,NoDists}, BabyAI-GoToRedBlueBall, BabyAI-GoToObj[Ss], "
+        "BabyAI-GoToLocal[SsNn], BabyAI-OneRoomSn, BabyAI-PutNextLocal[SsNn], "
+        "BabyAI-PickupDist[Debug], BabyAI-OpenRedDoor, BabyAI-OpenDoor[Color|Loc][Debug], "
+        "BabyAI-ActionObjDoor, BabyAI-GoTo[Open], BabyAI-GoToObjMaze[Open|Sn[R2]], "
+        "BabyAI-Pickup, BabyAI-UnblockPickup, BabyAI-Open, BabyAI-Unlock, "
+        "BabyAI-GoToImpUnlock, BabyAI-FindObjSn, BabyAI-PickupAbove, "
+        "BabyAI-UnlockLocal[Dist], BabyAI-KeyInBox, BabyAI-UnlockToUnlock, BabyAI-GoToDoor, "
+        "BabyAI-GoToObjDoor, BabyAI-PutNextSsNn[Carrying], BabyAI-UnlockPickup[Dist] and "
+        "BabyAI-BlockedUnlockPickup (each with an optional -vK suffix); BabyAI's levels of "
+        "composite instructions come with a later slice."
     )
 
 
@@ -729,7 +948,11 @@ def _reset_unlock(params: EnvParams, n: int, gen: torch.Generator, device) -> En
     (``pickup_ball``) the target blue ball there; ``blocked_door`` drops a
     ball directly left of the locked door (never of the target's color);
     ``key_in_box`` hides the key in a random-color box, its state channel
-    1 + the key's color."""
+    1 + the key's color. BabyAI's UnlockPickupDist (``babyai_pickup``)
+    names the box in ``target`` = [BOX, color, 0…] and adds ``num_objs``
+    distractors, each in a random one of the two rooms, distinct from each
+    other and from the key and the box (the JAX package's
+    ``_reset_unlock``, :1515-1542)."""
     w, h = params.width, params.height
     grid = _base_grid(params, n, device, goal=False)
     xs, ys = _coords(w, h, device)
@@ -741,9 +964,11 @@ def _reset_unlock(params: EnvParams, n: int, gen: torch.Generator, device) -> En
     left_room = (xs >= 1) & (xs <= 4) & (ys >= 1) & (ys <= 4)
     right_room = (xs >= 6) & (xs <= 9) & (ys >= 1) & (ys <= 4)
 
-    if params.success == "pickup_box":
+    box_color = torch.zeros(n, dtype=torch.int64, device=device)
+    if params.success in ("pickup_box", "babyai_pickup"):
         pos = _sample_free_cell((grid[..., 0] == EMPTY) & right_room, gen)
-        grid[env, pos[:, 0], pos[:, 1]] = _cell(BOX, _randint(0, 6, n, gen, device), 0, device)
+        box_color = _randint(0, 6, n, gen, device)
+        grid[env, pos[:, 0], pos[:, 1]] = _cell(BOX, box_color, 0, device)
     if params.success == "pickup_ball":
         pos = _sample_free_cell((grid[..., 0] == EMPTY) & right_room, gen)
         grid[env, pos[:, 0], pos[:, 1]] = _cell(BALL, BLUE, 0, device)
@@ -761,8 +986,20 @@ def _reset_unlock(params: EnvParams, n: int, gen: torch.Generator, device) -> En
     else:
         key_cell = _cell(KEY, color, 0, device)
     grid[env, key_pos[:, 0], key_pos[:, 1]] = key_cell
+    target = None
+    if params.num_objs:
+        # distinct from each other, the key (row 0 of the 3×6 table) and the box (row 2)
+        types, colors = _distinct_objects(n, params.num_objs, gen, device,
+                                          skip=(color, 12 + box_color))
+        sides = _randint(0, 2, (n, params.num_objs), gen, device)
+        free = grid[..., 0] == EMPTY
+        for i in range(params.num_objs):
+            room = torch.where((sides[:, i] == 0).reshape(n, 1, 1), left_room, right_room)
+            _put(grid, free, room, _cell(types[:, i], colors[:, i], 0, device), gen)
+    if params.success == "babyai_pickup":
+        target = _target(n, device, BOX, box_color)
     agent_pos = _sample_free_cell((grid[..., 0] == EMPTY) & left_room, gen)
-    return _state(grid, agent_pos, _randint(0, 4, n, gen, device))
+    return _state(grid, agent_pos, _randint(0, 4, n, gen, device), target)
 
 
 def _minimax_reach(wh: torch.Tensor, wv: torch.Tensor) -> torch.Tensor:
@@ -799,24 +1036,13 @@ def _reset_keycorridor(params: EnvParams, n: int, gen: torch.Generator, device) 
     room, is not open yet and was not proposed before, and comes no later
     than the first proposal after which every room is reachable."""
     s, r = params.max_room_size, params.min_rooms
-    w, h = params.width, params.height
-    grid = np.zeros((w, h, 3), dtype=np.int8)
-    grid[..., 0] = EMPTY
-    for i in range(4):
-        grid[i * (s - 1), :, :] = [WALL, GREY, 0]
-    for j in range(r + 1):
-        grid[:, j * (s - 1), :] = [WALL, GREY, 0]
+    grid = _lattice(params, s - 1, n, device)
     for j in range(1, r):  # remove_wall(1, j, 3): open the corridor
-        grid[s:2 * (s - 1), j * (s - 1), :] = [EMPTY, 0, 0]
-    grid = torch.as_tensor(grid, device=device).expand(n, w, h, 3).clone()
-    xs, ys = _coords(w, h, device)
+        grid[:, s:2 * (s - 1), j * (s - 1)] = _cell(EMPTY, 0, 0, device)
     env = torch.arange(n, device=device)
 
     def room_interior(i, j):
-        i = torch.as_tensor(i, device=device).reshape(-1, 1, 1)
-        j = torch.as_tensor(j, device=device).reshape(-1, 1, 1)
-        return ((xs > i * (s - 1)) & (xs < (i + 1) * (s - 1))
-                & (ys > j * (s - 1)) & (ys < (j + 1) * (s - 1)))
+        return _room_interior(params, s - 1, i, j, device)
 
     # Locked door + ball room (right column, random row).
     room_idx = _randint(0, r, n, gen, device)
@@ -833,52 +1059,14 @@ def _reset_keycorridor(params: EnvParams, n: int, gen: torch.Generator, device) 
     agent_pos = _sample_free_cell((grid[..., 0] == EMPTY) & room_interior(1, r // 2), gen)
     agent_dir = _randint(0, 4, n, gen, device)
 
-    # connect_all(): every proposal (room (i, j), wall d, door offset and
-    # color) drawn at once. Connections are numbered: h(i, j) joins rooms
-    # (i, j) and (i+1, j) (ids i·R + j), v(i, j) joins (i, j) and (i, j+1)
-    # (ids 2R + i·(R-1) + j); id E is a sink for walls out of range.
-    p = CONNECT_PROPOSALS
-    e = 2 * r + 3 * (r - 1)
-    pi, pj = _randint(0, 3, (n, p), gen, device), _randint(0, r, (n, p), gen, device)
-    pd = _randint(0, 4, (n, p), gen, device)
-    off = _randint(1, s - 1, (n, p), gen, device)
-    pcolor = _randint(0, 6, (n, p), gen, device)
-    dvec = torch.as_tensor(DIR_TO_VEC, device=device)[pd]
-    ni, nj = pi + dvec[..., 0], pj + dvec[..., 1]
-    in_range = (ni >= 0) & (ni < 3) & (nj >= 0) & (nj < r)
-    edge = torch.where(pd == 0, pi * r + pj,
-           torch.where(pd == 2, (pi - 1) * r + pj,
-           torch.where(pd == 1, 2 * r + pi * (r - 1) + pj, 2 * r + pi * (r - 1) + pj - 1)))
-    locked_room = (((pi == 2) & (pj == room_idx[:, None]))
-                   | ((ni == 2) & (nj == room_idx[:, None])))
-    # Open from the start: the corridor and the locked door.
-    open0 = torch.zeros((n, e + 1), dtype=torch.bool, device=device)
-    open0[:, 2 * r + (r - 1):2 * r + 2 * (r - 1)] = True
-    open0[env, r + room_idx] = True
-    edge = torch.where(in_range, edge, e)
-    ok = in_range & ~locked_room & ~open0.gather(1, edge)
-    t = torch.arange(p, device=device).expand(n, p)
-    first = torch.full((n, e + 1), p, dtype=torch.int64, device=device)
-    first.scatter_reduce_(1, torch.where(ok, edge, e), t, "amin")
-    valid = ok & (first.gather(1, edge) == t)
-    # Each connection's opening time: -1 from the start, its first valid
-    # proposal, or never (inf).
-    when = torch.where(first[:, :e] < p, first[:, :e].float(), float("inf"))
-    when = torch.where(open0[:, :e], -1.0, when)
-    wh = when[:, :2 * r].reshape(n, 2, r)
-    wv = when[:, 2 * r:].reshape(n, 3, r - 1)
-    last = _minimax_reach(wh, wv).clamp(max=p - 1)
-    applied = valid & (t <= last[:, None])
-    # Doors of the applied proposals (distinct walls, so distinct cells).
-    x = torch.where(pd == 0, (pi + 1) * (s - 1),
-                    torch.where(pd == 2, pi * (s - 1), pi * (s - 1) + off))
-    y = torch.where(pd == 1, (pj + 1) * (s - 1),
-                    torch.where(pd == 3, pj * (s - 1), pj * (s - 1) + off))
-    flat = torch.where(applied, x * h + y, w * h)
-    cells = torch.cat([grid.reshape(n, w * h, 3),
-                       torch.zeros((n, 1, 3), dtype=torch.int8, device=device)], dim=1)
-    cells[env[:, None], flat] = _cell(DOOR, pcolor, CLOSED, device)
-    grid = cells[:, :w * h].reshape(n, w, h, 3)
+    # connect_all(), the corridor and the locked door open from the start,
+    # no door onto the locked room.
+    open0 = torch.zeros((n, 2 * r + 3 * (r - 1)), dtype=torch.bool, device=device)
+    for j in range(r - 1):
+        _open_edge(open0, 3, r, 1, j, 1)
+    _open_edge(open0, 3, r, 2, room_idx, 2)
+    grid = _connect_all(grid, s - 1, 3, r, open0, gen, forbid=(torch.full_like(room_idx, 2),
+                                                              room_idx))
     return _state(grid, agent_pos, agent_dir)
 
 
@@ -1013,20 +1201,13 @@ def _reset_obstructedfull(params: EnvParams, n: int, gen: torch.Generator, devic
     state is color + 1) go on free cells of the side room. The target BLUE
     ball sits in one of the first ``min_rooms`` corners; the agent starts
     in ``agent_room`` (the JAX package's ``_reset_obstructedfull``)."""
-    w, h = params.width, params.height
     side = ((2, 1), (1, 2), (0, 1), (1, 0))
     corner = ((2, 0), (2, 2), (0, 2), (0, 0))
-    grid = np.zeros((w, h, 3), dtype=np.int8)
-    grid[..., 0] = EMPTY
-    for t in range(4):
-        grid[t * 5, :, :] = [WALL, GREY, 0]
-        grid[:, t * 5, :] = [WALL, GREY, 0]
-    grid = torch.as_tensor(grid, device=device).expand(n, w, h, 3).clone()
-    xs, ys = _coords(w, h, device)
+    grid = _lattice(params, 5, n, device)
     env = torch.arange(n, device=device)
 
     def room_interior(i, j):
-        return (xs > i * 5) & (xs < (i + 1) * 5) & (ys > j * 5) & (ys < (j + 1) * 5)
+        return _room_interior(params, 5, i, j, device)
 
     def door_pos(i, j, d):
         # wall ``d`` (DIR_TO_VEC order) of room (i, j) at an offset in [1, 4]
@@ -1076,12 +1257,7 @@ def _reset_playground(params: EnvParams, n: int, gen: torch.Generator, device) -
     than the agent's. No goal, no reward (the JAX package's
     ``_reset_playground``)."""
     w, h = params.width, params.height
-    grid = np.zeros((w, h, 3), dtype=np.int8)
-    grid[..., 0] = EMPTY
-    for t in (0, 6, 12, w - 1):
-        grid[t, :, :] = [WALL, GREY, 0]
-        grid[:, t, :] = [WALL, GREY, 0]
-    grid = torch.as_tensor(grid, device=device).expand(n, w, h, 3).clone()
+    grid = _lattice(params, 6, n, device)
     env = torch.arange(n, device=device)
     for i in range(2):
         for j in range(3):
@@ -1196,11 +1372,16 @@ def _place_objects(grid: torch.Tensor, types: torch.Tensor, colors: torch.Tensor
     return torch.stack(cells, dim=1)
 
 
-def _distinct_objects(n: int, k: int, gen: torch.Generator, device):
+def _distinct_objects(n: int, k: int, gen: torch.Generator, device, skip=()):
     """``k`` distinct (type, color) pairs over {key, ball, box} × 6 colors
     per env: a uniform k-prefix of a permutation of the 18 pairs, the
-    distribution of upstream's draw-and-reject. Returns ([N, K], [N, K])."""
-    combo = torch.argsort(torch.rand((n, 18), generator=gen, device=device), dim=1)[:, :k]
+    distribution of upstream's draw-and-reject, without the pairs ``skip``
+    (type row · 6 + color, [N] each, in ascending order). Returns
+    ([N, K], [N, K])."""
+    combo = torch.argsort(torch.rand((n, 18 - len(skip)), generator=gen, device=device),
+                          dim=1)[:, :k]
+    for v in skip:
+        combo = combo + (combo >= v[:, None]).long()
     return torch.tensor([KEY, BALL, BOX], device=device)[combo // 6], combo % 6
 
 
@@ -1257,6 +1438,582 @@ def _reset_putnear(params: EnvParams, n: int, gen: torch.Generator, device) -> E
         cells[env, tg, 0], cells[env, tg, 1]))
 
 
+# ---------------------------------------------------------------------------
+# BabyAI: the levels whose mission ``EnvState.target`` decides
+# ---------------------------------------------------------------------------
+
+BABYAI_ATTEMPTS = 64           # the JAX package's rejection bound (`core.py:2315`)
+BABYAI_UNBLOCK_ATTEMPTS = 256  # UnblockPickup's (`core.py:2646`)
+REACH_CHECK_EVERY = 8          # flood-fill dilations between two convergence checks
+_OBJ_TYPES = (KEY, BALL, BOX)
+
+
+def _objs_reachable(grid: torch.Tensor, agent_pos: torch.Tensor) -> torch.Tensor:
+    """BabyAI's ``check_objs_reachable`` for every env at once → [N] bool: a
+    flood fill from the agent over EMPTY and DOOR cells (any door, locked
+    included), to its fixed point, after which every cell that is neither
+    EMPTY nor WALL must lie in the fill or next to it (the JAX package's
+    ``_objs_reachable``, with its ``roll``: border cells are walls, so
+    nothing wraps). The fill dilates all envs together and asks the host
+    whether it has stopped growing once every ``REACH_CHECK_EVERY``
+    dilations; a fill does not change past its fixed point."""
+    w, h = grid.shape[1:3]
+    obj = grid[..., 0]
+    free = (obj == EMPTY) | (obj == DOOR)
+    xs, ys = _coords(w, h, grid.device)
+    reach = _at(xs, ys, agent_pos)
+
+    def grow(r):
+        return r | r.roll(1, 1) | r.roll(-1, 1) | r.roll(1, 2) | r.roll(-1, 2)
+
+    for _ in range(0, w * h, REACH_CHECK_EVERY):
+        before = reach
+        for _ in range(REACH_CHECK_EVERY):
+            reach = grow(reach) & free
+        if torch.equal(before, reach):
+            break
+    objs = (obj != EMPTY) & (obj != WALL)
+    return (grow(reach) | ~objs).flatten(1).all(1)
+
+
+def _rejection(build, n: int, accept, attempts: int, what: str) -> tuple:
+    """``build(m)`` → a tuple of tensors of leading size m, drawn again for
+    the envs whose draw ``accept`` ([m] bool) rejects until every env's is
+    accepted. Raises after ``attempts`` draws of one env, where the JAX
+    package would keep its last draw: the port keeps no rejected layout."""
+    out = build(n)
+    ok = accept(out)
+    for _ in range(attempts - 1):
+        redo = (~ok).nonzero()[:, 0]
+        if redo.numel() == 0:
+            return out
+        new = build(redo.numel())
+        for t, v in zip(out, new):
+            t[redo] = v
+        ok[redo] = accept(new)
+    if not bool(ok.all()):
+        raise RuntimeError(f"{what}: {int((~ok).sum())} envs drew {attempts} rejected layouts")
+    return out
+
+
+def _take(free: torch.Tensor, where, gen: torch.Generator) -> torch.Tensor:
+    """A uniform cell of ``free & where`` of each env (``where`` None for all
+    of ``free``), which leaves ``free`` → [N, 2]."""
+    pos = _sample_free_cell(free if where is None else free & where, gen)
+    free[torch.arange(free.shape[0], device=free.device), pos[:, 0], pos[:, 1]] = False
+    return pos
+
+
+def _put(grid: torch.Tensor, free: torch.Tensor, where, cell: torch.Tensor,
+         gen: torch.Generator) -> torch.Tensor:
+    """Put ``cell`` [N, 3] on :func:`_take`'s cell; returns it [N, 2]."""
+    pos = _take(free, where, gen)
+    grid[torch.arange(grid.shape[0], device=grid.device), pos[:, 0], pos[:, 1]] = cell
+    return pos
+
+
+def _random_objects(n: int, k: int, gen: torch.Generator, device):
+    """``k`` independent uniform key/ball/box types and colors per env →
+    ([N, K], [N, K]) (duplicates allowed: add_distractors(all_unique=False))."""
+    types = torch.tensor(_OBJ_TYPES, device=device)[_randint(0, 3, (n, k), gen, device)]
+    return types, _randint(0, 6, (n, k), gen, device)
+
+
+def _lattice(params: EnvParams, pitch: int, n: int, device) -> torch.Tensor:
+    """[N, W, H, 3] RoomGrid walls: every ``pitch``-th column and row."""
+    grid = np.zeros((params.width, params.height, 3), dtype=np.int8)
+    grid[..., 0] = EMPTY
+    grid[::pitch, :, :] = [WALL, GREY, 0]
+    grid[:, ::pitch, :] = [WALL, GREY, 0]
+    return torch.as_tensor(grid, device=device).expand(n, *grid.shape).clone()
+
+
+def _room_interior(params: EnvParams, pitch: int, i, j, device) -> torch.Tensor:
+    """[N or 1, W, H]: the interior of RoomGrid room (i, j) (ints or [N])."""
+    xs, ys = _coords(params.width, params.height, device)
+    i = torch.as_tensor(i, device=device).reshape(-1, 1, 1)
+    j = torch.as_tensor(j, device=device).reshape(-1, 1, 1)
+    return ((xs > i * pitch) & (xs < (i + 1) * pitch)
+            & (ys > j * pitch) & (ys < (j + 1) * pitch))
+
+
+def _babyai_room(params: EnvParams, n: int, gen: torch.Generator, device, sample_objs,
+                 check_reachable: bool = True):
+    """BabyAI's single bordered room (the JAX package's ``_babyai_room``):
+    the agent on a uniform interior cell, then the objects ``sample_objs(m)``
+    → ([m, K], [m, K]) one after another on the cells left free; with
+    ``check_reachable`` a layout is kept only when every object is reachable.
+    Returns (grid, agent_pos, agent_dir, types, colors)."""
+
+    def build(m):
+        types, colors = sample_objs(m)
+        grid = _base_grid(params, m, device, goal=False)
+        free = grid[..., 0] == EMPTY
+        agent_pos = _take(free, None, gen)
+        agent_dir = _randint(0, 4, m, gen, device)
+        for k in range(types.shape[1]):
+            _put(grid, free, None, _cell(types[:, k], colors[:, k], 0, device), gen)
+        return grid, agent_pos, agent_dir, types, colors
+
+    if not check_reachable:
+        return build(n)
+    return _rejection(build, n, lambda o: _objs_reachable(o[0], o[1]), BABYAI_ATTEMPTS,
+                      params.kind)
+
+
+def _reset_babyai_goto(params: EnvParams, n: int, gen: torch.Generator, device) -> EnvState:
+    """BabyAI's GoTo room (GoToRedBall{,Grey,NoDists}, GoToRedBlueBall,
+    GoToObj, GoToLocal, OneRoom): with a fixed target, object 0 is a ball —
+    red (GoToRedBall), red or blue (GoToRedBlueBall, whose distractors are
+    drawn over the 16 pairs that are no red or blue ball) or of any color
+    (OneRoom, a type-only mission: ``target`` = [BALL, −1, 0…]) — and
+    ``num_objs`` random distractors follow (grey in GoToRedBallGrey);
+    otherwise the mission names a uniform one of the ``num_objs`` objects:
+    ``target`` = [type, color, 0…] (the JAX package's
+    ``_reset_babyai_goto``)."""
+    fixed = params.target_color >= 0 or params.rb_target or params.type_only
+    k = params.num_objs + int(fixed)
+
+    def sample_objs(m):
+        if params.rb_target:
+            u = _randint(0, 16, (m, k), gen, device)
+            pair = u + (u >= 6).long() + (u >= 7).long()  # skips the red and the blue ball
+            types = torch.tensor(_OBJ_TYPES, device=device)[pair // 6]
+            colors = pair % 6
+            colors[:, 0] = torch.tensor([RED, BLUE], device=device)[_randint(0, 2, m, gen, device)]
+        else:
+            types, colors = _random_objects(m, k, gen, device)
+            if params.grey_dists:
+                colors = torch.full_like(colors, GREY)
+            if fixed and not params.type_only:
+                colors[:, 0] = RED
+        if fixed:
+            types[:, 0] = BALL
+        return types, colors
+
+    grid, agent_pos, agent_dir, types, colors = _babyai_room(params, n, gen, device, sample_objs)
+    if fixed:
+        color = torch.full((n,), -1, device=device) if params.type_only else colors[:, 0]
+        target = _target(n, device, BALL, color)
+    else:
+        env, t = torch.arange(n, device=device), _randint(0, k, n, gen, device)
+        target = _target(n, device, types[env, t], colors[env, t])
+    return _state(grid, agent_pos, agent_dir, target)
+
+
+def _reset_babyai_putnext(params: EnvParams, n: int, gen: torch.Generator, device) -> EnvState:
+    """PutNextLocal: ``num_objs`` distinct objects in one room, reachability
+    rejected; the mission puts object ``mv`` next to a different object:
+    ``target`` = [move_type, move_color, fixed_type, fixed_color, 0…] (the
+    JAX package's ``_reset_babyai_putnext``)."""
+    k = params.num_objs
+    grid, agent_pos, agent_dir, types, colors = _babyai_room(
+        params, n, gen, device, lambda m: _distinct_objects(m, k, gen, device))
+    env = torch.arange(n, device=device)
+    mv = _randint(0, k, n, gen, device)
+    t0 = _randint(0, k - 1, n, gen, device)
+    tg = t0 + (t0 >= mv).long()
+    return _state(grid, agent_pos, agent_dir, _target(
+        n, device, types[env, mv], colors[env, mv], types[env, tg], colors[env, tg]))
+
+
+def _reset_babyai_pickup(params: EnvParams, n: int, gen: torch.Generator, device) -> EnvState:
+    """PickupDist: 5 distinct objects in one 7×7 room, no reachability check;
+    the mission names one by its type, its color or both, uniformly:
+    ``target`` = [type | −1, color | −1, 0…] (the JAX package's
+    ``_reset_babyai_pickup``)."""
+    k = params.num_objs
+    grid, agent_pos, agent_dir, types, colors = _babyai_room(
+        params, n, gen, device, lambda m: _distinct_objects(m, k, gen, device),
+        check_reachable=False)
+    env, t = torch.arange(n, device=device), _randint(0, k, n, gen, device)
+    sel = _randint(0, 3, n, gen, device)  # 0 type, 1 color, 2 both
+    return _state(grid, agent_pos, agent_dir, _target(
+        n, device, torch.where(sel == 1, -1, types[env, t]),
+        torch.where(sel == 0, -1, colors[env, t])))
+
+
+def _reset_babyai_openred(params: EnvParams, n: int, gen: torch.Generator, device) -> EnvState:
+    """OpenRedDoor: two 5×5 rooms (9×5, the shared wall at x = 4), a CLOSED
+    red door at a random y of that wall, the agent in the left room;
+    ``target`` = [4·height + y + 1, 0…], the door's packed position + 1 (the
+    JAX package's ``_reset_babyai_openred``)."""
+    w, h = params.width, params.height
+    grid = _base_grid(params, n, device, goal=False)
+    xs, _ = _coords(w, h, device)
+    grid[:, 4] = _cell(WALL, GREY, 0, device)
+    dy = _randint(1, h - 1, n, gen, device)
+    grid[torch.arange(n, device=device), 4, dy] = _cell(DOOR, RED, CLOSED, device)
+    agent_pos = _sample_free_cell((grid[..., 0] == EMPTY) & (xs < 4), gen)
+    return _state(grid, agent_pos, _randint(0, 4, n, gen, device),
+                  _target(n, device, 4 * h + dy + 1))
+
+
+def _center_doors(grid: torch.Tensor, pitch: int, colors: torch.Tensor,
+                  gen: torch.Generator) -> tuple[torch.Tensor, torch.Tensor]:
+    """One CLOSED door on each wall of the center room of a 3×3 RoomGrid —
+    east, south, west, north (``add_door`` 0..3), at uniform offsets along
+    the wall — colored ``colors`` [N, 4]. Returns (dx, dy), [N, 4] each."""
+    n, device = grid.shape[0], grid.device
+    offs = _randint(pitch + 1, 2 * pitch, (n, 4), gen, device)
+    near = torch.full((n,), pitch, device=device)
+    far = torch.full((n,), 2 * pitch, device=device)
+    dx = torch.stack([far, offs[:, 1], near, offs[:, 3]], dim=1)
+    dy = torch.stack([offs[:, 0], far, offs[:, 2], near], dim=1)
+    env = torch.arange(n, device=device)
+    for i in range(4):
+        grid[env, dx[:, i], dy[:, i]] = _cell(DOOR, colors[:, i], CLOSED, device)
+    return dx, dy
+
+
+LOCATION_WORDS = ("left", "right", "front", "behind")
+
+
+def door_sides(agent_pos: torch.Tensor, agent_dir: torch.Tensor, dx: torch.Tensor,
+               dy: torch.Tensor) -> torch.Tensor:
+    """[N, 4, K] bool: which of the cells (``dx``, ``dy``) [N, K] each of
+    ``LOCATION_WORDS`` names from the pose (``agent_pos`` [N, 2],
+    ``agent_dir`` [N]) — BabyAI's ObjDesc rule over v, the vector from the
+    agent to the cell: left v·right < 0, right v·right > 0, front
+    v·forward > 0, behind v·forward < 0, where right is the direction one
+    turn clockwise of forward (the JAX package's ``_reset_babyai_opendoor``,
+    :2805-2810)."""
+    dir_vec = torch.as_tensor(DIR_TO_VEC, device=agent_pos.device)
+    d1, d2 = dir_vec[agent_dir], dir_vec[(agent_dir + 1) % 4]
+    vx, vy = dx - agent_pos[:, :1], dy - agent_pos[:, 1:]
+    forward = vx * d1[:, :1] + vy * d1[:, 1:]
+    right = vx * d2[:, :1] + vy * d2[:, 1:]
+    return torch.stack([right < 0, right > 0, forward > 0, forward < 0], dim=1)
+
+
+def _reset_babyai_opendoor(params: EnvParams, n: int, gen: torch.Generator, device) -> EnvState:
+    """OpenDoor[Color|Loc][Debug]: a 3×3 RoomGrid of 8×8 rooms, the center
+    room's four doors in 4 distinct colors, the agent inside. The mission's
+    doors: the east one (by color), or every door on the side of the agent's
+    start pose that a location word names (left/right: the sign of v·right,
+    front/behind: of v·forward, v from the agent to the door);
+    ``select_by=""`` draws the mode per episode. ``target[:4]`` holds the
+    matched doors' ``x·height + y + 1``, 0 elsewhere (the JAX package's
+    ``_reset_babyai_opendoor``)."""
+    grid = _lattice(params, 7, n, device)
+    colors = torch.argsort(torch.rand((n, 6), generator=gen, device=device), dim=1)[:, :4]
+    dx, dy = _center_doors(grid, 7, colors, gen)
+    agent_pos = _sample_free_cell((grid[..., 0] == EMPTY) & _room_interior(params, 7, 1, 1, device),
+                                  gen)
+    agent_dir = _randint(0, 4, n, gen, device)
+    if params.select_by:
+        sel = torch.full((n,), int(params.select_by == "loc"), device=device)
+    else:
+        sel = _randint(0, 2, n, gen, device)  # 0 color, 1 location
+    loc = _randint(0, 4, n, gen, device)
+    loc_ok = door_sides(agent_pos, agent_dir, dx, dy)[torch.arange(n, device=device), loc]
+    match = torch.where((sel == 0)[:, None], torch.arange(4, device=device) == 0, loc_ok)
+    target = torch.zeros((n, 8), dtype=torch.int32, device=device)
+    target[:, :4] = torch.where(match, dx * params.height + dy + 1, 0)
+    return _state(grid, agent_pos, agent_dir, target)
+
+
+def _wall_door(pitch: int, i, j, d, off):
+    """The cell of a door on wall ``d`` (DIR_TO_VEC order) of RoomGrid room
+    (i, j) at ``off`` along the wall."""
+    x = torch.where(d == 0, (i + 1) * pitch, torch.where(d == 2, i * pitch, i * pitch + off))
+    y = torch.where(d == 1, (j + 1) * pitch, torch.where(d == 3, j * pitch, j * pitch + off))
+    return x, y
+
+
+def _edge(cols: int, rows: int, i, j, d):
+    """The connection through wall ``d`` of room (i, j) of a cols×rows
+    RoomGrid: h(i, j), joining (i, j) and (i+1, j), is i·rows + j; v(i, j),
+    joining (i, j) and (i, j+1), is (cols−1)·rows + i·(rows−1) + j."""
+    v = (cols - 1) * rows + i * (rows - 1) + j
+    return torch.where(d == 0, i * rows + j,
+                       torch.where(d == 2, (i - 1) * rows + j, torch.where(d == 1, v, v - 1)))
+
+
+def _open_edge(open0: torch.Tensor, cols: int, rows: int, i, j, d) -> None:
+    """Mark the connection through wall ``d`` of room (i, j) open in
+    ``open0`` [N, E] (ints or [N] tensors)."""
+    n, device = open0.shape[0], open0.device
+    i, j, d = (torch.as_tensor(v, device=device).expand(n) for v in (i, j, d))
+    open0[torch.arange(n, device=device), _edge(cols, rows, i, j, d)] = True
+
+
+def _connect_all(grid: torch.Tensor, pitch: int, cols: int, rows: int, open0: torch.Tensor,
+                 gen: torch.Generator, avoid: Optional[torch.Tensor] = None,
+                 forbid=None) -> torch.Tensor:
+    """RoomGrid's ``connect_all`` on a cols×rows maze of rooms ``pitch`` + 1
+    wide: CLOSED random-color doors at random walls until every room
+    reaches room (0, 0) (the JAX package's bounded loops of
+    ``_reset_keycorridor`` and ``_reset_babyai_gotomaze``). ``open0`` [N, E]
+    marks the connections open before it (:func:`_edge`'s numbering);
+    ``avoid`` [N] a color the doors skip (−1 none); ``forbid`` ([N], [N]) a
+    room no door may touch. The JAX loop's 256 proposals (``n < 256``) are
+    drawn at once: a proposal is applied when its wall is in range, touches
+    no forbidden room, is not open yet and was not proposed before, and
+    comes no later than the first proposal after which every room is
+    reachable (the minimax time of :func:`_minimax_reach`)."""
+    n, w, h = grid.shape[:3]
+    device = grid.device
+    p, e = CONNECT_PROPOSALS, open0.shape[1]
+    pi, pj = _randint(0, cols, (n, p), gen, device), _randint(0, rows, (n, p), gen, device)
+    pd = _randint(0, 4, (n, p), gen, device)
+    off = _randint(1, pitch, (n, p), gen, device)
+    pcolor = _randint(0, 6, (n, p), gen, device)
+    if avoid is not None:
+        c5, avoid = _randint(0, 5, (n, p), gen, device), avoid[:, None]
+        pcolor = torch.where(avoid >= 0, c5 + (c5 >= avoid).long(), pcolor)
+    dvec = torch.as_tensor(DIR_TO_VEC, device=device)[pd]
+    ni, nj = pi + dvec[..., 0], pj + dvec[..., 1]
+    in_range = (ni >= 0) & (ni < cols) & (nj >= 0) & (nj < rows)
+    edge = torch.where(in_range, _edge(cols, rows, pi, pj, pd), e)  # e: a sink
+    open0 = torch.cat([open0, torch.zeros((n, 1), dtype=torch.bool, device=device)], dim=1)
+    ok = in_range & ~open0.gather(1, edge)
+    if forbid is not None:
+        fi, fj = forbid[0][:, None], forbid[1][:, None]
+        ok = ok & ~(((pi == fi) & (pj == fj)) | ((ni == fi) & (nj == fj)))
+    t = torch.arange(p, device=device).expand(n, p)
+    first = torch.full((n, e + 1), p, dtype=torch.int64, device=device)
+    first.scatter_reduce_(1, torch.where(ok, edge, e), t, "amin")
+    valid = ok & (first.gather(1, edge) == t)
+    # Each connection's opening time: -1 from the start, its first valid
+    # proposal, or never (inf).
+    when = torch.where(first[:, :e] < p, first[:, :e].float(), float("inf"))
+    when = torch.where(open0[:, :e], -1.0, when)
+    wh = when[:, :(cols - 1) * rows].reshape(n, cols - 1, rows)
+    wv = when[:, (cols - 1) * rows:].reshape(n, cols, rows - 1)
+    last = _minimax_reach(wh, wv).clamp(max=p - 1)
+    applied = valid & (t <= last[:, None])
+    # Doors of the applied proposals (distinct walls, so distinct cells).
+    x, y = _wall_door(pitch, pi, pj, pd, off)
+    flat = torch.where(applied, x * h + y, w * h)
+    cells = torch.cat([grid.reshape(n, w * h, 3),
+                       torch.zeros((n, 1, 3), dtype=torch.int8, device=device)], dim=1)
+    cells[torch.arange(n, device=device)[:, None], flat] = _cell(DOOR, pcolor, CLOSED, device)
+    return cells[:, :w * h].reshape(n, w, h, 3)
+
+
+def _reset_babyai_gotomaze(params: EnvParams, n: int, gen: torch.Generator, device) -> EnvState:
+    """BabyAI's maze tier (GoTo[Open], GoToObjMaze*, Pickup, UnblockPickup,
+    Open, Unlock, GoToImpUnlock, FindObj, PickupAbove; the JAX package's
+    ``_reset_babyai_gotomaze``): a C×R RoomGrid of S×S rooms. The unlock tier
+    first locks a random wall of a random room (a LOCKED random-color door;
+    Unlock's doors avoid its color with probability 1/2). The agent goes in
+    a uniform room (not the locked one; ``agent_room`` with
+    ``fixed_agent_room``), PickupAbove's door onto the room above is added,
+    ``connect_all`` joins the rooms, ``doors_open`` opens every door; then
+    the locked door's key in another room, and ``num_objs`` random objects,
+    each in a uniform room (PickupAbove's first in ``obj_room``,
+    GoToImpUnlock's 2 in each unlocked room). The mission: GoToImpUnlock's
+    extra object inside the locked room ([type, color]), Unlock's locked
+    door ([DOOR, color]), Open's uniform door ([DOOR, its color]), or a
+    uniform one of the objects ([type, color], color −1 with
+    ``type_only``). A layout is kept when every object is reachable —
+    UnblockPickup's only when some object is not."""
+    s, r, c = params.max_room_size, params.min_rooms, params.max_rooms
+    pitch, k = s - 1, params.num_objs
+
+    def build(m):
+        grid = _lattice(params, pitch, m, device)
+        env = torch.arange(m, device=device)
+        open0 = torch.zeros((m, (c - 1) * r + c * (r - 1)), dtype=torch.bool, device=device)
+        avoid = torch.full((m,), -1, device=device)
+        locked = avoid
+        if params.locked_room:
+            locked = _randint(0, c * r, m, gen, device)
+            li, lj = locked % c, locked // c
+            walls = torch.stack([li + 1 < c, lj + 1 < r, li > 0, lj > 0], dim=1)
+            pickd = _rand_between(torch.zeros_like(li), walls.sum(1), gen)
+            d = (walls.cumsum(1) > pickd[:, None]).to(torch.uint8).argmax(1)
+            x, y = _wall_door(pitch, li, lj, d, _randint(1, s - 1, m, gen, device))
+            lcolor = _randint(0, 6, m, gen, device)
+            grid[env, x, y] = _cell(DOOR, lcolor, LOCKED, device)
+            _open_edge(open0, c, r, li, lj, d)
+            avoid = torch.where(_randint(0, 2, m, gen, device) == 1, lcolor, -1)
+        if params.fixed_agent_room:
+            ai, aj = params.agent_room
+        elif params.locked_room:
+            a0 = _randint(0, c * r - 1, m, gen, device)
+            a0 = a0 + (a0 >= locked).long()
+            ai, aj = a0 % c, a0 // c
+        else:
+            ai, aj = _randint(0, c, m, gen, device), _randint(0, r, m, gen, device)
+        agent_pos = _sample_free_cell((grid[..., 0] == EMPTY)
+                                      & _room_interior(params, pitch, ai, aj, device), gen)
+        agent_dir = _randint(0, 4, m, gen, device)
+        if params.predoor[0] >= 0:
+            pi, pj, pd = (torch.full((m,), v, device=device) for v in params.predoor)
+            x, y = _wall_door(pitch, pi, pj, pd, _randint(1, s - 1, m, gen, device))
+            grid[env, x, y] = _cell(DOOR, _randint(0, 6, m, gen, device), CLOSED, device)
+            _open_edge(open0, c, r, pi, pj, pd)
+        grid = _connect_all(grid, pitch, c, r, open0, gen, avoid)
+        if params.doors_open:
+            grid[..., 2] = torch.where(grid[..., 0] == DOOR, OPEN,
+                                       grid[..., 2].long()).to(torch.int8)
+        free = grid[..., 0] == EMPTY
+        free[env, agent_pos[:, 0], agent_pos[:, 1]] = False
+        if params.locked_room:
+            k0 = _randint(0, c * r - 1, m, gen, device)
+            k0 = k0 + (k0 >= locked).long()
+            _put(grid, free, _room_interior(params, pitch, k0 % c, k0 // c, device),
+                 _cell(KEY, lcolor, 0, device), gen)
+        types, colors = _random_objects(m, k, gen, device)
+        for i in range(k):
+            if i == 0 and params.obj_room[0] >= 0:
+                room = _room_interior(params, pitch, *params.obj_room, device)
+            elif params.dists_per_room:
+                rr = torch.full((m,), i // 2, device=device)
+                rr = rr + (rr >= locked).long()
+                room = _room_interior(params, pitch, rr % c, rr // c, device)
+            else:
+                room = _room_interior(params, pitch, _randint(0, c, m, gen, device),
+                                      _randint(0, r, m, gen, device), device)
+            _put(grid, free, room, _cell(types[:, i], colors[:, i], 0, device), gen)
+        if params.target_in_locked:
+            tt, tc = (v[:, 0] for v in _random_objects(m, 1, gen, device))
+            _put(grid, free, _room_interior(params, pitch, li, lj, device),
+                 _cell(tt, tc, 0, device), gen)
+            target = _target(m, device, tt, tc)
+        elif params.locked_room:
+            target = _target(m, device, DOOR, lcolor)
+        elif params.success == "babyai_open_color":
+            dpos = _sample_free_cell(grid[..., 0] == DOOR, gen)
+            target = _target(m, device, DOOR, grid[env, dpos[:, 0], dpos[:, 1], 1])
+        else:
+            t = _randint(0, k, m, gen, device)
+            color = torch.full((m,), -1, device=device) if params.type_only else colors[env, t]
+            target = _target(m, device, types[env, t], color)
+        return grid, agent_pos, agent_dir, target
+
+    def accept(out):
+        reachable = _objs_reachable(out[0], out[1])
+        return ~reachable if params.invert_reach else reachable
+
+    attempts = BABYAI_UNBLOCK_ATTEMPTS if params.invert_reach else BABYAI_ATTEMPTS
+    grid, agent_pos, agent_dir, target = _rejection(build, n, accept, attempts, params.kind)
+    return _state(grid, agent_pos, agent_dir, target)
+
+
+def _reset_babyai_unlocklocal(params: EnvParams, n: int, gen: torch.Generator,
+                              device) -> EnvState:
+    """UnlockLocal[Dist] / KeyInBox: a 3×3 RoomGrid of 8×8 rooms; one LOCKED
+    random-color door on a random wall of the center room, its key inside —
+    loose, or in a random-color box whose state is color + 1 (KeyInBox) —
+    then ``num_objs`` distractors distinct from each other and from the key,
+    then the agent. ``target`` = [DOOR, −1, 0…]: any door (the JAX package's
+    ``_reset_babyai_unlocklocal``)."""
+    grid = _lattice(params, 7, n, device)
+    env = torch.arange(n, device=device)
+    d = _randint(0, 4, n, gen, device)
+    dx, dy = _wall_door(7, 1, 1, d, _randint(1, 7, n, gen, device))
+    color = _randint(0, 6, n, gen, device)
+    grid[env, dx, dy] = _cell(DOOR, color, LOCKED, device)
+    free = (grid[..., 0] == EMPTY) & _room_interior(params, 7, 1, 1, device)
+    if params.key_in_box:
+        key = _cell(BOX, _randint(0, 6, n, gen, device), color + 1, device)
+    else:
+        key = _cell(KEY, color, 0, device)
+    _put(grid, free, None, key, gen)
+    if params.num_objs:  # distinct from each other and the key (row 0 of the 3×6 table)
+        types, colors = _distinct_objects(n, params.num_objs, gen, device, skip=(color,))
+        for i in range(params.num_objs):
+            _put(grid, free, None, _cell(types[:, i], colors[:, i], 0, device), gen)
+    agent_pos = _take(free, None, gen)
+    return _state(grid, agent_pos, _randint(0, 4, n, gen, device),
+                  _target(n, device, DOOR, -1))
+
+
+def _reset_babyai_u2u(params: EnvParams, n: int, gen: torch.Generator, device) -> EnvState:
+    """UnlockToUnlock: three 6×6 rooms in a row (16×6, walls at x = 5 and
+    10); door A (the first of two distinct colors) LOCKS left↔middle, door B
+    middle↔right; key A in the right room, key B in the middle, a random
+    ball in the left, the agent in the middle. ``target`` = [BALL, −1, 0…]
+    (the JAX package's ``_reset_babyai_u2u``)."""
+    w, h = params.width, params.height
+    grid = _base_grid(params, n, device, goal=False)
+    grid[:, 5] = grid[:, 10] = _cell(WALL, GREY, 0, device)
+    env = torch.arange(n, device=device)
+    pair = torch.argsort(torch.rand((n, 6), generator=gen, device=device), dim=1)[:, :2]
+    grid[env, 5, _randint(1, h - 1, n, gen, device)] = _cell(DOOR, pair[:, 0], LOCKED, device)
+    grid[env, 10, _randint(1, h - 1, n, gen, device)] = _cell(DOOR, pair[:, 1], LOCKED, device)
+    xs, _ = _coords(w, h, device)
+    left, mid, right = xs < 5, (xs > 5) & (xs < 10), xs > 10
+    free = grid[..., 0] == EMPTY
+    _put(grid, free, right, _cell(KEY, pair[:, 0], 0, device), gen)
+    _put(grid, free, mid, _cell(KEY, pair[:, 1], 0, device), gen)
+    _put(grid, free, left, _cell(BALL, _randint(0, 6, n, gen, device), 0, device), gen)
+    agent_pos = _sample_free_cell(free & mid, gen)
+    return _state(grid, agent_pos, _randint(0, 4, n, gen, device), _target(n, device, BALL, -1))
+
+
+def _reset_babyai_objdoor(params: EnvParams, n: int, gen: torch.Generator, device) -> EnvState:
+    """GoToDoor / GoToObjDoor / ActionObjDoor: a 3×3 RoomGrid; the center
+    room's four doors in independent random colors, the agent and then
+    ``num_objs`` objects inside (random, or distinct for ActionObjDoor). The
+    mission names a uniform one of the doors and objects: ``target`` =
+    [type, color, 0…]; ActionObjDoor's draws a verb by a coin as well, goto
+    or open for a door, goto or pickup for an object: ``target`` = [verb (0
+    goto, 1 pickup, 2 open), type, color, 0…] (the JAX package's
+    ``_reset_babyai_objdoor`` and ``_reset_babyai_actionobj``)."""
+    pitch, k = (params.width - 1) // 3, params.num_objs
+    action = params.success == "babyai_action"
+    grid = _lattice(params, pitch, n, device)
+    if action:
+        types, colors = _distinct_objects(n, k, gen, device)
+    else:
+        types, colors = _random_objects(n, k, gen, device)
+    dcols = _randint(0, 6, (n, 4), gen, device)
+    _center_doors(grid, pitch, dcols, gen)
+    free = (grid[..., 0] == EMPTY) & _room_interior(params, pitch, 1, 1, device)
+    agent_pos = _take(free, None, gen)
+    for i in range(k):
+        _put(grid, free, None, _cell(types[:, i], colors[:, i], 0, device), gen)
+    env = torch.arange(n, device=device)
+    pick = _randint(0, k + 4, n, gen, device)
+    is_door = pick >= k
+    di, oi = (pick - k).clamp(0, 3), pick.clamp(0, max(k - 1, 0))
+    if k:
+        ttype = torch.where(is_door, DOOR, types[env, oi])
+        tcol = torch.where(is_door, dcols[env, di], colors[env, oi])
+    else:
+        ttype, tcol = torch.full((n,), DOOR, device=device), dcols[env, di]
+    target = (ttype, tcol)
+    if action:
+        verb = torch.where(_randint(0, 2, n, gen, device) == 0, 0, torch.where(is_door, 2, 1))
+        target = (verb, *target)
+    return _state(grid, agent_pos, _randint(0, 4, n, gen, device), _target(n, device, *target))
+
+
+def _reset_babyai_putnext2(params: EnvParams, n: int, gen: torch.Generator, device) -> EnvState:
+    """PutNextS{s}N{n}[Carrying]: two s×s rooms without their dividing wall
+    ((2s − 1)×s); the agent in the left half, then ``num_objs`` objects in
+    each half, all 2·num_objs distinct. The mission puts a uniform left
+    object next to a uniform right one, or (a coin) the other way round:
+    ``target`` = [move_type, move_color, fixed_type, fixed_color, 0…]; with
+    ``start_carrying`` the move object starts in the agent's hand, its cell
+    emptied (the PutNext branch of the JAX package's
+    ``_reset_babyai_putnext2``)."""
+    s, k = params.max_room_size, params.num_objs
+    grid = _base_grid(params, n, device, goal=False)
+    types, colors = _distinct_objects(n, 2 * k, gen, device)
+    xs, _ = _coords(params.width, params.height, device)
+    free = grid[..., 0] == EMPTY
+    agent_pos = _take(free, xs < s - 1, gen)
+    cells = torch.stack([_put(grid, free, xs < s - 1 if i < k else xs > s - 1,
+                              _cell(types[:, i], colors[:, i], 0, device), gen)
+                         for i in range(2 * k)], dim=1)
+    env = torch.arange(n, device=device)
+    ia = _randint(0, k, n, gen, device)
+    ib = k + _randint(0, k, n, gen, device)
+    flip = _randint(0, 2, n, gen, device) == 1
+    mv, fx = torch.where(flip, ib, ia), torch.where(flip, ia, ib)
+    state = _state(grid, agent_pos, _randint(0, 4, n, gen, device), _target(
+        n, device, types[env, mv], colors[env, mv], types[env, fx], colors[env, fx]))
+    if params.start_carrying:
+        grid[env, cells[env, mv, 0], cells[env, mv, 1]] = _cell(EMPTY, 0, 0, device)
+        state.carrying = _cell(types[env, mv], colors[env, mv], 0, device)
+    return state
+
+
 _RESETS = {
     "empty": _reset_empty, "doorkey": _reset_doorkey, "fourrooms": _reset_fourrooms,
     "lavagap": _reset_lavagap, "distshift": _reset_distshift, "redblue": _reset_redblue,
@@ -1265,6 +2022,12 @@ _RESETS = {
     "obstructedfull": _reset_obstructedfull, "playground": _reset_playground,
     "memory": _reset_memory, "gotodoor": _reset_gotodoor, "fetch": _reset_fetch,
     "gotoobject": _reset_gotoobject, "putnear": _reset_putnear,
+    "babyai_goto": _reset_babyai_goto, "babyai_putnext": _reset_babyai_putnext,
+    "babyai_pickup": _reset_babyai_pickup, "babyai_openred": _reset_babyai_openred,
+    "babyai_opendoor": _reset_babyai_opendoor, "babyai_actionobj": _reset_babyai_objdoor,
+    "babyai_gotomaze": _reset_babyai_gotomaze, "babyai_unlocklocal": _reset_babyai_unlocklocal,
+    "babyai_u2u": _reset_babyai_u2u, "babyai_objdoor": _reset_babyai_objdoor,
+    "babyai_putnext2": _reset_babyai_putnext2,
 }
 
 
@@ -1359,6 +2122,73 @@ def _time_reward(step_count: torch.Tensor, max_steps: int) -> torch.Tensor:
     which float64 holds exactly."""
     k = float(np.float32(0.9) / np.float32(max_steps))
     return (1.0 - step_count.double() * k).float()
+
+
+def _babyai_verify(params: EnvParams, state: EnvState, action, grid, new_pos, new_dir, fx, fy,
+                   fobj, fcol, does_pickup, carrying):
+    """BabyAI's verifier of a single instruction, after the transition (the
+    JAX package's ``step``, :4150-4275) → (success [N], strict failure [N]).
+    ``target`` holds the mission; −1 in it is a wildcard where the mode
+    reads one. The agent never moves on a pickup, drop or toggle, so
+    (``fx``, ``fy``) is then its front cell.
+
+    - ``babyai_goto`` (GoToInstr, verified on every action): the cell in
+      front after the step matches [type, color], or the agent picked up a
+      matching object it faced (the verifier's stale position list).
+    - ``babyai_putnext``: on a drop ACTION, successful or not, some object
+      matching the move pair sits cardinally next to one matching the
+      fixed pair (``roll``: objects never sit on the border).
+    - ``babyai_pickup``: a pickup action that leaves the agent carrying a
+      match; ``strict`` fails one that leaves it carrying anything else.
+    - ``babyai_open_color``: a toggle that leaves an open door of the
+      mission's color (−1 any) in front.
+    - ``babyai_open``: a toggle that leaves an open door in front whose
+      ``x·height + y + 1`` is in ``target[:4]``; ``strict`` fails any other
+      toggle of a door.
+    - ``babyai_action``: ``target[0]`` picks goto (0), pickup (1) or open
+      (2), each on the pair [type, color] = ``target[1:3]``."""
+    t = state.target
+    n, w, h = grid.shape[:3]
+    env = torch.arange(n, device=grid.device)
+    mode = params.success
+    no = torch.zeros_like(action, dtype=torch.bool)
+    cell = grid[env, fx, fy]  # the front cell after a toggle, pickup or drop
+    if mode in ("babyai_goto", "babyai_action"):
+        ttype, tcol = (t[:, 0], t[:, 1]) if mode == "babyai_goto" else (t[:, 1], t[:, 2])
+        front = new_pos + torch.as_tensor(DIR_TO_VEC, device=grid.device)[new_dir]
+        ncell = grid[env, front[:, 0].clamp(0, w - 1), front[:, 1].clamp(0, h - 1)]
+        goto = (((ncell[:, 0].int() == ttype) & (ncell[:, 1].int() == tcol))
+                | (does_pickup & (fobj.int() == ttype) & (fcol.int() == tcol)))
+        if mode == "babyai_goto":
+            return goto, no
+        pick = ((action == A_PICKUP) & (carrying[:, 0].int() == ttype)
+                & (carrying[:, 1].int() == tcol))
+        opened = ((action == A_TOGGLE) & (cell[:, 0] == DOOR) & (cell[:, 1].int() == tcol)
+                  & (cell[:, 2] == OPEN))
+        verb = t[:, 0]
+        return torch.where(verb == 0, goto, torch.where(verb == 1, pick, opened)), no
+    if mode == "babyai_putnext":
+        obj, col = grid[..., 0].int(), grid[..., 1].int()
+        is_a = (obj == t[:, 0, None, None]) & (col == t[:, 1, None, None])
+        is_b = (obj == t[:, 2, None, None]) & (col == t[:, 3, None, None])
+        near_b = is_b.roll(1, 1) | is_b.roll(-1, 1) | is_b.roll(1, 2) | is_b.roll(-1, 2)
+        return (action == A_DROP) & (is_a & near_b).flatten(1).any(1), no
+    if mode == "babyai_pickup":
+        match = ((carrying[:, 0] != 0) & ((t[:, 0] < 0) | (carrying[:, 0].int() == t[:, 0]))
+                 & ((t[:, 1] < 0) | (carrying[:, 1].int() == t[:, 1])))
+        succ = (action == A_PICKUP) & match
+        fail = (action == A_PICKUP) & (carrying[:, 0] != 0) & ~match if params.strict else no
+        return succ, fail
+    if mode == "babyai_open_color":
+        return ((action == A_TOGGLE) & (cell[:, 0] == DOOR)
+                & ((t[:, 1] < 0) | (cell[:, 1].int() == t[:, 1])) & (cell[:, 2] == OPEN)), no
+    if mode == "babyai_open":
+        packed = (fx * h + fy + 1).int()
+        in_set = (t[:, :4] == packed[:, None]).any(1)
+        succ = (action == A_TOGGLE) & (cell[:, 0] == DOOR) & (cell[:, 2] == OPEN) & in_set
+        fail = (action == A_TOGGLE) & (cell[:, 0] == DOOR) & ~succ if params.strict else no
+        return succ, fail
+    raise ValueError(f"unknown BabyAI success mode {mode!r}")
 
 
 def step(params: EnvParams, state: EnvState, action: torch.Tensor,
@@ -1521,6 +2351,11 @@ def step(params: EnvParams, state: EnvState, action: torch.Tensor,
         landed_near = does_drop & ((fx - target[:, 4]).abs() <= 1) & ((fy - target[:, 5]).abs() <= 1)
         terminated = terminated | wrong_pickup | drops
         reward = torch.where(drops & landed_near, time_reward, reward)
+    elif params.success.startswith("babyai_"):
+        succ, fail = _babyai_verify(params, state, action, grid, new_pos, new_dir, fx, fy,
+                                    fobj, fcol, does_pickup, carrying)
+        terminated = terminated | succ | fail
+        reward = torch.where(succ, time_reward, reward)
 
     if params.kind == "dynobs":
         # Forward into a pre-move-occupied non-goal cell → −1, episode over.

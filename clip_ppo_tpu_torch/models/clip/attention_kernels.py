@@ -104,7 +104,7 @@ def fused_qkv_attention(qkv: torch.Tensor, heads: int, causal: bool = False) -> 
     entry = cuda_build.entry("fused_qkv", qkv)
     cuda_build.launch("fused_qkv", f"{entry}_launch", qkv.data_ptr(), out.data_ptr(),
                       b, t, heads, int(causal), cuda_build.stream_handle(qkv.device))
-    cuda_build.LAUNCHES[entry] += 1
+    cuda_build.count_launch(entry, qkv)
     return out
 
 
@@ -133,5 +133,5 @@ def packed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch
     cuda_build.launch("fused_qkv", f"{entry}_launch", q.data_ptr(), k.data_ptr(),
                       v.data_ptr(), out.data_ptr(), b, t, h, *q.stride()[:3], *k.stride()[:3],
                       *v.stride()[:3], cuda_build.stream_handle(q.device))
-    cuda_build.LAUNCHES[entry] += 1
+    cuda_build.count_launch(entry, q)
     return out

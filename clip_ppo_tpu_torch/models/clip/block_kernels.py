@@ -220,7 +220,7 @@ def _attn_half(name: str, x: torch.Tensor, ln1: dict, attn: dict, heads: int, ca
         buf["out"].data_ptr(), b, t, d, heads, int(causal), float(eps),
         cuda_build.stream_handle(x.device),
     )
-    cuda_build.LAUNCHES[entry] += 1
+    cuda_build.count_launch(entry, x)
     return buf["out"]
 
 
@@ -321,7 +321,7 @@ def _mlp_half(name: str, x: torch.Tensor, ln2: dict, mlp: dict, eps: float,
         *([chunks] if name == "mlp_chunked" else []), float(eps),
         cuda_build.stream_handle(x.device),
     )
-    cuda_build.LAUNCHES[entry] += 1
+    cuda_build.count_launch(entry, x)
     return buf["out"]
 
 

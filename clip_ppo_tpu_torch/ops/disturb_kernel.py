@@ -106,7 +106,7 @@ def disturb_batched(x: torch.Tensor, params: DisturbanceParams,
         b, h, w, c, float(params.gaussian_noise_sigma), ksize, ph, pw, ctas,
         cuda_build.stream_handle(x.device),
     )
-    cuda_build.LAUNCHES["disturb"] += 1
+    cuda_build.count_launch("disturb", x)
     return out
 
 

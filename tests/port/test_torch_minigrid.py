@@ -185,6 +185,6 @@ def test_doorkey_reset_statistics():
 
 
 def test_parse_env_id_rejects_later_families():
-    for env_id in ("BabyAI-PickupDist-v0", "BabyAI-GoToRedBall-v0"):
+    for env_id in ("BabyAI-PickupLoc-v0", "BabyAI-GoToSeq-v0"):
         with pytest.raises(ValueError, match="later slice"):
             tmg.parse_env_id(env_id)

@@ -3,8 +3,9 @@
 The 39 ids of FourRooms, LavaGap, DistShift, MultiRoom, {Simple,Lava}Crossing,
 Dynamic-Obstacles, Unlock, UnlockPickup, BlockedUnlockPickup,
 ObstructedMaze-1Dl{,h,hb}, KeyCorridor, LockedRoom and RedBlueDoors parse to
-the JAX package's ``EnvParams`` on every field the port has; BabyAI's ids,
-which a later slice brings, are refused by name.
+the JAX package's ``EnvParams`` on every field the port has; BabyAI's
+levels of composite instructions, which a later slice brings, are refused
+by name.
 
 Resets draw from different generators in the two packages, so the port's
 resets are held to the structural invariants the JAX package's family tests
@@ -62,16 +63,19 @@ DIRS = jmg.DIR_TO_VEC
 
 def test_forty_nine_ids_parse():
     """The 39 ids of these families beside Empty's 6 and DoorKey's 4 (49),
-    and the mission families, Memory, Playground and the full ObstructedMaze
-    (27 more, ``test_torch_minigrid_missions``): 76 of the registry's 165
-    parse, and the other 89 are BabyAI's."""
+    the mission families, Memory, Playground and the full ObstructedMaze
+    (27 more, ``test_torch_minigrid_missions``) and the 70 BabyAI levels
+    that ``target`` decides (``test_torch_babyai_rooms``,
+    ``test_torch_babyai_mazes``): 146 of the registry's 165 parse, and the
+    other 19 are BabyAI's levels of composite instructions."""
     assert len(set(FAMILY_IDS)) == 39
     from tests.test_registry_matrix import REGISTERED
 
     ported = [i for i in REGISTERED if _parses(i)]
-    assert len(REGISTERED) == 165 and len(ported) == 76
+    assert len(REGISTERED) == 165 and len(ported) == 146
     assert set(FAMILY_IDS) <= set(ported)
-    assert all(i.startswith("BabyAI-") for i in set(REGISTERED) - set(ported))
+    assert all(jmg.parse_env_id(i).success == "babyai_seq"
+               for i in set(REGISTERED) - set(ported))
 
 
 def _parses(env_id):
@@ -90,14 +94,14 @@ def test_parse_matches_jax(env_id):
 
 
 @pytest.mark.parametrize("env_id,slice_name", [
-    ("BabyAI-GoToRedBlueBall-v0", "BabyAI slice"),
-    ("BabyAI-GoToLocalS8N7-v0", "BabyAI slice"),
-    ("BabyAI-PutNextLocal-v0", "BabyAI slice"),
-    ("BabyAI-OpenDoorLoc-v0", "BabyAI slice"),
-    ("BabyAI-ActionObjDoor-v0", "BabyAI slice"),
-    ("BabyAI-GoToObjMazeS7-v0", "BabyAI slice"),
-    ("BabyAI-GoToRedBall-v0", "BabyAI slice"),
-    ("BabyAI-BossLevel-v0", "BabyAI slice"),
+    ("BabyAI-GoToSeqS5R2-v0", "BabyAI instruction slice"),
+    ("BabyAI-SynthLoc-v0", "BabyAI instruction slice"),
+    ("BabyAI-MoveTwoAcrossS8N9-v0", "BabyAI instruction slice"),
+    ("BabyAI-OpenRedBlueDoorsDebug-v0", "BabyAI instruction slice"),
+    ("BabyAI-OpenDoorsOrderN4-v0", "BabyAI instruction slice"),
+    ("BabyAI-PickupLoc-v0", "BabyAI instruction slice"),
+    ("BabyAI-MiniBossLevel-v0", "BabyAI instruction slice"),
+    ("BabyAI-BossLevel-v0", "BabyAI instruction slice"),
 ])
 def test_later_ids_are_refused_by_slice(env_id, slice_name):
     jmg.parse_env_id(env_id)  # the JAX package runs it
@@ -545,6 +549,7 @@ def test_step_and_observe_equal(env_id):
         won |= bool((tr.numpy() > 0).any())
         terminated_any |= bool(tterm.numpy().any())
     np.testing.assert_array_equal(tmg.observe(tp, ts).numpy(), np.asarray(jobs(jp, js)))
+    jax.clear_caches()  # each case's executables hold ~500 memory maps until freed
     assert terminated_any and won  # a crafted state reached the family's success
 
 

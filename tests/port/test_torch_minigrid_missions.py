@@ -408,6 +408,15 @@ def _jax_states(grid, pos, dirs, carrying, step_count, target):
         instr=jnp.zeros((n, 4, 12), jnp.int32), instr_state=jnp.zeros((n, 4, 2), jnp.int32))
 
 
+def release_jax_executables():
+    """Drop the JAX executables a case compiled: each id's step and observe
+    compile anew, and an XLA CPU executable holds ~500 memory maps until it
+    is freed, so a test worker that kept them all would near the kernel's
+    per-process limit (``vm.max_map_count``, 65,530), where a later compile
+    of the JAX package's own tests fails."""
+    jax.clear_caches()
+
+
 def _assert_rewards_equal(got, want, t):
     """Rewards of 0 equal; the time-scaled ``1 - 0.9·c/max_steps`` within
     2^-23 (see ``test_torch_minigrid_families._assert_rewards_equal``).
@@ -467,6 +476,7 @@ def test_step_and_observe_equal(env_id):
         if t == 0:
             first = (tr.numpy()[6:], tterm.numpy()[6:], ts.carrying.numpy()[6:])
     np.testing.assert_array_equal(tmg.observe(tp, ts).numpy(), np.asarray(jobs(jp, js)))
+    release_jax_executables()
     if tp.kind == "playground":
         assert not terminated_any and not won  # no reward source, only truncation
     else:
