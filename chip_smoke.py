@@ -16,7 +16,8 @@ non-zero at once:
 2. kernels — each kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it (K2 and K3 at [1024,77,512] for the
    text tables and the split paths, and at a table's last batch of 1,024:
-   [420,77,512] for FourRooms, [912,77,512] for BabyAI-GoTo; a row of
+   [420,77,512] for FourRooms, [912,77,512] for BabyAI-GoTo and BossLevel, and
+   MiniBossLevel's whole table, [324,77,512]; a row of
    ``BLOCK_CASES`` stands for one path or a tuple of them): K1 at every severity, at the shapes
    of ``K1_CASES`` (a ragged band, one channel, bands thinner than the
    halo, clusters of 8) and in the main path's mode, noise drawn in the
@@ -133,11 +134,12 @@ non-zero at once:
 13. families — the classic MiniGrid families (FourRooms, LavaGap, DistShift,
     MultiRoom, the crossings, Dynamic-Obstacles, Unlock and its variants,
     ObstructedMaze-1Dl, KeyCorridor, LockedRoom, RedBlueDoors): (a) the
-    CPU's reset of each family's largest id (``FAMILY_RUNS``, and Unlock),
-    with crafted states facing each success target, stepped 24 times on
+    reset of each family's largest id (``FAMILY_RUNS``, and Unlock), drawn on
+    the card and copied to the CPU, with crafted states facing each success
+    target, stepped 24 times on
     the card and on the CPU with the same actions and ball draws: views,
     states and flags equal, rewards equal as float32, a success reached in
-    each; (b) ``ppo_minigrid`` for 2 iterations on six of them
+    each; (b) ``ppo_minigrid`` for 2 iterations on four of them
     (``FAMILY_VANILLA``), its steady
     env-steps/s, and the kernels a rollout step launches (the rollout's bulk
     reset included) from two short traces; (c) ``clip_ppo_minigrid``
@@ -155,9 +157,10 @@ non-zero at once:
     (``done`` at GoToDoor's door and GoToObject's object, Fetch's pickup,
     PutNear's drop beside its near object, Memory's success cell) with
     ``EnvState.target`` carried, a success reached in each but Playground,
-    which has none; (b) as 13b on four (``MISSION_VANILLA``); (c) ``ppo_minigrid --recurrent`` on
-    MemoryS7 (the LSTM agent, no kernel) for 2 iterations, and one steady
-    iteration's rollout and update timed apart, with the kernels each
+    which has none; (b) as 13b on three (``MISSION_VANILLA``); (c)
+    ``ppo_minigrid --recurrent`` on MemoryS7 (the LSTM agent, no kernel) for
+    2 iterations, and one steady iteration's rollout and update timed apart,
+    with the kernels each
     launches (from traces of 4- and 8-step iterations, extrapolated to 128
     steps); (d) ``clip_ppo_minigrid`` in the text modality under HARD on
     GoToDoor-8x8, whose left-wall door varies the description's suffix:
@@ -182,6 +185,25 @@ non-zero at once:
     12 times an iteration, path ``babyai_image``), K1 128 times an
     iteration in each; each kernel is held against its plain version at
     those shapes in phase 2.
+
+16. seq — BabyAI's composite instructions and ``--mission-conditioning``:
+    (a) as 13a on one id of each generator and size (``SEQ_RUNS``: BossLevel,
+    MiniBossLevel, SynthSeq, GoToSeqS5R2, MoveTwoAcrossS8N9,
+    OpenRedBlueDoorsDebug, OpenDoorsOrderN4Debug, PickupLoc), with
+    ``instr`` and ``instr_state`` compared too and crafted states whose first
+    action completes each composition (single, and, before, after: the
+    reset's slot-0 instruction in the slot the composition verifies next,
+    every other slot already done) and, on the strict levels, toggles of a
+    door the strict slot does not name; each composition must succeed on
+    the card, and each strict level fail without reward; (b) as 13b on
+    BossLevel, MoveTwoAcrossS8N9 and OpenDoorsOrderN4, and on BossLevel with
+    ``--mission-conditioning`` (``SEQ_VANILLA``); (c) as 14c with
+    ``--recurrent --mission-conditioning`` on OpenTwoDoors; (d)
+    ``clip_ppo_minigrid`` in the text modality under HARD on BossLevel with
+    ``--mission-conditioning`` (the 1,936-row table: K2 and K3 12 times each
+    at [1024,77,512] and [912,77,512] at startup, path ``boss_mission``) and
+    on MiniBossLevel (the 324-row table: K2 and K3 12 times each at
+    [324,77,512], path ``miniboss_text``), K1 128 times an iteration in each.
 
 Besides, phase 2 holds K4–K8 in bf16 (their bf16 entry points) against
 their plain bf16 versions (``BF16_CASES``), K4 and K8 timed beside
@@ -671,18 +693,20 @@ def _source(name: str) -> tuple[str, str]:
 # The family runs of phases 13-15 (FAMILY_CLIP_RUNS and after): each path's
 # text or image shapes. A text table of R rows encodes in batches of 1,024, so
 # its last batch has R mod 1,024 rows; a split path encodes 1,024 a step.
-TEXT_1024 = ("text", "fourrooms", "split", "gotodoor", "babyai_text")
+TEXT_1024 = ("text", "fourrooms", "split", "gotodoor", "babyai_text", "boss_mission")
 IMAGE_1024 = ("image", "lavacrossing", "obstructedmaze", "babyai_image")
 FAMILY_CLIP_PATHS = ("fourrooms", "split", "lavacrossing", "gotodoor", "obstructedmaze",
-                     "babyai_text", "babyai_image")
+                     "babyai_text", "babyai_image", "boss_mission", "miniboss_text")
 
 BLOCK_CASES = [  # (kernel, B, T, D, causal, path or paths, timed); rows of no path stay out of the kernels line
     ("attn_block", 1024, 77, 512, True, TEXT_1024, True),  # text tables, split paths
     ("mlp_block", 1024, 77, 512, False, TEXT_1024, True),
     ("attn_block", 420, 77, 512, True, "fourrooms", True),  # FourRooms' 1,444 rows: the last batch
     ("mlp_block", 420, 77, 512, False, "fourrooms", True),
-    ("attn_block", 912, 77, 512, True, "babyai_text", True),  # BabyAI-GoTo's 1,936: the last batch
-    ("mlp_block", 912, 77, 512, False, "babyai_text", True),
+    ("attn_block", 912, 77, 512, True, ("babyai_text", "boss_mission"), True),  # 22x22 tables:
+    ("mlp_block", 912, 77, 512, False, ("babyai_text", "boss_mission"), True),  # last batch
+    ("attn_block", 324, 77, 512, True, "miniboss_text", True),  # MiniBossLevel's 9x9 table
+    ("mlp_block", 324, 77, 512, False, "miniboss_text", True),
     ("attn_block", 1024, 50, 768, False, IMAGE_1024, True),  # ViT-B/32 vision
     ("mlp_stream", 1024, 50, 768, False, IMAGE_1024, True),
     ("attn_block", 1024, 77, 768, True, "benchmark", True),  # ViT-L/14 text
@@ -2608,10 +2632,11 @@ FAMILY_RUNS = (
     "MiniGrid-KeyCorridorS6R3-v0", "MiniGrid-LockedRoom-v0", "MiniGrid-RedBlueDoors-8x8-v0",
 )
 # The vanilla runs of phase 13b, cut to keep the script well inside its clock:
-# the see-through layouts, the ball draws and the three largest resets.
+# DistShift's reset, a see-through layout with the ball draws and the two
+# largest resets (LavaCrossingS9N3's and ObstructedMaze-1Dlhb's generators run
+# on the card in 13a and in LavaCrossingS9N1's and ObstructedMaze-1Q's runs).
 FAMILY_VANILLA = (
-    "MiniGrid-DistShift1-v0", "MiniGrid-MultiRoom-N6-v0", "MiniGrid-LavaCrossingS9N3-v0",
-    "MiniGrid-Dynamic-Obstacles-16x16-v0", "MiniGrid-ObstructedMaze-1Dlhb-v1",
+    "MiniGrid-DistShift1-v0", "MiniGrid-MultiRoom-N6-v0", "MiniGrid-Dynamic-Obstacles-16x16-v0",
     "MiniGrid-KeyCorridorS6R3-v0",
 )
 FAMILY_STEPS = 24
@@ -2631,17 +2656,20 @@ FAMILY_CLIP_RUNS = (
 )
 
 
-def _crafted(core, grids, targets=None, kind: str = "", success: str = ""):
+def _crafted(core, grids, targets=None, kind: str = "", success: str = "", instrs=None,
+             target_color: int = -1):
     """Mid-episode states of a few reset grids (numpy), the agent turned to
-    face an object: (grid, pos, dir, carrying, first action, target) for
+    face an object: (grid, pos, dir, carrying, first action, target, instr,
+    instr_state; the grid's ``instrs`` [N, 4, 12] or zeros, no latch) for
     the goal and lava (forward), a ball (pickup; forward, a collision, under
-    Dynamic-Obstacles), a box (pickup, and toggle), a locked door with its
-    key in hand (toggle) and RedBlueDoors' blue door with the red one open
-    and closed (toggle); with the grids' mission ``targets`` [N, 8], also
+    Dynamic-Obstacles; balls of ``target_color`` first), a box (pickup, and
+    toggle), a locked door with its key in hand (toggle) and RedBlueDoors'
+    blue door with the red one open and closed (toggle); with the grids' mission ``targets`` [N, 8], also
     ``done`` facing the target cell (GoToDoor, GoToObject), a pickup of the
     target's (type, color) (Fetch), Memory's step onto its success cell and
     PutNear's drop of the move object beside its near object; with a
-    BabyAI ``success`` mode, the states :func:`_babyai_crafted` gives."""
+    BabyAI ``success`` mode, the states :func:`_babyai_crafted` gives, and
+    :func:`_seq_crafted`'s for the composite levels."""
     import numpy as np
 
     def face(g, target):
@@ -2657,7 +2685,11 @@ def _crafted(core, grids, targets=None, kind: str = "", success: str = ""):
     out, none = [], np.zeros(3, np.int8)
     for i, g in enumerate(grids[:3]):
         t = np.zeros(8, np.int32) if targets is None else targets[i]
-        if success.startswith("babyai_"):
+        ins = np.zeros((4, 12), np.int32) if instrs is None else instrs[i]
+        start = len(out)
+        if success == "babyai_seq":
+            out += _seq_crafted(core, g, t, ins, face, none)
+        elif success.startswith("babyai_"):
             out += _babyai_crafted(core, success, g, t, face, none)
         elif t.any():
             out += _mission_crafted(core, kind, g, t, face, none)
@@ -2666,7 +2698,8 @@ def _crafted(core, grids, targets=None, kind: str = "", success: str = ""):
                  (core.BOX, None, core.A_PICKUP), (core.BOX, None, core.A_TOGGLE)]
         locked = np.argwhere((g[..., 0] == core.DOOR) & (g[..., 2] == core.LOCKED))
         for obj, _, action in wants:
-            cells = np.argwhere(g[..., 0] == obj)
+            cells = sorted(np.argwhere(g[..., 0] == obj),
+                           key=lambda c: g[tuple(c)][1] != target_color)
             for c in cells[:2]:
                 f = face(g, tuple(c))
                 if f is not None:
@@ -2684,6 +2717,68 @@ def _crafted(core, grids, targets=None, kind: str = "", success: str = ""):
                 f = face(gr, doors[core.BLUE])
                 if f is not None:
                     out.append((gr, f[0], f[1], none, core.A_TOGGLE, t))
+        out[start:] = [c if len(c) == 8 else (*c, ins, np.zeros((4, 2), np.int32))
+                       for c in out[start:]]
+    return out
+
+
+def _seq_crafted(core, g, t, instr, face, none):
+    """States of one grid ``g`` of a composite level whose first action
+    completes an instruction: the reset's slot-0 row, acted on (``done``
+    facing a goto match, a toggle of a door to open, its key in hand where it
+    is locked, a pickup, a drop of the move object beside a fixed one), put
+    in the slot each composition verifies next with every other slot it uses
+    already done — single (slot 0), and (slot 1 done), before (slot 0 done,
+    slot 2 acting), after (slot 2 done, slot 0 acting) — and where slot 0 is
+    strict, a toggle of each door it does not name."""
+    import numpy as np
+
+    row, h = instr[0], g.shape[1]
+    movable = (core.KEY, core.BALL, core.BOX)
+
+    def cells(tt, cc, types, positional):
+        if positional:
+            return [((v - 1) // h, (v - 1) % h) for v in row[6:12] if v]
+        m = np.isin(g[..., 0], types) & ((g[..., 0] == tt) if tt >= 0 else True)
+        return [tuple(c) for c in np.argwhere(m & ((g[..., 1] == cc) if cc >= 0 else True))]
+
+    act = None
+    if row[0] == 4:  # putnext: the move object in hand, dropped beside a fixed one
+        for mv in cells(row[1], row[2], movable, False):
+            held = g.copy()
+            held[mv] = [core.EMPTY, 0, 0]
+            for fx in cells(row[3], row[4], movable, False):
+                for dx, dy in core.DIR_TO_VEC:
+                    c = (fx[0] + dx, fx[1] + dy)
+                    f = face(held, c) if held[c][0] == core.EMPTY else None
+                    if f is not None and held[f[0]][0] == core.EMPTY and act is None:
+                        act = (held, *f, np.array([*g[mv][:2], 0], np.int8), core.A_DROP)
+    elif row[0]:
+        types = {1: (*movable, core.DOOR), 2: (core.DOOR,), 3: movable}[int(row[0])]
+        for c in cells(row[1], row[2], types, bool(row[5] & 1)):
+            f = face(g, c)
+            if f is None or act is not None or (row[0] == 2 and g[c][2] == core.OPEN):
+                continue
+            carry = (np.array([core.KEY, g[c][1], 0], np.int8)
+                     if row[0] == 2 and g[c][2] == core.LOCKED else none)
+            act = (g.copy(), *f, carry,
+                   {1: core.A_DONE, 2: core.A_TOGGLE, 3: core.A_PICKUP}[int(row[0])])
+    out = []
+    if act is not None:
+        for comp, acting, done in ((0, 0, ()), (1, 0, (1,)), (2, 2, (0,)), (3, 0, (2,))):
+            ins, latch = np.zeros((4, 12), np.int32), np.zeros((4, 2), np.int32)
+            for slot in (acting, *done):
+                ins[slot] = row
+            latch[list(done), 0] = 1
+            tt = t.copy()
+            tt[:2] = comp, 0
+            out.append((*act, tt, ins, latch))
+    if row[5] & 2:  # strict: a door of another color
+        for c in map(tuple, np.argwhere((g[..., 0] == core.DOOR) & (g[..., 1] != row[2]))):
+            f = face(g, c)
+            if f is not None:
+                out.append((g.copy(), *f, none, core.A_TOGGLE, t, instr,
+                            np.zeros((4, 2), np.int32)))
     return out
 
 
@@ -2777,13 +2872,15 @@ def _babyai_crafted(core, success, g, t, face, none):
 
 def phase_family_transitions(card: dict, env_ids=(*FAMILY_RUNS, "MiniGrid-Unlock-v0"),
                              tag: str = "families") -> None:
-    """13a. The CPU's reset of each family's largest id, with crafted
+    """13a. The reset of each family's largest id, drawn on the card (so
+    every generator runs there) and copied to the CPU, with crafted
     mid-episode states, stepped 24 times on the card and on the CPU with the
     same actions (and the same Dynamic-Obstacles draws): views, states
     (``target`` included) and flags equal, rewards equal as float32; every
     family reaches its success, but Playground, which has none, and a strict
     level (``EnvParams.strict``) also its failure, a termination without
-    reward."""
+    reward. Returns the compositions (``target[0]``) whose composite
+    instruction succeeded on the card."""
     import numpy as np
     import torch
 
@@ -2791,19 +2888,24 @@ def phase_family_transitions(card: dict, env_ids=(*FAMILY_RUNS, "MiniGrid-Unlock
 
     dev = torch.device("cuda", 0)
     t0 = time.time()
+    comps_won = set()
     for env_id in env_ids:
         p = core.parse_env_id(env_id)
         gen = torch.Generator()
         gen.manual_seed(13)
-        st = core.reset(p, 8, gen, "cpu")
-        crafted = _crafted(core, st.grid.numpy(), st.target.numpy(), p.kind, p.success)
+        dgen = torch.Generator(device=dev)
+        dgen.manual_seed(13)
+        st = core.EnvState(*(t.cpu() for t in dataclasses.astuple(core.reset(p, 8, dgen, dev))))
+        crafted = _crafted(core, st.grid.numpy(), st.target.numpy(), p.kind, p.success,
+                           st.instr.numpy(), p.target_color)
         n = 8 + len(crafted)
         cat = lambda a, b: torch.cat([a, torch.as_tensor(np.stack(b))])  # noqa: E731
         cpu = core.EnvState(
             cat(st.grid, [c[0] for c in crafted]), cat(st.agent_pos, [np.array(c[1]) for c in crafted]),
             cat(st.agent_dir, [np.array(c[2]) for c in crafted]), cat(st.carrying, [c[3] for c in crafted]),
             torch.cat([st.step_count, torch.full((len(crafted),), p.max_steps // 2, dtype=torch.int32)]),
-            cat(st.target, [np.asarray(c[5], np.int32) for c in crafted]))
+            cat(st.target, [np.asarray(c[5], np.int32) for c in crafted]),
+            cat(st.instr, [c[6] for c in crafted]), cat(st.instr_state, [c[7] for c in crafted]))
         gpu = core.EnvState(*(t.to(dev) for t in dataclasses.astuple(cpu)))
         rng = np.random.RandomState(13)
         actions = rng.randint(0, p.num_actions, size=(FAMILY_STEPS, n))
@@ -2814,6 +2916,7 @@ def phase_family_transitions(card: dict, env_ids=(*FAMILY_RUNS, "MiniGrid-Unlock
             if not torch.equal(core.observe(p, gpu).cpu(), core.observe(p, cpu)):
                 fail(f"{env_id}: the views on the card differ from the CPU's before step {t}")
             draws = core.obstacle_gumbels(p, n, gen, "cpu") if p.kind == "dynobs" else None
+            comp = cpu.target[:, 0]
             cpu, r_c, te_c, tr_c = core.step(p, cpu, a, gumbels=draws)
             gpu, r_g, te_g, tr_g = core.step(p, gpu, a.to(dev),
                                              gumbels=None if draws is None else draws.to(dev))
@@ -2825,6 +2928,8 @@ def phase_family_transitions(card: dict, env_ids=(*FAMILY_RUNS, "MiniGrid-Unlock
                     fail(f"{env_id}: {name} on the card differs from the CPU's at step {t}")
             won += int((r_c > 0).sum())
             failed += int((te_c & (r_c == 0)).sum())
+            if p.success == "babyai_seq":
+                comps_won |= set(comp[r_c > 0].tolist())
         print(f"[{tag}] {env_id} ({p.kind}, success {p.success}): {n} states ({len(crafted)} "
               f"crafted) x {FAMILY_STEPS} steps on the card equal to the CPU (views, states, "
               f"flags; rewards as float32); {won} rewarded transitions, {failed} terminated "
@@ -2836,6 +2941,7 @@ def phase_family_transitions(card: dict, env_ids=(*FAMILY_RUNS, "MiniGrid-Unlock
         if won and p.kind == "playground":
             fail(f"{env_id}: Playground has no reward, yet {won} transitions were rewarded")
     print(f"[{tag}] transition checks took {time.time() - t0:.1f} s")
+    return comps_won
 
 
 def _count_kernels(fn) -> int:
@@ -2850,7 +2956,8 @@ def _count_kernels(fn) -> int:
     return sum(e.count for e in _kernel_events(prof))
 
 
-def phase_family_vanilla(card: dict, env_ids=FAMILY_VANILLA, tag: str = "families vanilla") -> dict:
+def phase_family_vanilla(card: dict, env_ids=FAMILY_VANILLA, tag: str = "families vanilla",
+                         mission: bool = False) -> dict:
     """13b. ``ppo_minigrid`` for 2 iterations of 8 x 128 on each id of
     ``env_ids`` (view mode, no kernel of the port launched, finite losses),
     its second iteration clocked for the steady env-steps/s; one rollout of
@@ -2859,7 +2966,8 @@ def phase_family_vanilla(card: dict, env_ids=FAMILY_VANILLA, tag: str = "familie
     read): a 4-step rollout R4 whose bulk reset is made before the trace,
     and the bulk reset W of a 128-step rollout, a step then launching
     R4 / 4 + W / 128. (A rejection loop's launches grow with the number of
-    envs it resets, so the reset is kept out of R4.)"""
+    envs it resets, so the reset is kept out of R4.) With ``mission``, every
+    run is ``--mission-conditioning``, its Trainer FiLM-conditioned."""
     import torch
 
     from clip_ppo_tpu_torch.cli import ppo_minigrid as cli
@@ -2871,24 +2979,27 @@ def phase_family_vanilla(card: dict, env_ids=FAMILY_VANILLA, tag: str = "familie
     dev = torch.device("cuda", 0)
     out = {}
     for env_id in env_ids:
-        args, summary, launches, wall, steady, _ = run_atari_cli(cli, ["--env-id", env_id])
+        args, summary, launches, wall, steady, _ = run_atari_cli(
+            cli, ["--env-id", env_id, *(["--mission-conditioning"] if mission else [])])
         if any(launches.values()):
             fail(f"vanilla {env_id} launched kernels of the port: {launches}")
-        if not summary["view_mode"]:
-            fail(f"vanilla {env_id} is not in view mode")
+        if not summary["view_mode"] or summary["mission_conditioning"] is not mission:
+            fail(f"vanilla {env_id}: view mode {summary['view_mode']}, mission conditioning "
+                 f"{summary['mission_conditioning']}")
         _check_scalars(f"[{tag}] {env_id}", summary["last_scalars"])
         env = TorchVectorEnv(env_id, 8, dev)
         pgen = torch.Generator()
         pgen.manual_seed(1)
-        params = agent_mod.init_agent_params(pgen, env.num_actions, dev)
-        trainer = Trainer(PPOConfig(), env, 2)
+        params = agent_mod.init_agent_params(pgen, env.num_actions, dev,
+                                             mission_dim=env.mission_dim if mission else 0)
+        trainer = Trainer(PPOConfig(), env, 2, mission_conditioning=mission)
         state = trainer.init_state(params, 1)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         trainer._rollout(state, Draws())
         torch.cuda.synchronize()
         rollout_s = time.perf_counter() - t0
-        short = Trainer(PPOConfig(num_steps=4), env, 2)
+        short = Trainer(PPOConfig(num_steps=4), env, 2, mission_conditioning=mission)
         state = short.init_state(params, 1)
         short._rollout(state, Draws())  # warm-up
         gen = torch.Generator(device=dev)
@@ -2992,7 +3103,7 @@ MISSION_RUNS = (
     "MiniGrid-PutNear-8x8-N3-v0",
 )
 MISSION_VANILLA = ("MiniGrid-ObstructedMaze-Full-v0", "MiniGrid-Playground-v0",
-                   "MiniGrid-MemoryS17Random-v0", "MiniGrid-PutNear-8x8-N3-v0")  # as FAMILY_VANILLA
+                   "MiniGrid-PutNear-8x8-N3-v0")  # as FAMILY_VANILLA; MemoryS7 runs in 14c
 MISSION_CLIP_RUNS = (  # as FAMILY_CLIP_RUNS
     ("text split GoToDoor-8x8", ["--env-id", "MiniGrid-GoToDoor-8x8-v0", *HARD_TEXT],
      {}, {"attn_block": 12, "mlp_block": 12, "disturb": 128}, "gotodoor", True),
@@ -3002,8 +3113,10 @@ MISSION_CLIP_RUNS = (  # as FAMILY_CLIP_RUNS
 RECURRENT_ID = "MiniGrid-MemoryS7-v0"
 
 
-def phase_recurrent(card: dict) -> None:
-    """14c. ``ppo_minigrid --recurrent`` on MemoryS7 for 2 iterations of
+def phase_recurrent(card: dict, env_id: str = RECURRENT_ID, mission: bool = False,
+                    tag: str = "recurrent") -> None:
+    """14c. ``ppo_minigrid --recurrent`` on MemoryS7 (``env_id``; with
+    ``mission``, ``--mission-conditioning`` too) for 2 iterations of
     8 x 128 (view mode, no kernel of the port, finite losses), then one
     steady iteration's rollout, GAE and update timed apart (synchronized),
     and the kernels the rollout and the update launch: both are linear in
@@ -3020,19 +3133,23 @@ def phase_recurrent(card: dict) -> None:
 
     dev = torch.device("cuda", 0)
     args, summary, launches, wall, steady, _ = run_atari_cli(
-        cli, ["--env-id", RECURRENT_ID, "--recurrent"])
+        cli, ["--env-id", env_id, "--recurrent", *(["--mission-conditioning"] if mission else [])])
     if any(launches.values()):
         fail(f"--recurrent launched kernels of the port: {launches}")
-    if not (summary["recurrent"] and summary["view_mode"]):
-        fail(f"--recurrent: recurrent {summary['recurrent']}, view mode {summary['view_mode']}")
-    _check_scalars("[recurrent]", summary["last_scalars"])
-    env = TorchVectorEnv(RECURRENT_ID, 8, dev)
+    if not (summary["recurrent"] and summary["view_mode"]
+            and summary["mission_conditioning"] is mission):
+        fail(f"--recurrent: recurrent {summary['recurrent']}, view mode {summary['view_mode']}, "
+             f"mission conditioning {summary['mission_conditioning']}")
+    _check_scalars(f"[{tag}]", summary["last_scalars"])
+    env = TorchVectorEnv(env_id, 8, dev)
     pgen = torch.Generator()
     pgen.manual_seed(1)
-    params = rec.init_agent_params_recurrent(pgen, env.num_actions, dev)
+    params = rec.init_agent_params_recurrent(pgen, env.num_actions, dev,
+                                             mission_dim=env.mission_dim if mission else 0)
 
     def parts(num_steps: int, count: bool):
-        trainer = Trainer(PPOConfig(num_steps=num_steps), env, 4, recurrent=True)
+        trainer = Trainer(PPOConfig(num_steps=num_steps), env, 4, recurrent=True,
+                          mission_conditioning=mission)
         state, *_ = trainer.iteration(trainer.init_state(params, 1), 1)  # warm-up
         torch.cuda.synchronize()
         init, out, ms = state.lstm_state, {}, {}
@@ -3069,7 +3186,7 @@ def phase_recurrent(card: dict) -> None:
                   f"({(r8 - r4) / 4:.1f} a step), update {upd:.0f} ({(u8 - u4) / 4 / 16:.1f} a "
                   f"replayed step of a minibatch, forward and backward; traced 4 and 8 steps: "
                   f"rollout {r4}, {r8}, update {u4}, {u8})")
-    print(f"[recurrent] {RECURRENT_ID}, LSTM hidden {args.lstm_hidden}: 2 iterations of 8x128 in "
+    print(f"[{tag}] {env_id}, LSTM hidden {args.lstm_hidden}: 2 iterations of 8x128 in "
           f"{wall:.2f} s wall, steady {steady:.1f} env-steps/s (second iteration); one steady "
           f"iteration by part (host clock, synchronized): rollout {ms['rollout']:.1f} ms, GAE "
           f"{ms['gae']:.1f} ms, update {ms['update']:.1f} ms (16 minibatches of 2 envs x 128 "
@@ -3114,6 +3231,42 @@ def phase_babyai(results: list[dict], card: dict) -> None:
     phase_family_vanilla(card, BABYAI_VANILLA, "babyai vanilla")
     phase_family_clip(results, card, BABYAI_CLIP_RUNS, "babyai clip")
     print(f"[babyai] phase 15 took {time.time() - t0:.1f} s")
+
+
+# Phase 16: BabyAI's composite instructions (one id of each generator and
+# size) and --mission-conditioning.
+SEQ_RUNS = (
+    "BabyAI-BossLevel-v0", "BabyAI-MiniBossLevel-v0", "BabyAI-SynthSeq-v0",
+    "BabyAI-GoToSeqS5R2-v0", "BabyAI-MoveTwoAcrossS8N9-v0", "BabyAI-OpenRedBlueDoorsDebug-v0",
+    "BabyAI-OpenDoorsOrderN4Debug-v0", "BabyAI-PickupLoc-v0",
+)
+SEQ_VANILLA = ("BabyAI-BossLevel-v0", "BabyAI-MoveTwoAcrossS8N9-v0", "BabyAI-OpenDoorsOrderN4-v0")
+SEQ_MISSION = ("BabyAI-BossLevel-v0",)
+SEQ_RECURRENT_ID = "BabyAI-OpenTwoDoors-v0"  # the level that needs memory
+SEQ_CLIP_RUNS = (  # as FAMILY_CLIP_RUNS
+    ("text table BossLevel, mission", ["--env-id", "BabyAI-BossLevel-v0",
+                                       "--mission-conditioning", *HARD_TEXT],
+     {"attn_block": 24, "mlp_block": 24}, {"disturb": 128}, "boss_mission", False),  # 1,936 rows
+    ("text table MiniBossLevel", ["--env-id", "BabyAI-MiniBossLevel-v0", *HARD_TEXT],
+     {"attn_block": 12, "mlp_block": 12}, {"disturb": 128}, "miniboss_text", False),  # 324 rows
+)
+
+
+def phase_seq(results: list[dict], card: dict) -> None:
+    """Phase 16: BabyAI's composite instructions and --mission-conditioning
+    (a-d); every composition must succeed on the card."""
+    t0 = time.time()
+    comps = phase_family_transitions(card, SEQ_RUNS, "seq")
+    names = {0: "single", 1: "and", 2: "before", 3: "after"}
+    print(f"[seq] compositions that succeeded on the card: "
+          f"{', '.join(names[c] for c in sorted(comps))}")
+    if comps != set(names):
+        fail(f"compositions that never succeeded on the card: {set(names) - comps}")
+    phase_family_vanilla(card, SEQ_VANILLA, "seq vanilla")
+    phase_family_vanilla(card, SEQ_MISSION, "seq vanilla mission", mission=True)
+    phase_recurrent(card, SEQ_RECURRENT_ID, mission=True, tag="seq recurrent mission")
+    phase_family_clip(results, card, SEQ_CLIP_RUNS, "seq clip")
+    print(f"[seq] phase 16 took {time.time() - t0:.1f} s")
 
 
 def main() -> None:
@@ -3177,6 +3330,7 @@ def main() -> None:
     phase_families(results, card)
     phase_missions(results, card)
     phase_babyai(results, card)
+    phase_seq(results, card)
     order = ("name", "route", "source", "replaces", "shape", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms")
     for r in results:  # every kernel of a driven path was launched there, on each of its paths

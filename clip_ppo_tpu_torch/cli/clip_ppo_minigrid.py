@@ -37,7 +37,10 @@ FROZEN_CLIP and in the image modality alike.
 
 TensorBoard tags (including ``config/disturbance_severity``), checkpoint
 payload and naming, derived batch sizes and the CLI surface match the
-reference. Options that need later slices of the port are rejected with an
+reference. ``--mission-conditioning`` FiLM-conditions the trunk on the
+env's structured instruction (``models/mission.py``) in the text modality
+and the ablations; with the image modality it is refused, as the JAX CLI
+refuses it. Options that need later slices of the port are rejected with an
 error naming the slice.
 """
 
@@ -175,9 +178,13 @@ class Args:
     resume_checkpoint: str = ""
     """path to checkpoint file to resume training from"""
 
+    # Mission conditioning (no reference equivalent: the reference drops the
+    # mission through ImgObsWrapper, `clip_ppo_minigrid.py:142-155`;
+    # models/mission.py). Composes with the text modality; the image
+    # modality's encode reads the stored image batches and is refused.
     mission_conditioning: bool = False
-    """FiLM-condition the policy on the env's structured instruction
-    (comes with the extensions slice)"""
+    """FiLM-condition the policy/value trunk on the env's structured
+    instruction (EnvState.target/instr/instr_state)"""
 
     num_devices: int = 1
     """data-parallel device count (more than one comes with the multi-GPU slice)"""
@@ -208,12 +215,15 @@ def _reject_later_slices(args: Args, compute_clip: bool) -> None:
     later = [
         (args.num_devices > 1 or args.tp > 1 or args.distributed,
          "--num-devices/--tp > 1 and --distributed", "the multi-GPU slice"),
-        (args.mission_conditioning, "--mission-conditioning", "the extensions slice"),
     ]
     for requested, what, slice_name in later:
         if requested:
             raise SystemExit(f"{what} is not ported yet: it comes with {slice_name} of "
                              "the PyTorch/CUDA port")
+    if (args.mission_conditioning and compute_clip and not random_mode and not frozen_mode
+            and cc.clip_modality == "image"):
+        raise SystemExit("--mission-conditioning composes with the text modality, not the image "
+                         "modality, whose encode reads the stored image batches")
     if compute_clip and cc.clip_modality not in ("image", "text"):
         raise SystemExit(f"Invalid modality: {cc.clip_modality}. Must be 'image' or 'text'")
     if (compute_clip and not random_mode) or frozen_mode:
@@ -332,10 +342,12 @@ def train(args: Args, run_name: Optional[str] = None) -> dict:
         features_fn=features_fn, embed_images_fn=embed_images_fn, embed_desc_fn=embed_desc_fn,
         embed_random_fn=embed_random_fn, clip_lambda=cc.clip_lambda,
         capture_env0=args.capture_video, frozen_params=frozen_params,
+        mission_conditioning=args.mission_conditioning,
     )
     param_gen = torch.Generator()
     param_gen.manual_seed(args.seed)
-    params = init_agent_params(param_gen, env.num_actions, device, in_channels=3)
+    params = init_agent_params(param_gen, env.num_actions, device, in_channels=3,
+                               mission_dim=env.mission_dim if args.mission_conditioning else 0)
     state = trainer.init_state(params, args.seed)
 
     checkpoint_path = None

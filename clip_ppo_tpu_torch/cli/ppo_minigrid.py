@@ -16,7 +16,9 @@ save-frequency divisibility quirk and the CLI surface match the reference.
 ``--recurrent`` puts an LSTM between the trunk and the heads
 (``models/recurrent.py``; ``--lstm-hidden`` wide), the agent the Memory
 family needs; its update minibatches over envs, so ``--num-envs`` must be
-divisible by ``--num-minibatches``.
+divisible by ``--num-minibatches``. ``--mission-conditioning`` FiLM-conditions
+the trunk on the env's structured instruction (``models/mission.py``), with
+or without ``--recurrent``.
 
 Checkpoints also carry the loop state (env state, observations,
 ``next_done`` and the generator's state) as ``torch_loop_state``, and under
@@ -25,7 +27,9 @@ CLI's name, so ``--resume-checkpoint`` continues bit-identically with an
 uninterrupted run. A JAX vanilla checkpoint resumes too: params, optimizer,
 iteration, global step, the env state of its ``loop_state`` and its
 ``lstm_carry``, with the generator seeded from ``--seed`` (the JAX key has
-no counterpart). Options that need later slices of the port are refused by
+no counterpart). The other way, checkpoints carry the env state in the
+JAX CLI's ``loop_state`` as well, so the JAX CLI resumes them mid-episode;
+its PRNG keys there are drawn from ``--seed`` and the global step. Options that need later slices of the port are refused by
 name before any work.
 """
 
@@ -143,11 +147,14 @@ class Args:
     lstm_hidden: int = 128
     """LSTM hidden size for --recurrent"""
 
+    # Mission conditioning (no reference equivalent: the reference drops the
+    # mission through ImgObsWrapper, `ppo_minigrid.py:110`; models/mission.py)
+    mission_conditioning: bool = False
+    """FiLM-condition the policy/value trunk on the env's structured
+    instruction (EnvState.target/instr/instr_state)"""
+
     # Options of the JAX package beyond the reference that come with a
     # later slice of the port and are refused until then.
-    mission_conditioning: bool = False
-    """FiLM-condition the policy on the env's structured instruction
-    (comes with the extensions slice)"""
     exploration_bonus: float = 0.0
     """β > 0 adds a SimHash count bonus (comes with the extensions slice)"""
     exploration_bits: int = 18
@@ -174,7 +181,6 @@ class Args:
 
 def _reject_later_slices(args: Args) -> None:
     later = [
-        (args.mission_conditioning, "--mission-conditioning", "the extensions slice"),
         (args.exploration_bonus > 0.0, "--exploration-bonus > 0", "the extensions slice"),
         (args.episodic_bonus > 0.0, "--episodic-bonus > 0", "the extensions slice"),
         (args.num_devices > 1 or (args.num_devices == 0 and torch.cuda.device_count() > 1),
@@ -207,14 +213,28 @@ def _loop_tree(state: TrainState) -> dict:
     }
 
 
+def _jax_loop(state: TrainState, seed: int, global_step: int) -> dict:
+    """The JAX vanilla CLI's ``loop`` payload of ``state``: its env state,
+    observations and ``next_done``, with the per-env and the run's PRNG
+    keys (which the port does not keep) drawn from ``seed`` and
+    ``global_step``."""
+    n = state.next_done.shape[0]
+    keys = np.random.SeedSequence([seed, global_step]).generate_state(2 * (n + 1))
+    return {"vec_state": convert.jax_vec_state(state.vec_state, keys[2:].reshape(n, 2)),
+            "obs": state.obs.detach().cpu().numpy(),
+            "next_done": state.next_done.detach().cpu().numpy().astype(np.float32),
+            "key": keys[:2]}
+
+
 def _with_loop(state: TrainState, loop: dict) -> TrainState:
     """The loop state of a checkpoint of this CLI; one written before the
-    env state carried ``target`` restores the zeros every earlier family
-    holds."""
+    env state carried ``target``, ``instr`` or ``instr_state`` restores the
+    zeros of every family without them."""
     vs = loop["vec_state"]
     env = dict(vs["env"])
-    if "target" not in env:
-        env["target"] = torch.zeros_like(state.vec_state.env.target)
+    for name in ("target", "instr", "instr_state"):
+        if name not in env:
+            env[name] = torch.zeros_like(getattr(state.vec_state.env, name))
     state.gen.set_state(loop["gen"])
     return dataclasses.replace(
         state,
@@ -281,14 +301,16 @@ def train(args: Args, run_name: Optional[str] = None) -> dict:
 
     trainer = Trainer(cfg, env, num_iterations=args.num_iterations, disturbance=disturbance,
                       disturbance_semantics="per_image", capture_env0=args.capture_video,
-                      recurrent=args.recurrent)
+                      recurrent=args.recurrent, mission_conditioning=args.mission_conditioning)
     param_gen = torch.Generator()
     param_gen.manual_seed(args.seed)
+    mission_dim = env.mission_dim if args.mission_conditioning else 0
     if args.recurrent:
         params = init_agent_params_recurrent(param_gen, env.num_actions, device, in_channels=3,
-                                             lstm_hidden=args.lstm_hidden)
+                                             lstm_hidden=args.lstm_hidden, mission_dim=mission_dim)
     else:
-        params = init_agent_params(param_gen, env.num_actions, device, in_channels=3)
+        params = init_agent_params(param_gen, env.num_actions, device, in_channels=3,
+                                   mission_dim=mission_dim)
     state = trainer.init_state(params, args.seed)
 
     def extras(st: TrainState) -> dict:
@@ -332,7 +354,8 @@ def train(args: Args, run_name: Optional[str] = None) -> dict:
         save_checkpoint(checkpoint_path, state.params, state.opt_state, iteration,
                         logger.global_step, args, b_returns=logger.b_returns, final=final,
                         learning_rate=trainer.learning_rate(iteration),
-                        extra_models=extras(state))
+                        extra_models=extras(state),
+                        jax_loop=_jax_loop(state, args.seed, logger.global_step))
 
     # Iterations queued back to back in chunks that end at checkpoint
     # boundaries, each chunk's logs fetched after the next is queued.
@@ -365,6 +388,7 @@ def train(args: Args, run_name: Optional[str] = None) -> dict:
         "run_name": run_name,
         "view_mode": trainer.view_mode,
         "recurrent": trainer.recurrent,
+        "mission_conditioning": trainer.mission_conditioning,
         "last_scalars": last_scalars,
     }
 

@@ -11,9 +11,10 @@ jax. Outputs are the port's tensors on ``device``:
   ``chain(clip_by_global_norm, inject_hyperparams(adam))`` state →
   ``{"mu", "nu", "count"}`` with ``mu``/``nu`` converted like the params.
 * :func:`env_state` / :func:`vec_state` — MiniGrid ``EnvState`` /
-  ``VecState`` (batched over envs), the mission ``target`` included. The
-  JAX state's PRNG key and BabyAI's instruction fields have no counterpart
-  here and are dropped. In a JAX checkpoint's pickle these classes are read as the
+  ``VecState`` (batched over envs), the mission ``target`` and BabyAI's
+  composite instructions ``instr`` / ``instr_state`` included (zeros where
+  a state has none); the JAX state's PRNG key has no counterpart here and
+  is dropped. In a JAX checkpoint's pickle these classes are read as the
   stand-ins of :data:`JAX_STATE_CLASSES`.
 * :func:`atari_vec_state` — the Atari vector env's ``AtariVecState`` with
   its batched game state (Breakout, Pong or Seaquest), field by field; the
@@ -26,6 +27,9 @@ And back, for the checkpoints both packages read (``io/checkpoint.py``):
 * :func:`jax_adam_state` — ``{"mu", "nu", "count"}`` and the last update's
   learning rate → the optax chain state, built from stand-ins of optax's
   state classes (:data:`OPTAX_CLASSES`) with numpy leaves.
+* :func:`jax_vec_state` — a MiniGrid ``VecState`` → the stand-ins of
+  :data:`JAX_STATE_CLASSES` with numpy leaves in the JAX package's dtypes,
+  ``instr`` / ``instr_state`` included, and the per-env PRNG keys given.
 """
 
 from __future__ import annotations
@@ -151,20 +155,28 @@ def jax_adam_state(state: dict, learning_rate: float) -> tuple:
                                                           (adam, EmptyState())))
 
 
+# EnvState's mission fields and their trailing shapes: a state written
+# without one (before the port carried it) gets the zeros every family
+# without a mission or a composite instruction holds.
+_MISSION_FIELDS = {"target": (8,), "instr": (4, 12), "instr_state": (4, 2)}
+
+
 def env_state(st: Any, device="cpu") -> EnvState:
-    """A MiniGrid ``EnvState``; its mission ``target`` [N, 8] is carried,
-    and a state without one (written before the port carried it) gets the
-    zeros every family without a mission holds."""
-    target = getattr(st, "target", None)
-    if target is None:
-        target = np.zeros(np.shape(st.step_count) + (8,), np.int32)
+    """A MiniGrid ``EnvState``; its mission ``target`` [N, 8] and BabyAI's
+    ``instr`` [N, 4, 12] and ``instr_state`` [N, 4, 2] are carried."""
+    missions = {}
+    for name, shape in _MISSION_FIELDS.items():
+        value = getattr(st, name, None)
+        if value is None:
+            value = np.zeros(np.shape(st.step_count) + shape, np.int32)
+        missions[name] = _t(value, device, torch.int32)
     return EnvState(
         grid=_t(st.grid, device, torch.int8),
         agent_pos=_t(st.agent_pos, device, torch.int64),
         agent_dir=_t(st.agent_dir, device, torch.int64),
         carrying=_t(st.carrying, device, torch.int8),
         step_count=_t(st.step_count, device, torch.int32),
-        target=_t(target, device, torch.int32),
+        **missions,
     )
 
 
@@ -178,6 +190,26 @@ def vec_state(vs: Any, device="cpu") -> VecState:
 
 _ATARI_STATES = {"breakout": atari_core.BreakoutState, "pong": atari_core.PongState,
                  "seaquest": SeaquestState}
+
+
+def jax_vec_state(vs: VecState, rng: np.ndarray) -> JaxVecState:
+    """Inverse of :func:`vec_state`; ``rng`` [N, 2] uint32 are the per-env
+    PRNG keys of the JAX state (its autoreset draws from them), which the
+    port does not keep."""
+    def a(t, dtype):
+        return np.asarray(t.detach().cpu().numpy(), dtype)
+
+    e = vs.env
+    env = JaxEnvState()
+    env.__dict__.update(
+        grid=a(e.grid, np.int8), agent_pos=a(e.agent_pos, np.int32),
+        agent_dir=a(e.agent_dir, np.int32), carrying=a(e.carrying, np.int8),
+        step_count=a(e.step_count, np.int32), rng=np.asarray(rng, np.uint32),
+        **{name: a(getattr(e, name), np.int32) for name in _MISSION_FIELDS})
+    out = JaxVecState()
+    out.__dict__.update(env=env, episode_return=a(vs.episode_return, np.float32),
+                        episode_length=a(vs.episode_length, np.int32))
+    return out
 
 
 def atari_vec_state(vs: Any, game: str, device="cpu") -> AtariVecState:

@@ -1,15 +1,16 @@
-"""MiniGrid as batched tensors: every classic family of the JAX package.
+"""MiniGrid as batched tensors: every MiniGrid and BabyAI id of the JAX package.
 
-Port of ``clip_ppo_tpu/envs/minigrid/core.py`` for the families this port
-runs: Empty[-Random], DoorKey, FourRooms, LavaGap, DistShift, MultiRoom,
-{Simple,Lava}Crossing, Dynamic-Obstacles[-Random], Unlock, UnlockPickup,
-BlockedUnlockPickup, ObstructedMaze (1Dl{,h,hb}, 2Dl{,h,hb}, 1Q, 2Q, Full),
-KeyCorridor, LockedRoom, RedBlueDoors, Memory, Playground, the mission
-families GoToDoor, Fetch, GoToObject and PutNear, and the 70 BabyAI levels
-whose mission ``EnvState.target`` decides. The state of all N
+Port of ``clip_ppo_tpu/envs/minigrid/core.py``: Empty[-Random], DoorKey,
+FourRooms, LavaGap, DistShift, MultiRoom, {Simple,Lava}Crossing,
+Dynamic-Obstacles[-Random], Unlock, UnlockPickup, BlockedUnlockPickup,
+ObstructedMaze (1Dl{,h,hb}, 2Dl{,h,hb}, 1Q, 2Q, Full), KeyCorridor,
+LockedRoom, RedBlueDoors, Memory, Playground, the mission families GoToDoor,
+Fetch, GoToObject and PutNear, and the 89 BabyAI levels: the 70 whose
+mission ``EnvState.target`` decides and the 19 of composite instructions,
+whose instructions ``EnvState.instr`` holds. The state of all N
 environments lives in tensors with a leading env axis, and
 ``reset``/``step``/``observe`` are batched functions of them, so the rollout
-never leaves the device and no reset or step asks the host anything.
+never leaves the device and no step asks the host anything.
 Semantics mirror MiniGrid exactly, as the JAX package does: the integer
 encodings, the 7×7 egocentric view with the agent at view cell (3, 6)
 facing up, out-of-bounds cells read as grey walls, shadow-casting
@@ -20,9 +21,11 @@ success mode (``goal``, ``open_door``, ``pickup_box``, ``pickup_ball``,
 ``red_then_blue``, ``memory``, ``goto_door``, ``fetch``, ``goto_object``,
 ``putnear`` and BabyAI's ``babyai_goto``, ``babyai_putnext``,
 ``babyai_pickup``, ``babyai_open_color``, ``babyai_open``,
-``babyai_action``). The mission families, Memory and BabyAI keep their
-episode's target in ``EnvState.target`` (zeros for every other family), in
-the JAX package's layout.
+``babyai_action`` and ``babyai_seq``, the composite-instruction verifier).
+The mission families, Memory and BabyAI keep their episode's target in
+``EnvState.target`` (zeros for every other family), and the composite
+levels their instructions and verifier latches in ``EnvState.instr`` and
+``EnvState.instr_state`` (zeros elsewhere), in the JAX package's layout.
 
 Random draws come from an explicit ``torch.Generator``; the env state holds
 no key. The rejection loops of the JAX package run in parallel instead of
@@ -31,10 +34,9 @@ together, the first that fits taken) and their keep-best rule, and
 KeyCorridor's connect loop, whose 256 door proposals are drawn at once and
 applied up to the first one after which every room is reachable, as is
 the connect loop of BabyAI's mazes; BabyAI's rejection loops (a layout
-kept only when ``check_objs_reachable`` passes) draw again only for the
-envs whose layout was rejected. The 19 BabyAI levels of composite
-instructions come with a later slice and are refused by
-:func:`parse_env_id`.
+kept only when ``check_objs_reachable`` passes, an instruction slot kept
+only when its description matches some object) draw again only for the
+envs or slots whose draw was rejected.
 """
 
 from __future__ import annotations
@@ -85,6 +87,7 @@ class EnvParams:
     #            | "babyai_pickup" | "babyai_openred" | "babyai_opendoor"
     #            | "babyai_actionobj" | "babyai_gotomaze" | "babyai_unlocklocal"
     #            | "babyai_u2u" | "babyai_objdoor" | "babyai_putnext2"
+    #            | "babyai_levelgen" | "babyai_twodoors" | "babyai_pickuploc"
     width: int
     height: int
     max_steps: int
@@ -105,7 +108,8 @@ class EnvParams:
     # or one that reads ``EnvState.target``: "memory", "goto_door",
     # "fetch", "goto_object", "putnear" or BabyAI's "babyai_goto",
     # "babyai_putnext", "babyai_pickup", "babyai_open_color", "babyai_open"
-    # and "babyai_action" (see :func:`step`).
+    # and "babyai_action", or "babyai_seq", which reads ``EnvState.instr``
+    # (see :func:`step`).
     success: str = "goal"
     strip_row: int = 0         # DistShift: row of the 3-cell lava strip
     blocked_door: bool = False  # a ball blocks the cell left of the locked door
@@ -136,6 +140,15 @@ class EnvParams:
     locked_room: bool = False       # Unlock / GoToImpUnlock: one room behind a LOCKED door
     target_in_locked: bool = False  # GoToImpUnlock: the mission object in the locked room
     dists_per_room: bool = False    # GoToImpUnlock: 2 distractors in each other room
+    # BabyAI's composite instructions (the JAX package's fields and defaults).
+    locked_room_prob: float = 0.0   # LevelGen: the chance of a locked room per episode
+    instr_kinds: str = "action"     # LevelGen grammar: a comma-set of action|and|seq
+    action_kinds: str = "goto"      # LevelGen verbs: a comma-set of goto|pickup|open|putnext
+    locations: bool = False         # LevelGen: location words are drawn
+    check_reachable: bool = False   # GoToSeq: the reachability rejection
+    first_color: int = -1           # OpenRedBlueDoors: the forced door colors (−1 random)
+    second_color: int = -1
+    comp: str = ""                  # OpenTwoDoors "before"; "" draws the mode per episode
 
 
 @dataclasses.dataclass
@@ -154,22 +167,22 @@ class EnvState:
     # BabyAI GoTo/Pickup/Open [obj, color, 0…] (−1 a wildcard), PutNext
     # [move_obj, move_color, fixed_obj, fixed_color, 0…], OpenRedDoor and
     # OpenDoor the matched doors' x·height + y + 1 in [:4], ActionObjDoor
-    # [verb, obj, color, 0…].
+    # [verb, obj, color, 0…]; the composite levels [comp, seq_strict, 0…]
+    # (see ``instr``).
     target: torch.Tensor
-
-
-# Ids the JAX package runs that later slices of the port bring, by slice:
-# the 19 BabyAI levels of ``success="babyai_seq"``, whose composite
-# instructions need the JAX package's ``instr``/``instr_state`` machine.
-_LATER_SLICES = tuple((pattern, "the BabyAI instruction slice") for pattern in (
-    r"BabyAI-GoToSeq(S5R2)?(-v\d+)?$",
-    r"BabyAI-Synth(S5R2|Loc|Seq)?(-v\d+)?$",
-    r"BabyAI-(Mini)?BossLevel(NoUnlock)?(-v\d+)?$",
-    r"BabyAI-MoveTwoAcrossS(\d+)N(\d+)(-v\d+)?$",
-    r"BabyAI-Open(RedBlue|Two)Doors(Debug)?(-v\d+)?$",
-    r"BabyAI-OpenDoorsOrderN(\d+)(Debug)?(-v\d+)?$",
-    r"BabyAI-PickupLoc(-v\d+)?$",
-))
+    # [N, 4, 12] int32 BabyAI composite instructions, zeros for every other
+    # family: up to 4 atomic instructions, a row each: [verb (0 unused,
+    # 1 goto, 2 open, 3 pickup, 4 putnext), type_a, color_a, type_b,
+    # color_b (putnext's fixed object), flags (bit 0 a positional match
+    # set, bit 1 strict), p0..p5 (the match set's packed positions
+    # x·height + y + 1, 0 empty)]; −1 is a wildcard. ``target[0]`` composes
+    # them (0 slot 0 alone, 1 and(0, 1), 2 before(A, B), 3 after(A, B) with
+    # A = slots 0-1 and B = slots 2-3) and ``target[1]`` is the SeqInstr
+    # strict bit.
+    instr: torch.Tensor
+    # [N, 4, 2] int32 verifier state per slot: its done latch, and the packed
+    # position a tracked object was picked up from (0 none).
+    instr_state: torch.Tensor
 
 
 def _maze(kind: str, side: int, s: int, rows: int, success: str, num_objs: int,
@@ -181,7 +194,7 @@ def _maze(kind: str, side: int, s: int, rows: int, success: str, num_objs: int,
 
 
 def _parse_babyai(env_id: str) -> Optional[EnvParams]:
-    """The 70 BabyAI ids that ``EnvState.target`` decides, parsed as the JAX
+    """The 89 BabyAI ids, parsed as the JAX
     package's ``parse_env_id`` parses them (its comments give each level's
     upstream source); None for any other id. BabyAI grids are opaque
     (``see_through_walls=False``)."""
@@ -303,6 +316,60 @@ def _parse_babyai(env_id: str) -> Optional[EnvParams]:
         return EnvParams("babyai_putnext2", 2 * s - 1, s, 8 * s * s, False,
                          success="babyai_putnext", num_objs=k, max_room_size=s,
                          start_carrying=m.group(3) is not None)
+    m = re.match(r"BabyAI-MoveTwoAcrossS(\d+)N(\d+)(-v\d+)?$", env_id)
+    if m:
+        # the PutNext layout; before(put a left object next to a right one,
+        # put a right object next to a left one)
+        s, k = int(m.group(1)), int(m.group(2))
+        return EnvParams("babyai_putnext2", 2 * s - 1, s, 16 * s * s, False,
+                         success="babyai_seq", num_objs=k, max_room_size=s)
+    m = re.match(r"BabyAI-Open(RedBlue|Two)Doors(Debug)?(-v\d+)?$", env_id)
+    if m:
+        # the 6×6 center room of a 3×3 RoomGrid, door 1 west and door 2 east;
+        # before(open door 1, strict in Debug; open door 2), red then blue
+        # in RedBlue
+        rb = m.group(1) == "RedBlue"
+        return EnvParams("babyai_twodoors", 16, 16, 20 * 6 * 6, False, success="babyai_seq",
+                         comp="before", first_color=RED if rb else -1,
+                         second_color=BLUE if rb else -1, strict=m.group(2) is not None)
+    m = re.match(r"BabyAI-OpenDoorsOrderN(\d+)(Debug)?(-v\d+)?$", env_id)
+    if m:
+        # n doors of distinct colors on distinct walls of the center room;
+        # open door 1, or door 1 before or after door 2, drawn per episode
+        return EnvParams("babyai_twodoors", 16, 16, 20 * 6 * 6, False, success="babyai_seq",
+                         num_objs=int(m.group(1)), strict=m.group(2) is not None)
+    if re.match(r"BabyAI-PickupLoc(-v\d+)?$", env_id):
+        # one 8×8 room, 8 random objects; PickupInstr on a description drawn
+        # until it matches, a location word in half of them
+        return EnvParams("babyai_pickuploc", 8, 8, 8 * 8 * 8, False, success="babyai_seq",
+                         num_objs=8)
+    m = re.match(r"BabyAI-GoToSeq(S5R2)?(-v\d+)?$", env_id)
+    if m:
+        # LevelGen: goto only, every grammar, no locked room, reachability
+        # rejection; S5R2 2×2 rooms of 5
+        s, rows, k = (5, 2, 7) if m.group(1) else (8, 3, 18)
+        return _maze("babyai_levelgen", (s - 1) * rows + 1, s, rows, "babyai_seq", k,
+                     instr_kinds="action,and,seq", action_kinds="goto", check_reachable=True)
+    m = re.match(r"BabyAI-Synth(S5R2|Loc|Seq)?(-v\d+)?$", env_id)
+    if m:
+        # LevelGen over the four verbs, a locked room half the time; Loc adds
+        # location words, Seq the and/seq grammar with them
+        v = m.group(1) or ""
+        s, rows, k = (5, 2, 7) if v == "S5R2" else (8, 3, 18)
+        return _maze("babyai_levelgen", (s - 1) * rows + 1, s, rows, "babyai_seq", k,
+                     locked_room_prob=0.5, instr_kinds="action,and,seq" if v == "Seq" else "action",
+                     action_kinds="goto,pickup,open,putnext", locations=v in ("Loc", "Seq"))
+    m = re.match(r"BabyAI-(Mini)?BossLevel(NoUnlock)?(-v\d+)?$", env_id)
+    if m:
+        # LevelGen's whole grammar with location words; MiniBoss 2×2 rooms of
+        # 5, 7 distractors, a locked room a quarter of the time; Boss 3×3 of
+        # 8, 18, half the time (never in NoUnlock)
+        mini = m.group(1) is not None
+        s, rows, k = (5, 2, 7) if mini else (8, 3, 18)
+        return _maze("babyai_levelgen", (s - 1) * rows + 1, s, rows, "babyai_seq", k,
+                     locked_room_prob=0.25 if mini else (0.0 if m.group(2) else 0.5),
+                     instr_kinds="action,and,seq", action_kinds="goto,pickup,open,putnext",
+                     locations=True)
     m = re.match(r"BabyAI-GoToObj(?:S(\d+))?(-v\d+)?$", env_id)
     if m:
         # one room, one random object; GoToInstr on it
@@ -349,9 +416,11 @@ def parse_env_id(env_id: str) -> EnvParams:
     ``GoToObjMaze[Open|S{n}[R2]]``, ``Pickup``, ``UnblockPickup``, ``Open``,
     ``Unlock``, ``GoToImpUnlock``, ``FindObjS{n}``, ``PickupAbove``,
     ``UnlockLocal[Dist]``, ``KeyInBox``, ``UnlockToUnlock``, ``GoToDoor``,
-    ``GoToObjDoor``, ``PutNextS{s}N{n}[Carrying]``, ``UnlockPickup[Dist]``
-    and ``BlockedUnlockPickup``. BabyAI's levels of composite instructions
-    raise, naming the later slice that brings them.
+    ``GoToObjDoor``, ``PutNextS{s}N{n}[Carrying]``, ``UnlockPickup[Dist]``,
+    ``BlockedUnlockPickup`` and the levels of composite instructions
+    ``GoToSeq[S5R2]``, ``Synth[S5R2|Loc|Seq]``, ``[Mini]BossLevel[NoUnlock]``,
+    ``MoveTwoAcrossS{s}N{n}``, ``Open{Two,RedBlue}Doors[Debug]``,
+    ``OpenDoorsOrderN{n}[Debug]`` and ``PickupLoc``.
     """
     m = re.match(r"MiniGrid-DistShift(1|2)(-v\d+)?$", env_id)
     if m:
@@ -585,10 +654,6 @@ def parse_env_id(env_id: str) -> EnvParams:
             return EnvParams("empty", size, size, 4 * size * size, True, m.group(2) is not None)
         # DoorKeyEnv: max_steps = 10 * size**2, see_through_walls=False.
         return EnvParams("doorkey", size, size, 10 * size * size, False)
-    for pattern, slice_name in _LATER_SLICES:
-        if re.match(pattern, env_id):
-            raise ValueError(f"{env_id!r} is not ported yet: it comes with a later slice of the "
-                             f"PyTorch/CUDA port, {slice_name}")
     raise ValueError(
         f"unsupported MiniGrid env id: {env_id!r}. The port runs "
         "MiniGrid-Empty[-Random]-NxN, MiniGrid-DoorKey-NxN, MiniGrid-FourRooms, "
@@ -606,9 +671,11 @@ def parse_env_id(env_id: str) -> EnvParams:
         "BabyAI-Pickup, BabyAI-UnblockPickup, BabyAI-Open, BabyAI-Unlock, "
         "BabyAI-GoToImpUnlock, BabyAI-FindObjSn, BabyAI-PickupAbove, "
         "BabyAI-UnlockLocal[Dist], BabyAI-KeyInBox, BabyAI-UnlockToUnlock, BabyAI-GoToDoor, "
-        "BabyAI-GoToObjDoor, BabyAI-PutNextSsNn[Carrying], BabyAI-UnlockPickup[Dist] and "
-        "BabyAI-BlockedUnlockPickup (each with an optional -vK suffix); BabyAI's levels of "
-        "composite instructions come with a later slice."
+        "BabyAI-GoToObjDoor, BabyAI-PutNextSsNn[Carrying], BabyAI-UnlockPickup[Dist], "
+        "BabyAI-BlockedUnlockPickup, BabyAI-GoToSeq[S5R2], BabyAI-Synth[S5R2|Loc|Seq], "
+        "BabyAI-[Mini]BossLevel[NoUnlock], BabyAI-MoveTwoAcrossSsNn, "
+        "BabyAI-Open{Two,RedBlue}Doors[Debug], BabyAI-OpenDoorsOrderNn[Debug] and "
+        "BabyAI-PickupLoc (each with an optional -vK suffix)."
     )
 
 
@@ -672,14 +739,18 @@ def _rand_between(lo: torch.Tensor, hi: torch.Tensor, gen: torch.Generator) -> t
     return lo + torch.minimum((u * span).long(), span - 1)
 
 
-def _state(grid, agent_pos, agent_dir, target=None) -> EnvState:
-    """A fresh state: nothing carried, step 0, ``target`` [N, 8] or zeros."""
+def _state(grid, agent_pos, agent_dir, target=None, instr=None) -> EnvState:
+    """A fresh state: nothing carried, step 0, ``target`` [N, 8] and
+    ``instr`` [N, 4, 12] or zeros, the verifier's latches cleared."""
     n, device = grid.shape[0], grid.device
     if target is None:
         target = torch.zeros((n, 8), dtype=torch.int32, device=device)
+    if instr is None:
+        instr = torch.zeros((n, 4, 12), dtype=torch.int32, device=device)
     return EnvState(grid, agent_pos.long(), agent_dir.long(),
                     torch.zeros((n, 3), dtype=torch.int8, device=device),
-                    torch.zeros(n, dtype=torch.int32, device=device), target.to(torch.int32))
+                    torch.zeros(n, dtype=torch.int32, device=device), target.to(torch.int32),
+                    instr.to(torch.int32), torch.zeros((n, 4, 2), dtype=torch.int32, device=device))
 
 
 def _target(n: int, device, *columns) -> torch.Tensor:
@@ -1990,8 +2061,10 @@ def _reset_babyai_putnext2(params: EnvParams, n: int, gen: torch.Generator, devi
     object next to a uniform right one, or (a coin) the other way round:
     ``target`` = [move_type, move_color, fixed_type, fixed_color, 0…]; with
     ``start_carrying`` the move object starts in the agent's hand, its cell
-    emptied (the PutNext branch of the JAX package's
-    ``_reset_babyai_putnext2``)."""
+    emptied. MoveTwoAcross (``babyai_seq``) asks for two moves instead,
+    before(put a uniform left object next to a uniform right one, put a
+    uniform right object next to a uniform left one) in slots 0 and 2 of
+    ``instr`` (the JAX package's ``_reset_babyai_putnext2``)."""
     s, k = params.max_room_size, params.num_objs
     grid = _base_grid(params, n, device, goal=False)
     types, colors = _distinct_objects(n, 2 * k, gen, device)
@@ -2004,6 +2077,16 @@ def _reset_babyai_putnext2(params: EnvParams, n: int, gen: torch.Generator, devi
     env = torch.arange(n, device=device)
     ia = _randint(0, k, n, gen, device)
     ib = k + _randint(0, k, n, gen, device)
+    if params.success == "babyai_seq":
+        # MoveTwoAcross: before(put L[a] next to R[b], put R[c] next to L[d])
+        ic = k + _randint(0, k, n, gen, device)
+        idx = _randint(0, k, n, gen, device)
+        instr = torch.zeros((n, 4, 12), dtype=torch.int32, device=device)
+        for slot, (mv, fx) in ((0, (ia, ib)), (2, (ic, idx))):
+            instr[:, slot, :5] = torch.stack([torch.full_like(mv, 4), types[env, mv],
+                                              colors[env, mv], types[env, fx], colors[env, fx]], 1)
+        return _state(grid, agent_pos, _randint(0, 4, n, gen, device), _target(n, device, 2),
+                      instr)
     flip = _randint(0, 2, n, gen, device) == 1
     mv, fx = torch.where(flip, ib, ia), torch.where(flip, ia, ib)
     state = _state(grid, agent_pos, _randint(0, 4, n, gen, device), _target(
@@ -2012,6 +2095,233 @@ def _reset_babyai_putnext2(params: EnvParams, n: int, gen: torch.Generator, devi
         grid[env, cells[env, mv, 0], cells[env, mv, 1]] = _cell(EMPTY, 0, 0, device)
         state.carrying = _cell(types[env, mv], colors[env, mv], 0, device)
     return state
+
+
+BABYAI_DESC_ATTEMPTS = 1024  # a slot's description draws (the JAX package's loop has no bound)
+_VERB_CODES = {"goto": 1, "open": 2, "pickup": 3, "putnext": 4}
+
+
+def _loc_masks(grid: torch.Tensor, agent_pos: torch.Tensor, agent_dir: torch.Tensor):
+    """[N, 4, W, H]: the cells each of ``LOCATION_WORDS`` names from the
+    agent's pose (:func:`door_sides`' rule over every cell)."""
+    n, w, h = grid.shape[:3]
+    xs, ys = _coords(w, h, grid.device)
+    dir_vec = torch.as_tensor(DIR_TO_VEC, device=grid.device)
+    d1, d2 = dir_vec[agent_dir], dir_vec[(agent_dir + 1) % 4]
+    vx, vy = xs - agent_pos[:, 0, None, None], ys - agent_pos[:, 1, None, None]
+    forward = vx * d1[:, 0, None, None] + vy * d1[:, 1, None, None]
+    right = vx * d2[:, 0, None, None] + vy * d2[:, 1, None, None]
+    return torch.stack([right < 0, right > 0, forward > 0, forward < 0], dim=1)
+
+
+def _sample_descs(grid: torch.Tensor, agent_pos: torch.Tensor, agent_dir: torch.Tensor,
+                  use: torch.Tensor, verbs: tuple, locations: bool,
+                  gen: torch.Generator) -> torch.Tensor:
+    """BabyAI's ``rand_obj_desc`` for the slots ``use`` [N, 4] marks → the
+    ``instr`` rows [N, 4, 12] (the JAX package's ``sample_slot`` of
+    ``_reset_babyai_levelgen`` and ``sample_desc`` of
+    ``_reset_babyai_pickuploc``): a verb uniform over ``verbs``, a type
+    uniform over its pool (goto: key, ball, box or door; open: door; pickup
+    and putnext: key, ball or box), a color or none (1/7), and where
+    ``locations`` and the verb is not putnext, a location word with
+    probability 1/2, fixed against the agent's start pose; a putnext draws a
+    second description of a movable object. A slot is drawn again until its
+    description matches some object, and a putnext until its second does
+    too and the two do not both denote one and the same single object; the
+    slots drawn again are only the rejected ones, and a slot rejected
+    ``BABYAI_DESC_ATTEMPTS`` times raises. A description with a location
+    word keeps the packed positions of its matches, the 6 largest (its
+    type and color read −1)."""
+    n, w, h = grid.shape[:3]
+    device = grid.device
+    g0, g1 = grid[..., 0].long(), grid[..., 1].long()
+    loc_masks = _loc_masks(grid, agent_pos, agent_dir)
+    xs, ys = _coords(w, h, device)
+    packed_cells = (xs * h + ys + 1).reshape(1, w, h)
+    allowed = torch.tensor([_VERB_CODES[v] for v in verbs], device=device)
+    movable = torch.tensor(_OBJ_TYPES, device=device)
+    four = torch.tensor((*_OBJ_TYPES, DOOR), device=device)
+    rows = torch.zeros((n, 4, 12), dtype=torch.int64, device=device)
+    todo = use.clone()
+    for _ in range(BABYAI_DESC_ATTEMPTS):
+        idx = todo.nonzero()
+        if idx.numel() == 0:
+            return rows.to(torch.int32)
+        e, k = idx[:, 0], idx.shape[0]
+        verb = allowed[_randint(0, allowed.numel(), k, gen, device)]
+        t3 = movable[_randint(0, 3, k, gen, device)]
+        t4 = four[_randint(0, 4, k, gen, device)]
+        t = torch.where(verb == 2, DOOR, torch.where(verb == 1, t4, t3))
+        col = _randint(-1, 6, k, gen, device)
+        loc = torch.full((k,), -1, device=device)
+        if locations:
+            coin = _randint(0, 2, k, gen, device) == 1
+            loc = torch.where(coin & (verb != 4), _randint(0, 4, k, gen, device), -1)
+        b = lambda v: v[:, None, None]  # noqa: E731
+        ge0, ge1 = g0[e], g1[e]
+        mask = (ge0 == b(t)) & ((b(col) < 0) | (ge1 == b(col)))
+        mask &= torch.where(b(loc) >= 0, loc_masks[e, loc.clamp(0, 3)], True)
+        t2 = movable[_randint(0, 3, k, gen, device)]
+        c2 = _randint(-1, 6, k, gen, device)
+        mask2 = (ge0 == b(t2)) & ((b(c2) < 0) | (ge1 == b(c2)))
+        flat, flat2 = mask.flatten(1), mask2.flatten(1)
+        single_same = ((flat.sum(1) == 1) & (flat2.sum(1) == 1)
+                       & (flat.to(torch.uint8).argmax(1) == flat2.to(torch.uint8).argmax(1)))
+        ok = flat.any(1)
+        ok = torch.where(verb == 4, ok & flat2.any(1) & ~single_same, ok)
+        positional = loc >= 0
+        top = torch.where(mask, packed_cells, 0).flatten(1).sort(1, descending=True).values[:, :6]
+        row = torch.zeros((k, 12), dtype=torch.int64, device=device)
+        row[:, 0] = verb
+        row[:, 1] = torch.where(positional, -1, t)
+        row[:, 2] = torch.where(positional, -1, col)
+        row[:, 3] = torch.where(verb == 4, t2, 0)
+        row[:, 4] = torch.where(verb == 4, c2, 0)
+        row[:, 5] = positional.long()
+        row[:, 6:] = torch.where(positional[:, None], top, 0)
+        kept = idx[ok]
+        rows[kept[:, 0], kept[:, 1]] = row[ok]
+        todo[kept[:, 0], kept[:, 1]] = False
+    if bool(todo.any()):
+        raise RuntimeError(f"BabyAI instruction: {int(todo.sum())} slots drew "
+                           f"{BABYAI_DESC_ATTEMPTS} descriptions that match no object")
+    return rows.to(torch.int32)
+
+
+def _reset_babyai_levelgen(params: EnvParams, n: int, gen: torch.Generator, device) -> EnvState:
+    """BabyAI's LevelGen (GoToSeq[S5R2], Synth[S5R2], SynthLoc, SynthSeq,
+    MiniBossLevel, BossLevel[NoUnlock]; the JAX package's
+    ``_reset_babyai_levelgen``): a C×R RoomGrid of S×S rooms; with
+    probability ``locked_room_prob`` a LOCKED random-color door on a random
+    wall of a random room; the agent in a uniform room (not the locked
+    one); ``connect_all`` (the locked door counting as a connection); the
+    locked door's key in another room; ``num_objs`` random objects, each in
+    a uniform room; with ``check_reachable`` a layout is kept only when every
+    object is reachable. Then ``rand_instr``: a kind uniform over
+    ``instr_kinds`` — action (slot 0), and (slots 0-1), or seq, before or
+    after by a coin, of halves A (slot 0, and slot 1 by a coin) and B (slot
+    2, and slot 3 by a coin) — with each used slot's description from
+    :func:`_sample_descs`; ``target`` = [comp, 0…]."""
+    s, r, c = params.max_room_size, params.min_rooms, params.max_rooms
+    pitch, k = s - 1, params.num_objs
+    lock = params.locked_room_prob > 0
+
+    def interior(i, j):
+        return _room_interior(params, pitch, i, j, device)
+
+    def build(m):
+        grid = _lattice(params, pitch, m, device)
+        env = torch.arange(m, device=device)
+        open0 = torch.zeros((m, (c - 1) * r + c * (r - 1)), dtype=torch.bool, device=device)
+        if lock:
+            has_lock = torch.rand(m, generator=gen, device=device) < params.locked_room_prob
+            locked = _randint(0, c * r, m, gen, device)
+            li, lj = locked % c, locked // c
+            walls = torch.stack([li + 1 < c, lj + 1 < r, li > 0, lj > 0], dim=1)
+            pickd = _rand_between(torch.zeros_like(li), walls.sum(1), gen)
+            d = (walls.cumsum(1) > pickd[:, None]).to(torch.uint8).argmax(1)
+            x, y = _wall_door(pitch, li, lj, d, _randint(1, s - 1, m, gen, device))
+            lcolor = _randint(0, 6, m, gen, device)
+            grid[env, x, y] = torch.where(has_lock[:, None], _cell(DOOR, lcolor, LOCKED, device),
+                                          grid[env, x, y])
+            open0[env, _edge(c, r, li, lj, d)] |= has_lock
+            a0 = _randint(0, c * r - 1, m, gen, device)
+            ar = torch.where(has_lock, a0 + (a0 >= locked).long(),
+                             _randint(0, c * r, m, gen, device))
+        else:
+            ar = _randint(0, c * r, m, gen, device)
+        agent_pos = _sample_free_cell((grid[..., 0] == EMPTY) & interior(ar % c, ar // c), gen)
+        agent_dir = _randint(0, 4, m, gen, device)
+        grid = _connect_all(grid, pitch, c, r, open0, gen)
+        free = grid[..., 0] == EMPTY
+        free[env, agent_pos[:, 0], agent_pos[:, 1]] = False
+        if lock:
+            k0 = _randint(0, c * r - 1, m, gen, device)
+            k0 = k0 + (k0 >= locked).long()
+            kpos = _sample_free_cell(free & interior(k0 % c, k0 // c), gen)
+            grid[env, kpos[:, 0], kpos[:, 1]] = torch.where(
+                has_lock[:, None], _cell(KEY, lcolor, 0, device), grid[env, kpos[:, 0], kpos[:, 1]])
+            free[env, kpos[:, 0], kpos[:, 1]] &= ~has_lock
+        types, colors = _random_objects(m, k, gen, device)
+        for i in range(k):
+            room = interior(_randint(0, c, m, gen, device), _randint(0, r, m, gen, device))
+            _put(grid, free, room, _cell(types[:, i], colors[:, i], 0, device), gen)
+        return grid, agent_pos, agent_dir
+
+    if params.check_reachable:
+        grid, agent_pos, agent_dir = _rejection(
+            build, n, lambda o: _objs_reachable(o[0], o[1]), BABYAI_ATTEMPTS, params.kind)
+    else:
+        grid, agent_pos, agent_dir = build(n)
+    kinds = params.instr_kinds.split(",")
+    codes = torch.tensor([{"action": 0, "and": 1, "seq": 2}[x] for x in kinds], device=device)
+    kind = codes[_randint(0, len(kinds), n, gen, device)]
+    comp = torch.where(kind == 2, 2 + _randint(0, 2, n, gen, device), kind)
+    a_and = (kind == 2) & (_randint(0, 2, n, gen, device) == 1)
+    b_and = (kind == 2) & (_randint(0, 2, n, gen, device) == 1)
+    use = torch.stack([torch.ones_like(a_and), (kind == 1) | a_and, kind == 2,
+                       (kind == 2) & b_and], dim=1)
+    instr = _sample_descs(grid, agent_pos, agent_dir, use, tuple(params.action_kinds.split(",")),
+                          params.locations, gen)
+    return _state(grid, agent_pos, agent_dir, _target(n, device, comp), instr)
+
+
+def _reset_babyai_twodoors(params: EnvParams, n: int, gen: torch.Generator, device) -> EnvState:
+    """OpenTwoDoors / OpenRedBlueDoors[Debug] / OpenDoorsOrderN{2,4}[Debug]
+    (the JAX package's ``_reset_babyai_twodoors``): a 3×3 RoomGrid of 6×6
+    rooms whose center room gets CLOSED doors of distinct colors (the first
+    of a permutation of the six, or ``first_color``/``second_color``), one
+    a wall at a uniform offset, the agent inside. ``comp="before"``: door 1
+    west and door 2 east, before(open door 1, open door 2), the first strict
+    in Debug. Otherwise ``num_objs`` doors on distinct random walls, an
+    ordered pair of them, and a uniform mode: open door 1 (comp 0), door 1
+    before door 2 (2) or door 1 after door 2 (3), both strict in Debug.
+    ``instr`` slots 0 and 2 hold OpenInstr(door, color); ``target`` =
+    [comp, 0…]."""
+    grid = _lattice(params, 5, n, device)
+    env = torch.arange(n, device=device)
+    colors = torch.argsort(torch.rand((n, 6), generator=gen, device=device), dim=1)
+    if params.first_color >= 0:
+        colors[:, 0], colors[:, 1] = params.first_color, params.second_color
+    offs = _randint(6, 10, (n, 4), gen, device)
+    full = lambda v: torch.full((n,), v, device=device)  # noqa: E731
+    wx = torch.stack([full(10), offs[:, 1], full(5), offs[:, 3]], dim=1)  # east, south, west, north
+    wy = torch.stack([offs[:, 0], full(10), offs[:, 2], full(5)], dim=1)
+    strict = 2 if params.strict else 0
+    if params.comp == "before":
+        n_doors, strict2 = 2, 0  # upstream stricts only the first OpenInstr
+        walls = torch.tensor([2, 0], device=device).expand(n, 2)
+        order = torch.tensor([0, 1], device=device).expand(n, 2)
+        comp = full(2)
+    else:
+        n_doors, strict2 = params.num_objs, strict
+        walls = torch.argsort(torch.rand((n, 4), generator=gen, device=device), dim=1)[:, :n_doors]
+        order = torch.argsort(torch.rand((n, n_doors), generator=gen, device=device), dim=1)[:, :2]
+        comp = torch.tensor([0, 2, 3], device=device)[_randint(0, 3, n, gen, device)]
+    for i in range(n_doors):
+        grid[env, wx[env, walls[:, i]], wy[env, walls[:, i]]] = _cell(DOOR, colors[:, i], CLOSED,
+                                                                      device)
+    agent_pos = _sample_free_cell((grid[..., 0] == EMPTY) & _room_interior(params, 5, 1, 1, device),
+                                  gen)
+    instr = torch.zeros((n, 4, 12), dtype=torch.int32, device=device)
+    for slot, o, st in ((0, order[:, 0], strict), (2, order[:, 1], strict2)):
+        instr[:, slot, 0], instr[:, slot, 1], instr[:, slot, 5] = 2, DOOR, st
+        instr[:, slot, 2] = colors[env, o].int()
+    instr[:, 2] *= (comp >= 2).int()[:, None]  # comp 0: slot 2 absent
+    return _state(grid, agent_pos, _randint(0, 4, n, gen, device), _target(n, device, comp), instr)
+
+
+def _reset_babyai_pickuploc(params: EnvParams, n: int, gen: torch.Generator, device) -> EnvState:
+    """PickupLoc (the JAX package's ``_reset_babyai_pickuploc``): BabyAI's
+    single 8×8 room with the agent and ``num_objs`` random objects,
+    reachability rejected; PickupInstr in slot 0 on a description of
+    :func:`_sample_descs` with location words; ``target`` zeros (comp 0)."""
+    grid, agent_pos, agent_dir, _, _ = _babyai_room(
+        params, n, gen, device, lambda m: _random_objects(m, params.num_objs, gen, device))
+    use = torch.zeros((n, 4), dtype=torch.bool, device=device)
+    use[:, 0] = True
+    instr = _sample_descs(grid, agent_pos, agent_dir, use, ("pickup",), True, gen)
+    return _state(grid, agent_pos, agent_dir, None, instr)
 
 
 _RESETS = {
@@ -2027,7 +2337,8 @@ _RESETS = {
     "babyai_opendoor": _reset_babyai_opendoor, "babyai_actionobj": _reset_babyai_objdoor,
     "babyai_gotomaze": _reset_babyai_gotomaze, "babyai_unlocklocal": _reset_babyai_unlocklocal,
     "babyai_u2u": _reset_babyai_u2u, "babyai_objdoor": _reset_babyai_objdoor,
-    "babyai_putnext2": _reset_babyai_putnext2,
+    "babyai_putnext2": _reset_babyai_putnext2, "babyai_levelgen": _reset_babyai_levelgen,
+    "babyai_twodoors": _reset_babyai_twodoors, "babyai_pickuploc": _reset_babyai_pickuploc,
 }
 
 
@@ -2191,6 +2502,125 @@ def _babyai_verify(params: EnvParams, state: EnvState, action, grid, new_pos, ne
     raise ValueError(f"unknown BabyAI success mode {mode!r}")
 
 
+def _seq_verify(params: EnvParams, state: EnvState, action, grid, new_pos, new_dir, fx, fy,
+                fobj, fcol, does_pickup, does_drop, carrying):
+    """BabyAI's composite-instruction verifier (``success="babyai_seq"``), after
+    the transition, for every env and its four ``instr`` slots at once (the
+    JAX package's ``_seq_verify``, upstream verifier.py for trees up to
+    Seq(And(a, b), And(c, d))) → (success [N], failure [N], instr,
+    instr_state).
+
+    Each slot's atomic status this step: goto — the front cell after the
+    step matches, or the agent picked up a match it faced; open — a toggle
+    that leaves a matching door open in front (strict fails another toggle
+    of a door in front); pickup — a pickup that leaves the agent carrying a
+    match (strict fails a pickup action that holds anything else); putnext —
+    a drop ACTION with a move-description object cardinally next to a
+    fixed-description one. A positional slot (flag bit 0) matches its packed
+    positions instead: goto and open the front cell, pickup a pickup from a
+    position of the set, which marks the slot's carry; a drop action takes
+    the marked position out of the set, and a drop of the tracked object
+    puts its landing cell in the first free entry (capacity 6).
+
+    Composition over the done latches: and(0, 1) latches each slot until
+    both are done; before(A, B) verifies A until it is done, then B — B
+    also on the step A completes, and before that too where B is an and
+    (its latches accumulate) or the SeqInstr is strict (completing B first
+    then fails); after(A, B) is before(B, A). Failures count from the half
+    being verified."""
+    n = grid.shape[0]
+    device = grid.device
+    env = torch.arange(n, device=device)
+    instr = state.instr
+    verbs, ta, ca, tb, cb = (instr[..., i] for i in range(5))
+    positional = (instr[..., 5] & 1) == 1
+    strict = (instr[..., 5] & 2) == 2
+    pos_set = instr[..., 6:12]                     # [N, 4, 6]
+    comp, seq_strict = state.target[:, 0], state.target[:, 1] > 0
+    h = params.height
+
+    def match(t_arr, c_arr, otype, ocol):
+        return (((t_arr < 0) | (otype.int()[:, None] == t_arr))
+                & ((c_arr < 0) | (ocol.int()[:, None] == c_arr)))
+
+    def in_set(packed):
+        return (pos_set == packed.int()[:, None, None]).any(-1)
+
+    front = new_pos + torch.as_tensor(DIR_TO_VEC, device=device)[new_dir]
+    nfx, nfy = front[:, 0].clamp(0, params.width - 1), front[:, 1].clamp(0, h - 1)
+    ncell = grid[env, nfx, nfy]
+    fxy_packed = fx * h + fy + 1
+    goto_succ = torch.where(positional, in_set(nfx * h + nfy + 1),
+                            match(ta, ca, ncell[:, 0], ncell[:, 1])
+                            | (does_pickup[:, None] & match(ta, ca, fobj, fcol)))
+    cell = grid[env, fx, fy]
+    toggles_door = (action == A_TOGGLE) & (cell[:, 0] == DOOR)
+    open_succ = (toggles_door & (cell[:, 2] == OPEN))[:, None] & torch.where(
+        positional, in_set(fxy_packed), match(ta, ca, torch.full_like(fobj, DOOR), cell[:, 1]))
+    open_fail = strict & toggles_door[:, None] & ~open_succ
+    carry_from_set = does_pickup[:, None] & in_set(fxy_packed)
+    pick_succ = torch.where(positional, carry_from_set,
+                            does_pickup[:, None] & match(ta, ca, carrying[:, 0], carrying[:, 1]))
+    pick_fail = strict & ((action == A_PICKUP) & (carrying[:, 0] != 0))[:, None] & ~pick_succ
+    g0, g1 = grid[:, None, :, :, 0].int(), grid[:, None, :, :, 1].int()  # [N, 1, W, H]
+    real = (g0 != WALL) & (g0 != EMPTY)
+    b = lambda v: v[..., None, None]  # noqa: E731
+    is_a = ((b(ta) < 0) | (g0 == b(ta))) & ((b(ca) < 0) | (g1 == b(ca))) & real
+    is_b = ((b(tb) < 0) | (g0 == b(tb))) & ((b(cb) < 0) | (g1 == b(cb))) & real
+    near_b = is_b.roll(1, 2) | is_b.roll(-1, 2) | is_b.roll(1, 3) | is_b.roll(-1, 3)
+    put_succ = (action == A_DROP)[:, None] & (is_a & near_b).flatten(2).any(-1)
+    succ_step = (((verbs == 1) & goto_succ) | ((verbs == 2) & open_succ)
+                 | ((verbs == 3) & pick_succ) | ((verbs == 4) & put_succ))
+    fail_step = ((verbs == 2) & open_fail) | ((verbs == 3) & pick_fail)
+
+    # positional tracking, on the action (upstream update_objs_poss)
+    carry_pos = state.instr_state[..., 1]
+    new_carry = torch.where(carry_from_set & (carry_pos == 0), fxy_packed.int()[:, None], carry_pos)
+    set_after = torch.where((action == A_DROP)[:, None, None] & (carry_pos[..., None] > 0)
+                            & (pos_set == carry_pos[..., None]), 0, pos_set)
+    empty = set_after == 0
+    first_empty = empty.to(torch.uint8).argmax(-1, keepdim=True)
+    add = ((does_drop[:, None] & (new_carry > 0))[..., None]
+           & (torch.arange(6, device=device) == first_empty) & empty)
+    set_after = torch.where(add, fxy_packed.int()[:, None, None], set_after)
+    new_carry = torch.where(does_drop[:, None], 0, new_carry)
+    new_instr = instr.clone()
+    new_instr[..., 6:12] = set_after
+
+    # composition over the done latches
+    present = verbs > 0
+    d = state.instr_state[..., 0] > 0
+    in_a = torch.arange(4, device=device) < 2
+    in_b = ~in_a
+
+    def group_done(dv, lo):
+        return (dv[:, lo] | ~present[:, lo]) & (dv[:, lo + 1] | ~present[:, lo + 1])
+
+    def gated(dv, gate):
+        return dv | (gate & ~dv & succ_step & present), gate & ~dv & fail_step & present
+
+    def ordered(first_in, then_in, first_lo, then_lo, then_is_and):
+        """before(first, then): the latches, success and failure."""
+        was = group_done(d, first_lo)
+        nd, gf_first = gated(d, first_in & ~was[:, None])
+        now = group_done(nd, first_lo)
+        nd, gf_then = gated(nd, then_in & (was | now | seq_strict | then_is_and)[:, None])
+        then_now = group_done(nd, then_lo)
+        succ = (was | now) & then_now
+        fail = (torch.where(was, gf_then.any(-1), gf_first.any(-1))
+                | (seq_strict & ~was & ~now & then_now))
+        return nd, succ, fail
+
+    nd_and, gf_and = gated(d, in_a.expand_as(d))
+    nd_b, succ_b, fail_b = ordered(in_a, in_b, 0, 2, present[:, 2] & present[:, 3])
+    nd_a, succ_a, fail_a = ordered(in_b, in_a, 2, 0, present[:, 0] & present[:, 1])
+    is_seq, is_after = comp >= 2, comp == 3
+    succ = torch.where(is_seq, torch.where(is_after, succ_a, succ_b), group_done(nd_and, 0))
+    fail = torch.where(is_seq, torch.where(is_after, fail_a, fail_b), gf_and.any(-1))
+    new_d = torch.where(is_seq[:, None], torch.where(is_after[:, None], nd_a, nd_b), nd_and)
+    return succ, fail, new_instr, torch.stack([new_d.int(), new_carry.int()], dim=-1)
+
+
 def step(params: EnvParams, state: EnvState, action: torch.Tensor,
          gumbels: Optional[torch.Tensor] = None, gen: Optional[torch.Generator] = None):
     """One transition of every env. Returns (state, reward f32 [N],
@@ -2198,7 +2628,9 @@ def step(params: EnvParams, state: EnvState, action: torch.Tensor,
 
     Dynamic-Obstacles moves its balls first, by the [N, n_obstacles, 9]
     Gumbel draws ``gumbels`` (:func:`obstacle_gumbels`), drawn from ``gen``
-    when not given. ``state.target`` is carried unchanged."""
+    when not given. ``state.target`` is carried unchanged, and so are
+    ``instr`` and ``instr_state`` but where the composite verifier updates
+    them."""
     device = state.grid.device
     n = state.grid.shape[0]
     env = torch.arange(n, device=device)
@@ -2307,7 +2739,7 @@ def step(params: EnvParams, state: EnvState, action: torch.Tensor,
                            torch.where(does_drop[:, None], torch.zeros_like(fwd_cell),
                                        state.carrying))
 
-    target = state.target
+    target, instr, instr_state = state.target, state.instr, state.instr_state
     if params.success == "goto_door":
         # GoToDoor (upstream gotodoor.py step): any toggle or ``done``
         # terminates; ``done`` axially adjacent to the target door (same x
@@ -2351,6 +2783,13 @@ def step(params: EnvParams, state: EnvState, action: torch.Tensor,
         landed_near = does_drop & ((fx - target[:, 4]).abs() <= 1) & ((fy - target[:, 5]).abs() <= 1)
         terminated = terminated | wrong_pickup | drops
         reward = torch.where(drops & landed_near, time_reward, reward)
+    elif params.success == "babyai_seq":
+        # Composite instructions (upstream RoomGridLevel.step → instrs.verify).
+        succ, fail, instr, instr_state = _seq_verify(params, state, action, grid, new_pos,
+                                                     new_dir, fx, fy, fobj, fcol, does_pickup,
+                                                     does_drop, carrying)
+        terminated = terminated | succ | fail
+        reward = torch.where(succ, time_reward, reward)
     elif params.success.startswith("babyai_"):
         succ, fail = _babyai_verify(params, state, action, grid, new_pos, new_dir, fx, fy,
                                     fobj, fcol, does_pickup, carrying)
@@ -2364,7 +2803,7 @@ def step(params: EnvParams, state: EnvState, action: torch.Tensor,
         reward = torch.where(collided, torch.full_like(reward, -1.0), reward)
 
     truncated = step_count >= params.max_steps
-    new_state = EnvState(grid, new_pos, new_dir, carrying, step_count, target)
+    new_state = EnvState(grid, new_pos, new_dir, carrying, step_count, target, instr, instr_state)
     return new_state, reward, terminated, truncated
 
 

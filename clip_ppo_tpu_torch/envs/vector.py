@@ -26,6 +26,7 @@ from typing import Optional
 import torch
 
 from clip_ppo_tpu_torch.envs.minigrid import core as minigrid_core
+from clip_ppo_tpu_torch.models import mission as mission_mod
 from clip_ppo_tpu_torch.ops.resize import upscale_nearest
 
 
@@ -140,6 +141,23 @@ class TorchVectorEnv:
         """RGB render of env 0 for video capture ([H, W, 3] uint8)."""
         e = state.env
         return minigrid_core.render_rgb(self.params, e.grid[0], e.agent_pos[0], e.agent_dir[0])
+
+    # -- mission conditioning (models/mission.py) -----------------------------
+
+    @property
+    def mission_dim(self) -> int:
+        """Width of the per-env structured instruction vector."""
+        return mission_mod.MISSION_DIM
+
+    def mission_fn(self, state: VecState) -> torch.Tensor:
+        """[N, mission_dim] int32 structured instruction of the current
+        state: the mission ``target``, the composite-instruction slots
+        ``instr`` and the verifier's per-slot ``instr_state``, flattened and
+        joined (the JAX package's ``mission_fn``)."""
+        e = state.env
+        n = e.target.shape[0]
+        return torch.cat([e.target, e.instr.reshape(n, -1), e.instr_state.reshape(n, -1)],
+                         dim=-1).to(torch.int32)
 
     def rollout_desc(self, state: VecState) -> dict:
         """Per-step state snapshot the rollout records for text

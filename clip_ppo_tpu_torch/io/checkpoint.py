@@ -21,7 +21,9 @@ stored as ``{name}_state`` (numpy leaves), and ``extra_templates`` restores
 each stored name onto its template. A JAX vanilla checkpoint's
 ``loop_state`` pickles the JAX package's ``VecState`` and ``EnvState``;
 they are read as ``convert``'s stand-ins, so loading never imports the JAX
-package, and any other class of that package is refused by name.
+package, and any other class of that package is refused by name. The
+port's vanilla CLI writes its env state there too (``jax_loop``), as the
+stand-ins under the JAX package's names, so the JAX CLI resumes it.
 """
 
 from __future__ import annotations
@@ -39,17 +41,20 @@ from clip_ppo_tpu_torch import convert
 from clip_ppo_tpu_torch.utils.tree import tree_map
 
 _STANDINS = {name: cls for cls, (_, name) in convert.OPTAX_CLASSES.items()}
+# Each stand-in that is written and the module and name it is written under.
+_WRITTEN_AS = {**convert.OPTAX_CLASSES,
+               **{cls: key for key, cls in convert.JAX_STATE_CLASSES.items()}}
 
 
 class _Pickler(pickle._Pickler):
     """The standard pickler, writing ``convert``'s stand-ins under the names
-    of the optax classes they stand for. (The pure-Python pickler: the C
-    one has no hook for how a class reference is written.)"""
+    of the optax and JAX-package classes they stand for. (The pure-Python
+    pickler: the C one has no hook for how a class reference is written.)"""
 
     def save_global(self, obj, name=None):
-        if obj not in convert.OPTAX_CLASSES:
+        if obj not in _WRITTEN_AS:
             return super().save_global(obj, name)
-        module, qualname = convert.OPTAX_CLASSES[obj]
+        module, qualname = _WRITTEN_AS[obj]
         self.save(module)
         self.save(qualname)
         self.write(pickle.STACK_GLOBAL)
@@ -123,10 +128,13 @@ def _ext() -> str:
 def save_checkpoint(prefix: str, params: dict, opt_state: Any, iteration: int,
                     global_step: int, args: Any, b_returns: Optional[np.ndarray] = None,
                     final: bool = False, *, learning_rate: float,
-                    extra_models: Optional[dict] = None) -> str:
+                    extra_models: Optional[dict] = None,
+                    jax_loop: Optional[dict] = None) -> str:
     """Write the checkpoint; ``learning_rate`` is that of the last update,
     which the JAX package's optimizer state records. ``extra_models``:
-    optional ``{name: tree of tensors}``, each stored as ``{name}_state``."""
+    optional ``{name: tree of tensors}``, each stored as ``{name}_state``.
+    ``jax_loop``: optional, the JAX vanilla CLI's ``loop`` payload (numpy
+    leaves, ``convert.jax_vec_state``), stored as its ``loop_state``."""
     checkpoint = {
         "iteration": int(iteration),
         "global_step": int(global_step),
@@ -139,6 +147,8 @@ def save_checkpoint(prefix: str, params: dict, opt_state: Any, iteration: int,
     for name, tree in (extra_models or {}).items():
         if tree is not None:
             checkpoint[f"{name}_state"] = tree_map(lambda t: t.detach().cpu().numpy(), tree)
+    if jax_loop is not None:
+        checkpoint["loop_state"] = jax_loop
     ext = _ext()
     if final:
         filename = f"{prefix}_final{ext}"

@@ -17,6 +17,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from clip_ppo_tpu_torch.models import mission as mission_mod
 from clip_ppo_tpu_torch.models import nature_cnn as cnn
 
 
@@ -33,12 +34,14 @@ LATENT_DIM = 512  # the trunk's output, the latent the CLIP loss aligns
 
 def init_agent_params(gen: torch.Generator, num_actions: int, device,
                       in_channels: int = 3, hidden: int = LATENT_DIM,
-                      with_temporal_projection: bool = False) -> dict:
+                      with_temporal_projection: bool = False, mission_dim: int = 0) -> dict:
     """Orthogonally initialized trunk and heads; ``gen`` is a CPU generator
     (the weights are drawn on the CPU, then moved to ``device``).
     ``with_temporal_projection`` adds the 4·512 → 512 dense the Atari
     CLIP-PPO agent puts frame-stacked CLIP features through
-    (`clip_ppo_atari.py:183-187`)."""
+    (`clip_ppo_atari.py:183-187`); ``mission_dim > 0`` adds the FiLM
+    mission head ``params["mission"]`` (``models/mission.py``,
+    zero-initialized, so the conditioned agent starts as the plain one)."""
     params = {
         "trunk": cnn.init_nature_cnn(gen, in_channels, device, hidden),
         "actor": cnn.init_dense(gen, hidden, num_actions, device, scale=0.01),
@@ -46,6 +49,9 @@ def init_agent_params(gen: torch.Generator, num_actions: int, device,
     }
     if with_temporal_projection:
         params["temporal_projection"] = cnn.init_dense(gen, 4 * hidden, hidden, device)
+    if mission_dim > 0:
+        params["mission"] = mission_mod.init_mission_params(gen, device, mission_dim,
+                                                            hidden=hidden)
     return params
 
 

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import torch
 
+from clip_ppo_tpu_torch.models import mission as mission_mod
 from clip_ppo_tpu_torch.models import nature_cnn as cnn
 
 HC = tuple[torch.Tensor, torch.Tensor]
@@ -74,17 +75,23 @@ def init_zero_state(num_envs: int, hidden_dim: int, device) -> HC:
 
 def init_agent_params_recurrent(gen: torch.Generator, num_actions: int, device,
                                 in_channels: int = 3, hidden: int = 512,
-                                lstm_hidden: int = 128) -> dict:
+                                lstm_hidden: int = 128, mission_dim: int = 0) -> dict:
     """Nature-CNN trunk → LSTM(hidden → lstm_hidden); the heads read
     ``concat(trunk, h)``, scaled as the reference's ``layer_init``: 0.01
-    actor, 1.0 critic. ``gen`` is a CPU generator."""
+    actor, 1.0 critic. ``mission_dim > 0`` adds the FiLM mission head
+    (``models/mission.py``), which modulates the trunk's features before
+    the cell. ``gen`` is a CPU generator."""
     head_in = hidden + lstm_hidden
-    return {
+    params = {
         "trunk": cnn.init_nature_cnn(gen, in_channels, device, hidden),
         "lstm": init_lstm(gen, hidden, lstm_hidden, device),
         "actor": cnn.init_dense(gen, head_in, num_actions, device, scale=0.01),
         "critic": cnn.init_dense(gen, head_in, 1, device, scale=1.0),
     }
+    if mission_dim > 0:
+        params["mission"] = mission_mod.init_mission_params(gen, device, mission_dim,
+                                                            hidden=hidden)
+    return params
 
 
 def unroll(p_lstm: dict, x: torch.Tensor, dones: torch.Tensor, hc0: HC

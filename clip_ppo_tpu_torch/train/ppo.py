@@ -212,8 +212,8 @@ def update_epochs(
     frozen=None,
 ) -> tuple[dict, dict, dict]:
     """``update_epochs × num_minibatches`` PPO steps over the flat
-    [batch_size, ...] ``batch`` (obs, actions, logprobs, advantages,
-    returns, values). ``permutations`` [update_epochs, batch_size] (else
+    [batch_size, ...] ``batch`` (obs — or the (obs, mission) pair — actions,
+    logprobs, advantages, returns, values). ``permutations`` [update_epochs, batch_size] (else
     drawn from ``gen``) shuffle each epoch. Returns (params, opt_state,
     metrics): losses of the LAST minibatch, clipfrac averaged over all
     minibatches, grad_norm of the last, and the first minibatch's losses
@@ -229,8 +229,9 @@ def update_epochs(
         batch = dict(batch, clip_embeddings=clip_embeddings)
 
     def minibatch(epoch: int, i: int) -> dict:
+        # leaf by leaf: the mission-conditioned obs is an (obs, mission) pair
         idx = permutations[epoch][i * cfg.minibatch_size:(i + 1) * cfg.minibatch_size]
-        return {k: v[idx] for k, v in batch.items()}
+        return tree_map(lambda v: v[idx], batch)
 
     def loss_fn(live_params, mb, mb_counter):
         use_clip = mb_counter % CLIP_LOSS_FREQUENCY == 0
@@ -248,8 +249,8 @@ def recurrent_loss(params: dict, mb: dict, cfg: PPOConfig, features_fn, frozen=N
     cell replays step by step, with the rollout's done-resets, so at
     unchanged parameters the latents are the rollout's."""
     t, n = mb["actions"].shape
-    obs = mb["obs"]
-    feats = features_fn(params, obs.reshape((t * n,) + tuple(obs.shape[2:])), frozen)
+    obs = tree_map(lambda v: v.reshape((t * n,) + tuple(v.shape[2:])), mb["obs"])
+    feats = features_fn(params, obs, frozen)
     hs, _ = rec.unroll(params["lstm"], feats.reshape(t, n, -1), mb["dones"], (mb["h0"], mb["c0"]))
     latents = rec.latent(feats.reshape(t, n, -1), hs)
     logits, newvalue = agent_mod.heads(params, latents)
@@ -286,7 +287,7 @@ def update_epochs_recurrent(
 
     def minibatch(epoch: int, i: int) -> dict:
         idx = permutations[epoch][i * epm:(i + 1) * epm]
-        mb = {k: v[:, idx] for k, v in batch.items()}
+        mb = tree_map(lambda v: v[:, idx], batch)
         mb["h0"], mb["c0"] = h0[idx], c0[idx]
         return mb
 

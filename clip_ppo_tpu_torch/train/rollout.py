@@ -25,6 +25,11 @@ and not at each of its steps.
 ``collect_rollout_recurrent`` is the LSTM agent's rollout
 (``--recurrent``): the same loop, with the cell between the trunk and the
 heads and its (h, c) carried across the steps.
+
+With ``mission_fn`` (``--mission-conditioning``, ``models/mission.py``) the
+policy reads ``(obs, mission)`` pairs and the batch stores them: the
+mission [T, N, M] int32 is computed from each step's env state, and the
+carried observation stays plain.
 """
 
 from __future__ import annotations
@@ -42,8 +47,10 @@ from clip_ppo_tpu_torch.ops.severity import DisturbanceParams
 class RolloutBatch(NamedTuple):
     """Per-step storage, leading axes [num_steps, num_envs]."""
 
-    obs: torch.Tensor             # uint8 [T, N, H, W, C] (disturbed), or the
-                                  # raw [T, N, 7, 7, 3] views with small_obs
+    obs: Any                      # uint8 [T, N, H, W, C] (disturbed), or the
+                                  # raw [T, N, 7, 7, 3] views with small_obs;
+                                  # with a mission_fn the pair (obs, mission
+                                  # [T, N, M] int32)
     actions: torch.Tensor         # int64 [T, N]
     logprobs: torch.Tensor        # f32 [T, N]
     rewards: torch.Tensor         # f32 [T, N]
@@ -74,11 +81,15 @@ def collect_rollout(
     disturb_draws: Optional[Sequence[DisturbanceDraws]] = None,
     small_obs: bool = False,
     env_draws: Optional[Sequence[Any]] = None,
+    mission_fn=None,
 ):
     """Run ``num_steps`` env steps. Returns (vec_state, obs, next_done,
     RolloutBatch). ``gumbels`` [T, N, A], ``disturb_draws`` (one per step)
     and ``env_draws`` (one per step, for an env whose ``step_fn`` takes
-    ``draws``) default to draws from ``gen``.
+    ``draws``) default to draws from ``gen``. ``mission_fn(vec_state)`` →
+    [N, M] int32, where given, makes the policy's input and the stored
+    observation ``(obs, mission)`` pairs; ``features_fn`` must then be a
+    mission trunk (``mission.MissionFeatures``).
 
     ``small_obs``: the view fast path — ``obs`` (carry and storage) are the
     raw [N, 7, 7, 3] views instead of their ×12 upscale, and
@@ -94,7 +105,7 @@ def collect_rollout(
 
     return _collect(act, env, vec_state, obs, next_done, gen, num_steps, disturbance,
                     disturbance_semantics, capture_video, collect_desc, gumbels, disturb_draws,
-                    small_obs, env_draws)
+                    small_obs, env_draws, mission_fn)
 
 
 def collect_rollout_recurrent(
@@ -115,6 +126,7 @@ def collect_rollout_recurrent(
     disturb_draws: Optional[Sequence[DisturbanceDraws]] = None,
     small_obs: bool = False,
     env_draws: Optional[Sequence[Any]] = None,
+    mission_fn=None,
 ):
     """:func:`collect_rollout` for the LSTM agent (``models/recurrent.py``):
     each step's trunk features go through the cell, whose (h, c) is zeroed
@@ -122,7 +134,8 @@ def collect_rollout_recurrent(
     heads read ``concat(features, h)``. Returns (vec_state, obs, next_done,
     lstm_state, RolloutBatch): the carried state after the last step. The
     update replays from the state the rollout started with, which the
-    caller keeps."""
+    caller keeps. With ``mission_fn`` the FiLM modulates the trunk's
+    features before the cell."""
     fixed = getattr(features_fn, "fixed", None)
     if fixed is not None:
         features_fn = fixed(params)
@@ -138,15 +151,16 @@ def collect_rollout_recurrent(
 
     vec_state, obs, next_done, batch = _collect(
         act, env, vec_state, obs, next_done, gen, num_steps, disturbance, disturbance_semantics,
-        capture_video, False, gumbels, disturb_draws, small_obs, env_draws)
+        capture_video, False, gumbels, disturb_draws, small_obs, env_draws, mission_fn)
     return vec_state, obs, next_done, carry[0], batch
 
 
 def _collect(act, env, vec_state, obs, next_done, gen, num_steps, disturbance,
              disturbance_semantics, capture_video, collect_desc, gumbels, disturb_draws,
-             small_obs, env_draws):
+             small_obs, env_draws, mission_fn=None):
     """The rollout loop; ``act(obs, next_done, gumbel)`` → (action,
-    logprob, value) is the policy's step."""
+    logprob, value) is the policy's step, ``obs`` the pair (obs, mission)
+    with a ``mission_fn``."""
     if small_obs and disturbance is not None:
         raise ValueError("the view fast path cannot apply image-space disturbances")
     device = obs.device
@@ -157,6 +171,9 @@ def _collect(act, env, vec_state, obs, next_done, gen, num_steps, disturbance,
     if prepare is not None:  # the rollout's fresh env states, made in bulk
         vec_state = prepare(vec_state, num_steps, gen)
     obs_t = torch.empty((num_steps,) + tuple(obs.shape), dtype=torch.uint8, device=device)
+    mission_t = None
+    if mission_fn is not None:
+        mission_t = torch.empty((num_steps, n, env.mission_dim), dtype=torch.int32, device=device)
     packed = torch.empty((num_steps, n, 8), device=device)
     desc: dict = {}
     video = [] if capture_video else None
@@ -168,7 +185,11 @@ def _collect(act, env, vec_state, obs, next_done, gen, num_steps, disturbance,
                                  None if disturb_draws is None else disturb_draws[t],
                                  disturbance_semantics)
                 obs = (torch.clamp(x, 0.0, 1.0) * 255.0).to(torch.uint8)
-            action, logprob, value = act(obs, next_done, gumbels[t])
+            if mission_t is None:
+                action, logprob, value = act(obs, next_done, gumbels[t])
+            else:
+                mission_t[t] = mission_fn(vec_state)
+                action, logprob, value = act((obs, mission_t[t]), next_done, gumbels[t])
             if collect_desc:
                 for k, v in env.rollout_desc(vec_state).items():
                     desc.setdefault(k, []).append(v)
@@ -187,7 +208,7 @@ def _collect(act, env, vec_state, obs, next_done, gen, num_steps, disturbance,
             next_done = (term | trunc).float()
     desc = {k: torch.stack(v) for k, v in desc.items()}
     batch = RolloutBatch(
-        obs=obs_t,
+        obs=obs_t if mission_t is None else (obs_t, mission_t),
         actions=packed[..., 0].long(),
         logprobs=packed[..., 1],
         rewards=packed[..., 2],

@@ -6,6 +6,7 @@ vanilla PPO only) with the Nature-CNN trunk (on the raw
 7×7 views when nothing needs the 84×84 image, the view fast path) or with
 the frozen CLIP vision tower as its trunk (FROZEN_CLIP, a ``features_fn``
 reading ``frozen["clip"]``), optional batched or per-image disturbances, the
+FiLM mission conditioning over any of those trunks (``mission_conditioning``), the
 text modality through a precomputed description-embedding table
 (``embed_desc_fn``), the image modality, which encodes the iteration's
 stored observations with the CLIP vision tower (``embed_images_fn``), and
@@ -35,6 +36,7 @@ import numpy as np
 import torch
 
 from clip_ppo_tpu_torch.models import agent as agent_mod
+from clip_ppo_tpu_torch.models import mission as mission_mod
 from clip_ppo_tpu_torch.models import nature_cnn as cnn
 from clip_ppo_tpu_torch.models import recurrent as rec
 from clip_ppo_tpu_torch.models.clip_utils import get_clip_lambda_with_warmup
@@ -43,6 +45,7 @@ from clip_ppo_tpu_torch.ops.severity import DisturbanceParams
 from clip_ppo_tpu_torch.train import gae as gae_mod
 from clip_ppo_tpu_torch.train import ppo as ppo_mod
 from clip_ppo_tpu_torch.train import rollout as rollout_mod
+from clip_ppo_tpu_torch.utils.tree import tree_map
 
 # The fixed, sorted set of per-iteration log scalars (packing order).
 SCALAR_KEYS = (
@@ -124,6 +127,12 @@ class Trainer:
             from the iteration's initial state. Vanilla PPO only (no CLIP
             modality), with ``num_envs`` divisible by ``num_minibatches``,
             as in the JAX package (`runner.py:148-166`).
+        mission_conditioning: the policy reads ``(obs, mission)`` pairs, the
+            mission the env's ``mission_fn`` of each step's state, through
+            the FiLM trunk of ``models/mission.py`` wrapped around the
+            trunk chosen above (the view trunk included); the params need
+            ``params["mission"]``. Refused with the image modality, as in
+            the JAX package (`runner.py:109-127`).
     """
 
     def __init__(
@@ -151,7 +160,6 @@ class Trainer:
             "mesh": (mesh is not None, "the multi-GPU slice"),
             "exploration_bonus": (exploration_bonus > 0.0 or episodic_bonus > 0.0,
                                   "the extensions slice"),
-            "mission_conditioning": (mission_conditioning, "the extensions slice"),
         }
         for name, (requested, slice_name) in later.items():
             if requested:
@@ -166,6 +174,15 @@ class Trainer:
             if cfg.num_envs % cfg.num_minibatches:
                 raise ValueError(f"recurrent PPO minibatches over envs: num_envs={cfg.num_envs} "
                                  f"not divisible by num_minibatches={cfg.num_minibatches}")
+        if mission_conditioning:
+            if not hasattr(env, "mission_fn"):
+                raise ValueError("--mission-conditioning needs an env with mission_fn (the "
+                                 "MiniGrid and BabyAI families)")
+            if embed_images_fn is not None:
+                raise ValueError("--mission-conditioning composes with the text modality "
+                                 "(embed_desc_fn), not the image modality, whose encode reads "
+                                 "the stored image batches")
+        self.mission_conditioning = mission_conditioning
         self.recurrent = recurrent
         self.cfg = cfg
         self.env = env
@@ -181,6 +198,10 @@ class Trainer:
         )
         if self.view_mode:
             features_fn = agent_mod.make_view_features(env.view_upscale)
+        if mission_conditioning:
+            # after the view decision, so missions compose with the view
+            # trunk: the pair is (view, mission)
+            features_fn = mission_mod.MissionFeatures(features_fn)
         self.features_fn = features_fn
         self.embed_images_fn = embed_images_fn
         self.embed_desc_fn = embed_desc_fn
@@ -226,7 +247,7 @@ class Trainer:
                 state.lstm_state, state.gen, self.cfg.num_steps, self.disturbance,
                 self.disturbance_semantics, self.features_fn, self.capture_env0,
                 self.frozen_params, gumbels=draws.gumbels, disturb_draws=draws.disturb,
-                small_obs=self.view_mode, env_draws=draws.env,
+                small_obs=self.view_mode, env_draws=draws.env, mission_fn=self._mission_fn,
             )
             state = dataclasses.replace(state, vec_state=vec_state, obs=obs, next_done=next_done,
                                         lstm_state=lstm_state)
@@ -237,10 +258,21 @@ class Trainer:
             self.capture_env0, self.frozen_params,
             collect_desc=collect_desc or self.embed_desc_fn is not None,
             gumbels=draws.gumbels, disturb_draws=draws.disturb, small_obs=self.view_mode,
-            env_draws=draws.env,
+            env_draws=draws.env, mission_fn=self._mission_fn,
         )
         state = dataclasses.replace(state, vec_state=vec_state, obs=obs, next_done=next_done)
         return state, batch
+
+    @property
+    def _mission_fn(self):
+        return self.env.mission_fn if self.mission_conditioning else None
+
+    def _policy_obs(self, state: TrainState):
+        """The policy's input at ``state``: its observation, paired with the
+        env state's mission under mission conditioning."""
+        if self.mission_conditioning:
+            return state.obs, self.env.mission_fn(state.vec_state)
+        return state.obs
 
     def _data2d(self, state: TrainState, batch: rollout_mod.RolloutBatch) -> dict:
         """GAE and the update inputs in rollout layout [T, N, ...]; the LSTM
@@ -249,13 +281,14 @@ class Trainer:
         hold the per-step ``dones`` its replay needs."""
         with torch.no_grad():
             if self.recurrent:
-                feats = self.features_fn(state.params, state.obs, self.frozen_params)
+                feats = self.features_fn(state.params, self._policy_obs(state),
+                                         self.frozen_params)
                 h, _ = rec.masked_lstm_step(state.params["lstm"], feats, state.lstm_state,
                                             state.next_done)
                 next_value = cnn.dense(state.params["critic"], rec.latent(feats, h))[..., 0]
             else:
-                next_value = agent_mod.get_value(state.params, state.obs, self.features_fn,
-                                                 self.frozen_params)
+                next_value = agent_mod.get_value(state.params, self._policy_obs(state),
+                                                 self.features_fn, self.frozen_params)
             advantages, returns = gae_mod.compute_gae(
                 batch.rewards, batch.values, batch.dones, next_value, state.next_done,
                 self.cfg.gamma, self.cfg.gae_lambda)
@@ -267,8 +300,9 @@ class Trainer:
 
     @staticmethod
     def _flatten(data: dict) -> dict:
-        """[T, N, ...] → t-major [T·N, ...] (the reference's b_* layout)."""
-        return {k: v.reshape((-1,) + tuple(v.shape[2:])) for k, v in data.items()}
+        """[T, N, ...] → t-major [T·N, ...] (the reference's b_* layout), leaf
+        by leaf (the mission-conditioned (obs, mission) pair)."""
+        return tree_map(lambda v: v.reshape((-1,) + tuple(v.shape[2:])), data)
 
     def learning_rate(self, iteration: int) -> float:
         """The learning rate of iteration ``iteration``'s update."""

@@ -5,8 +5,8 @@ OpenDoor[Color|Loc][Debug], ActionObjDoor) and PutNextS{s}N{n}[Carrying].
 
 Each of their 43 ids parses to the JAX package's ``EnvParams`` on every
 field the port has, and so do the 27 maze ids of
-``test_torch_babyai_mazes``; the 19 levels of composite instructions raise,
-naming the slice that brings them. Resets draw from different generators in
+``test_torch_babyai_mazes`` and the 19 levels of composite instructions
+(``test_torch_babyai_seq`` holds their resets and transitions). Resets draw from different generators in
 the two packages, so the port's resets are held to the invariants that
 ``tests/test_babyai_goto.py``, ``test_babyai_open.py`` and the non-seq cases
 of ``test_babyai_seq.py`` pin, the mission ``target`` included.
@@ -77,6 +77,9 @@ NONE = np.zeros(3, np.int8)
 
 
 def test_seventy_ids_parse_and_nineteen_raise():
+    """All 89 BabyAI ids of the registry parse in the port: these 43, the
+    27 maze ids and the 19 of composite instructions (which raised before
+    the instruction slice, hence the name)."""
     from test_torch_babyai_mazes import MAZE_IDS
     from tests.test_registry_matrix import REGISTERED
 
@@ -86,9 +89,11 @@ def test_seventy_ids_parse_and_nineteen_raise():
     assert len(babyai) == 89 and len(INSTRUCTION_IDS) == 19
     for env_id in INSTRUCTION_IDS:
         assert jmg.parse_env_id(env_id).success == "babyai_seq"
+        assert tmg.parse_env_id(env_id).success == "babyai_seq"
+    assert all(tmg.parse_env_id(i).kind == jmg.parse_env_id(i).kind for i in babyai)
 
 
-@pytest.mark.parametrize("env_id", ROOM_IDS)
+@pytest.mark.parametrize("env_id", ROOM_IDS + INSTRUCTION_IDS)
 def test_parse_matches_jax(env_id):
     tp, jp = tmg.parse_env_id(env_id), jmg.parse_env_id(env_id)
     for f in dataclasses.fields(tp):
@@ -97,8 +102,19 @@ def test_parse_matches_jax(env_id):
 
 @pytest.mark.parametrize("env_id", INSTRUCTION_IDS[::3])
 def test_instruction_ids_are_refused_by_slice(env_id):
-    with pytest.raises(ValueError, match="later slice.*BabyAI instruction slice"):
-        tmg.parse_env_id(env_id)
+    """Every third id of composite instructions, refused until the BabyAI
+    instruction slice brought them (hence the name), now parses to the JAX
+    package's ``EnvParams`` on every field, the composite ones
+    (``instr_kinds``, ``action_kinds``, ``locations``, ``check_reachable``,
+    ``locked_room_prob``, ``comp``, ``first_color``, ``second_color``)
+    included, and resets with its instruction in ``instr``."""
+    tp, jp = tmg.parse_env_id(env_id), jmg.parse_env_id(env_id)
+    assert dataclasses.asdict(tp) == {f.name: getattr(jp, f.name)
+                                      for f in dataclasses.fields(tp)}
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    st = tmg.reset(tp, 4, gen, "cpu")
+    assert (st.instr[:, :, 0] > 0).any(1).all()
 
 
 # ---------------------------------------------------------------------------

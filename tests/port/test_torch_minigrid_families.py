@@ -64,18 +64,16 @@ DIRS = jmg.DIR_TO_VEC
 def test_forty_nine_ids_parse():
     """The 39 ids of these families beside Empty's 6 and DoorKey's 4 (49),
     the mission families, Memory, Playground and the full ObstructedMaze
-    (27 more, ``test_torch_minigrid_missions``) and the 70 BabyAI levels
-    that ``target`` decides (``test_torch_babyai_rooms``,
-    ``test_torch_babyai_mazes``): 146 of the registry's 165 parse, and the
-    other 19 are BabyAI's levels of composite instructions."""
+    (27 more, ``test_torch_minigrid_missions``) and the 89 BabyAI levels
+    (``test_torch_babyai_rooms``, ``test_torch_babyai_mazes``,
+    ``test_torch_babyai_seq``): all 165 of the registry parse."""
     assert len(set(FAMILY_IDS)) == 39
     from tests.test_registry_matrix import REGISTERED
 
     ported = [i for i in REGISTERED if _parses(i)]
-    assert len(REGISTERED) == 165 and len(ported) == 146
+    assert len(REGISTERED) == 165 and len(ported) == 165
     assert set(FAMILY_IDS) <= set(ported)
-    assert all(jmg.parse_env_id(i).success == "babyai_seq"
-               for i in set(REGISTERED) - set(ported))
+    assert sum(jmg.parse_env_id(i).success == "babyai_seq" for i in ported) == 19
 
 
 def _parses(env_id):
@@ -104,9 +102,15 @@ def test_parse_matches_jax(env_id):
     ("BabyAI-BossLevel-v0", "BabyAI instruction slice"),
 ])
 def test_later_ids_are_refused_by_slice(env_id, slice_name):
-    jmg.parse_env_id(env_id)  # the JAX package runs it
-    with pytest.raises(ValueError, match=f"later slice.*{slice_name}"):
-        tmg.parse_env_id(env_id)
+    """Ids that were refused until ``slice_name`` brought them (hence the
+    name): each parses as the JAX package parses it and resets."""
+    assert slice_name == "BabyAI instruction slice"
+    tp, jp = tmg.parse_env_id(env_id), jmg.parse_env_id(env_id)
+    assert (tp.kind, tp.success, tp.width, tp.height) == (jp.kind, jp.success, jp.width, jp.height)
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    st = tmg.reset(tp, 2, gen, "cpu")
+    assert st.grid.shape == (2, tp.width, tp.height, 3) and st.instr.any()
 
 
 # ---------------------------------------------------------------------------

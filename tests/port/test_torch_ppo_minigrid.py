@@ -147,7 +147,8 @@ def _args(tmp_path, *extra):
 
 @pytest.mark.parametrize("argv,match", [
     (["--recurrent", "--num-envs", "3"], "--recurrent.*not divisible"),
-    (["--mission-conditioning"], "--mission-conditioning.*extensions slice"),
+    (["--mission-conditioning", "--exploration-bonus", "0.01"],
+     "--exploration-bonus.*extensions slice"),
     (["--exploration-bonus", "0.01"], "--exploration-bonus.*extensions slice"),
     (["--episodic-bonus", "0.01"], "--episodic-bonus.*extensions slice"),
     (["--num-devices", "2"], "--num-devices.*multi-GPU slice"),
@@ -194,7 +195,7 @@ def test_cli_resume_is_bit_identical(tmp_path, monkeypatch, extra):
     """Two iterations uninterrupted, then the same run resumed from its
     checkpoint after the first: the final checkpoints agree bit for bit,
     params, optimizer, loop state and generator included. The JAX package's
-    loader reads the same checkpoint and skips ``torch_loop_state``."""
+    loader reads the same checkpoint, its env state from ``loop_state``."""
     monkeypatch.chdir(tmp_path)
     full = tcli.train(_args(tmp_path, *extra), run_name="full")
     assert full["global_step"] == 64 and full["view_mode"] is (not extra)
@@ -208,16 +209,21 @@ def test_cli_resume_is_bit_identical(tmp_path, monkeypatch, extra):
     assert half["global_step"] == 64
     a, b = _load(ckpts / "full_final.ckpt"), _load(ckpts / "half_final.ckpt")
     assert set(a) == {"iteration", "global_step", "agent_state", "optimizer_state", "args",
-                      "returns", "training_complete", "torch_loop_state"}
+                      "returns", "training_complete", "torch_loop_state", "loop_state"}
     assert a["torch_loop_state"]["obs"].shape == ((2, 7, 7, 3) if not extra else (2, 84, 84, 3))
     for key in ("iteration", "global_step", "agent_state", "optimizer_state", "returns",
                 "torch_loop_state"):
         _assert_payloads_equal(a[key], b[key], key)
+    for x, y in ((a, a), (a, b)):  # loop_state holds torch_loop_state's env state
+        want = convert.vec_state(x["loop_state"]["vec_state"])
+        for name, v in y["torch_loop_state"]["vec_state"]["env"].items():
+            np.testing.assert_array_equal(getattr(want.env, name).numpy(), v, err_msg=name)
+    np.testing.assert_array_equal(a["loop_state"]["obs"], a["torch_loop_state"]["obs"])
     mid = _load(ckpts / "full_step_32.ckpt")["torch_loop_state"]
     assert not np.array_equal(mid["gen"], a["torch_loop_state"]["gen"])
 
-    # The JAX vanilla CLI's resume templates (its `state_extras`) skip the
-    # port's loop state: params and optimizer load, the envs start fresh.
+    # The JAX vanilla CLI's resume templates (its `state_extras`) read the
+    # port's env state, in the JAX package's dtypes.
     jenv = JaxVectorEnv(ENV_ID, 2)
     jtr = JTrainer(JPPOConfig(**CFG), jenv, 2)
     jstate = jtr.init_state(jagent.init_agent_params(jax.random.PRNGKey(0), 7), 0)
@@ -225,9 +231,55 @@ def test_cli_resume_is_bit_identical(tmp_path, monkeypatch, extra):
             "key": jstate.key}
     jparams, _, it, step, raw = jload(str(ckpts / "full_final.ckpt"), jstate.params,
                                       jstate.opt_state, extra_templates={"loop": loop})
-    assert (it, step) == (2, 64) and "loop" not in raw.get("extras", {})
+    assert (it, step) == (2, 64)
     np.testing.assert_array_equal(np.asarray(jparams["trunk"]["fc"]["w"]),
                                   a["agent_state"]["trunk"]["fc"]["w"])
+    got = raw["extras"]["loop"]
+    for f in dataclasses.fields(got["vec_state"].env):
+        x, t = getattr(got["vec_state"].env, f.name), getattr(jstate.vec_state.env, f.name)
+        assert (x.dtype, x.shape[1:]) == (t.dtype, t.shape[1:]), f.name
+    for name, v in a["torch_loop_state"]["vec_state"]["env"].items():
+        np.testing.assert_array_equal(np.asarray(getattr(got["vec_state"].env, name)), v,
+                                      err_msg=name)
+    if not extra:
+        assert (got["obs"].dtype, got["obs"].shape) == (jstate.obs.dtype, jstate.obs.shape)
+    np.testing.assert_array_equal(np.asarray(got["obs"]), a["torch_loop_state"]["obs"])
+
+
+def test_jax_cli_resumes_a_port_checkpoint(tmp_path, monkeypatch):
+    """The JAX vanilla CLI resumes the port's checkpoint of iteration 1
+    mid-episode: params, global step, and the env state, observations and
+    ``next_done`` of its ``loop_state``; it then runs iteration 2."""
+    from clip_ppo_tpu.cli import ppo_minigrid as jcli
+
+    monkeypatch.chdir(tmp_path)
+    tcli.train(_args(tmp_path), run_name="port")
+    path = tmp_path / "checkpoints" / "port_step_32.ckpt"
+    written = _load(path)
+    assert written["torch_loop_state"]["vec_state"]["env"]["step_count"].any()
+    seen = []
+    run_iterations = JTrainer.run_iterations
+
+    def spy(self, state, start, k):  # a copy: the iteration donates the state's buffers
+        seen.append((start, jax.tree_util.tree_map(np.array, state)))
+        return run_iterations(self, state, start, k)
+
+    monkeypatch.setattr(JTrainer, "run_iterations", spy)
+    out = jcli.train(jcli.Args(env_id=ENV_ID, seed=3, num_envs=2, num_steps=16,
+                               num_minibatches=2, update_epochs=2, total_timesteps=64,
+                               capture_video=False, save_model=False,
+                               resume_checkpoint=str(path)), run_name="jax_from_port")
+    assert out["global_step"] == 64
+    (start, state), = seen
+    assert start == 2
+    loop = written["torch_loop_state"]
+    for name, v in loop["vec_state"]["env"].items():
+        np.testing.assert_array_equal(np.asarray(getattr(state.vec_state.env, name)), v,
+                                      err_msg=name)
+    np.testing.assert_array_equal(np.asarray(state.obs), loop["obs"])
+    np.testing.assert_array_equal(np.asarray(state.next_done), loop["next_done"])
+    np.testing.assert_array_equal(np.asarray(state.params["trunk"]["fc"]["w"]),
+                                  written["agent_state"]["trunk"]["fc"]["w"])
 
 
 def _jax_vanilla_checkpoint(tmp_path) -> tuple[str, dict]:

@@ -231,7 +231,8 @@ def test_cli_cuda_flag_needs_a_gpu(tmp_path, monkeypatch):
     (["--num-devices", "2"], "multi-GPU"),
     (["--tp", "2"], "multi-GPU"),
     (["--distributed"], "multi-GPU"),
-    (["--mission-conditioning"], "extensions"),
+    (["--mission-conditioning", "--clip-config.clip-lambda", "1e-5",
+      "--clip-config.clip-modality", "image"], "image modality"),
 ])
 def test_cli_rejects_later_slices(tmp_path, monkeypatch, argv, match):
     monkeypatch.chdir(tmp_path)

@@ -13,10 +13,14 @@ seeds 1, 2 and 3.
     python tools/learning_checks.py                       # on the GPU
     python tools/learning_checks.py MiniGrid-Empty-5x5-v0=4096 --no-cuda --seeds 1
     python tools/learning_checks.py MiniGrid-KeyCorridorS3R1-v0=1000000 --seeds 1
+    python tools/learning_checks.py MiniGrid-GoToDoor-5x5-v0=1000000,mission --seeds 1
 
-Each positional argument is ``env_id[=total_timesteps]`` (default 250k
-steps). Runs go one after another in one process, each in a temporary
-working directory (no checkpoints, videos or TensorBoard files are kept).
+Each positional argument is ``env_id[=total_timesteps][,option...]``
+(default 250k steps), the options those of ``benchmarks/learning_checks.py``
+this port runs: ``mission`` (``--mission-conditioning``) and ``recurrent``
+(``--recurrent``); a line names the options it ran with. Runs go one after
+another in one process, each in a temporary working directory (no
+checkpoints, videos or TensorBoard files are kept).
 The last line is the mean over every run of its last-100 mean, with the
 device's name (and, on a GPU, its power limit from nvidia-smi).
 """
@@ -61,8 +65,14 @@ def main(argv: list[str] | None = None) -> list[dict]:
     lines = []
     cwd = os.getcwd()
     for spec in opts.specs:
-        env_id, _, steps = spec.partition("=")
+        head, *options = spec.split(",")
+        unknown = set(options) - {"mission", "recurrent"}
+        if unknown:
+            parser.error(f"{spec}: unknown options {sorted(unknown)} (mission, recurrent)")
+        env_id, _, steps = head.partition("=")
         steps = int(steps or 250_000)
+        switches = {"mission_conditioning": "mission" in options,
+                    "recurrent": "recurrent" in options}
         for seed in opts.seeds:
             with tempfile.TemporaryDirectory() as tmp:
                 os.chdir(tmp)
@@ -70,7 +80,7 @@ def main(argv: list[str] | None = None) -> list[dict]:
                     t0 = time.time()
                     out = ppo_minigrid.train(ppo_minigrid.Args(
                         env_id=env_id, seed=seed, total_timesteps=steps, cuda=opts.cuda,
-                        capture_video=False, save_model=False,
+                        capture_video=False, save_model=False, **switches,
                     ), run_name=f"lcheck_{env_id}_{seed}")
                     wall = time.time() - t0
                 finally:
@@ -80,6 +90,7 @@ def main(argv: list[str] | None = None) -> list[dict]:
             k = min(200, max(len(every) // 2, 1))
             line = {
                 "metric": "learning_check", "env_id": env_id, "seed": seed, "steps": steps,
+                **{o: True for o in ("mission", "recurrent") if o in options},
                 "global_step": out["global_step"], "sps": out["sps"], "wall_s": wall,
                 "episodes": out["episodes"],
                 "last100_mean": sum(ret) / max(len(ret), 1),
